@@ -1,0 +1,78 @@
+"""Policy adapter: one actor-critic codepath for continuous actions.
+
+Discrete and image policies are not ported yet."""
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from rlx_tpu_torch.environments.types import ActionSpaceType, ObservationSpaceType
+from rlx_tpu_torch.models import distributions as D
+from rlx_tpu_torch.models.mlp import GaussianPolicy, VCritic
+
+
+def compute_dtype(config):
+    """Trunk compute dtype from ``algorithm.compute_dtype`` (None = f32)."""
+    return torch.bfloat16 if config.algorithm.compute_dtype == "bfloat16" else None
+
+
+class PolicyAdapter(NamedTuple):
+    module: torch.nn.Module
+    sample_and_log_prob: Callable  # (obs, generator=None, noise=None) -> (action, log_prob)
+    log_prob_entropy: Callable     # (obs, action) -> (log_prob, entropy)
+    mode: Callable                 # obs -> deterministic action
+    process_action: Callable       # raw action -> env action
+
+
+def _check_supported(env):
+    props = env.general_properties
+    if props.action_space_type != ActionSpaceType.CONTINUOUS:
+        raise NotImplementedError("only continuous actions are ported")
+    if props.observation_space_type != ObservationSpaceType.FLAT_VALUES:
+        raise NotImplementedError("only flat observations are ported")
+
+
+def make_policy(config, env, device):
+    _check_supported(env)
+    a = config.algorithm
+    obs_dim = math.prod(env.single_observation_space.shape)
+    action_dim = math.prod(env.single_action_space.shape)
+    module = GaussianPolicy(
+        obs_dim, action_dim, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
+        a.std_dev, compute_dtype(config),
+    ).to(device)
+
+    if a.action_clipping_and_rescaling:
+        low, high = env.single_action_space.low, env.single_action_space.high
+
+        def process_action(action):
+            clipped = torch.clamp(action, -1.0, 1.0)
+            return low + 0.5 * (clipped + 1.0) * (high - low)
+    else:
+        def process_action(action):
+            return action
+
+    def sample_and_log_prob(obs, generator=None, noise=None):
+        mean, logstd = module(obs)
+        action = D.gaussian_sample(mean, logstd, generator, noise)
+        return action, D.gaussian_log_prob(mean, logstd, action)
+
+    def log_prob_entropy(obs, action):
+        mean, logstd = module(obs)
+        log_prob = D.gaussian_log_prob(mean, logstd, action)
+        return log_prob, D.gaussian_entropy(logstd).expand(log_prob.shape)
+
+    def mode(obs):
+        return module(obs)[0]
+
+    return PolicyAdapter(module, sample_and_log_prob, log_prob_entropy, mode, process_action)
+
+
+def make_critic(config, env, device):
+    _check_supported(env)
+    a = config.algorithm
+    return VCritic(
+        math.prod(env.single_observation_space.shape), tuple(a.critic_hidden_sizes),
+        a.activation, a.layer_norm, compute_dtype(config),
+    ).to(device)

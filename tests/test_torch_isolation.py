@@ -1,0 +1,46 @@
+"""The port stands alone: no module of rlx_tpu_torch, and nothing that
+chip_smoke.py imports, loads jax or the JAX package."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHECK = r"""
+import importlib, pkgutil, sys
+import rlx_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rlx_tpu_torch.__path__, "rlx_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+# chip_smoke imports the package inside main(); those imports are covered
+# above, and main() refuses to run without a card
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "rlx_tpu" or m.startswith("rlx_tpu."))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 30 else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_neither_jax_nor_the_jax_package():
+    offenders = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "rlx_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                words = line.replace(",", " ").split()
+                if line.lstrip().startswith(("import ", "from ")) and (
+                    "jax" in words or any(w == "rlx_tpu" or w.startswith("rlx_tpu.") for w in words)
+                ):
+                    offenders.append(f"{path}:{n}: {line.strip()}")
+    assert not offenders, offenders
