@@ -15,10 +15,21 @@ Phases (each prints one line; any failure exits nonzero):
    critic, bf16 trunk) for 3 iterations through the runner's entry points,
    with the kernels' launch counters proving the path went through them;
 6. one more PPO iteration under torch.profiler: wall time, device busy
-   time and idle share, per-phase host spans, the top kernels by device time.
+   time and idle share, per-phase host spans, the top kernels by device time;
+7. kernel B3 (C51 projection) against its plain version at [8192, 101] ->
+   101 (the FastTD3 path's shape), a ragged [8193, 101], [4096, 51] -> 101,
+   and positions beyond the support and on atoms;
+8. FastTD3 on ``locomotion.ant.cuda`` at full width (1024 envs, batch 8192,
+   n_step 3, 101 atoms, 512/256/128 ELU+LayerNorm policy and twin critic,
+   f32, the default 1e6-transition buffer) through the entry points: 5
+   prefill and 64 learning steps in 4 log lines, with the launch counters
+   proving every update went through B3 and every env step through B2;
+9. 16 more FastTD3 learning steps under torch.profiler, as phase 6.
 
-The line before the last is the kernels' JSON record, the last line the
-device record.  Needs a CUDA device; never falls back to the CPU.
+Each kernel is timed twice: CUDA events around a run of calls (``ms``: the
+wrapper's host cost shows when it exceeds the kernel's) and the profiler's
+time of the kernel alone (``device_ms``).  The line before the last is the
+kernels' JSON record, the last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
@@ -68,6 +79,63 @@ def max_err(outs, refs, rtol, atol, what):
     return worst
 
 
+def kernel_device_ms(fn, reps, kernel_name):
+    """Mean device time of the kernel whose name contains ``kernel_name``
+    over ``reps`` calls of ``fn``, from torch.profiler's CUDA events: the
+    kernel alone, where ``time_ms`` also counts a host that enqueues more
+    slowly than the kernel runs.  The tracer may drop an event at the edge
+    of the window, so the mean is over the launches it saw (at least half)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+    if not reps // 2 <= len(times) <= reps:
+        fail(f"profiler saw {len(times)} launches of {kernel_name} in {reps} calls")
+    return sum(times) / len(times) / 1e3
+
+
+def profile_spans(fn, span_prefix):
+    """Run ``fn`` once under torch.profiler: wall ms, device busy ms (the sum
+    of kernel times; kernels run one at a time on this stream), idle share,
+    the host and device time of the ``span_prefix`` record_function spans,
+    and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # A record_function span shows up twice: as a CPU event (host time) and
+    # as a GPU annotation (first to last kernel it launched).
+    events = prof.events()
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    kernel_ms, host_spans_ms, device_spans_ms = {}, {}, {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.name.startswith(span_prefix):
+            spans = host_spans_ms if e.device_type == DeviceType.CPU else device_spans_ms
+            spans[e.name] = spans.get(e.name, 0.0) + ms
+        elif e.device_type == DeviceType.CUDA and e.name not in cpu_names:
+            kernel_ms[e.name] = kernel_ms.get(e.name, 0.0) + ms
+    busy_ms = sum(kernel_ms.values())
+    top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "host_spans_ms": host_spans_ms,
+        "device_spans_ms": device_spans_ms, "top_kernels_ms": {k[:60]: v for k, v in top},
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke runs the CUDA kernels and has no CPU fallback")
@@ -111,15 +179,19 @@ def main():
         torch.cuda.synchronize()
         gae_err = max(gae_err, max_err(out, ref, 1e-5, 1e-5, f"GAE [64, {B}]"))
         if B == 4096:
-            gae_times = (time_ms(lambda: gae_advantages_cuda(r, v, nv, d, 0.99, 0.95), 200),
-                         time_ms(lambda: gae_advantages_reference(r, v, nv, d, 0.99, 0.95), 20))
+            gae = lambda: gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)
+            gae_times = (time_ms(gae, 200),
+                         time_ms(lambda: gae_advantages_reference(r, v, nv, d, 0.99, 0.95), 20),
+                         kernel_device_ms(gae, 200, "gae_kernel"))
     gae_bound = gae_bytes(64, 4096) / H100_BYTES_PER_S * 1e3
     print(f"B1 gae: max|err| {gae_err:.3g} (rtol=atol=1e-5, f32) kernel {gae_times[0]:.4f} ms "
-          f"plain {gae_times[1]:.3f} ms bound {gae_bound:.4f} ms at [64, 4096]")
+          f"(device {gae_times[2]:.4f} ms) plain {gae_times[1]:.3f} ms bound {gae_bound:.4f} ms "
+          f"at [64, 4096]")
     kernels.append(dict(
         name="gae", route="cuda", source="rlx_tpu_torch/csrc/gae.cu",
-        replaces="rlx_tpu/ops/gae_pallas.py:53", ms=gae_times[0], plain_ms=gae_times[1],
-        bound_ms=gae_bound, bound_by="bytes", library_ms=None, max_abs_err=gae_err,
+        replaces="rlx_tpu/ops/gae_pallas.py:53", ms=gae_times[0], device_ms=gae_times[2],
+        plain_ms=gae_times[1], bound_ms=gae_bound, bound_by="bytes", library_ms=None,
+        max_abs_err=gae_err,
     ))
 
     # 4. B2: physics substep on the Ant
@@ -152,18 +224,21 @@ def main():
         ref = engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=S, **kw)
         torch.cuda.synchronize()
         step_err = max(step_err, max_err(out, ref, rtol, atol, f"substep ({label})"))
-    step_ms = time_ms(lambda: step_cuda(model, qpos, qvel, ctrl, nr_substeps=S), 100)
+    substep = lambda: step_cuda(model, qpos, qvel, ctrl, nr_substeps=S)
+    step_ms = time_ms(substep, 100)
+    step_device_ms = kernel_device_ms(substep, 100, "engine_substep_kernel")
     step_plain_ms = time_ms(lambda: engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=S), 3)
     flops = substep_flops(model) * B * S
     nbytes = substep_bytes(model, B, with_anchors=False)
     step_bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations"
     print(f"B2 engine_substep: max|err| {step_err:.3g} (rtol=atol=1e-4) kernel {step_ms:.4f} ms "
-          f"plain {step_plain_ms:.2f} ms bound {step_bound:.5f} ms ({bound_by}: {flops} flops, "
-          f"{nbytes} bytes) at B={B}, {S} substeps")
+          f"(device {step_device_ms:.4f} ms) plain {step_plain_ms:.2f} ms bound {step_bound:.5f} ms "
+          f"({bound_by}: {flops} flops, {nbytes} bytes) at B={B}, {S} substeps")
     kernels.append(dict(
         name="engine_substep", route="cuda", source="rlx_tpu_torch/csrc/engine_substep.cu",
-        replaces="rlx_tpu/ops/engine_substep_pallas.py:82", ms=step_ms, plain_ms=step_plain_ms,
+        replaces="rlx_tpu/ops/engine_substep_pallas.py:82", ms=step_ms, device_ms=step_device_ms,
+        plain_ms=step_plain_ms,
         bound_ms=step_bound, bound_by=bound_by, library_ms=None, max_abs_err=step_err,
     ))
 
@@ -215,38 +290,135 @@ def main():
 
     # 6. where the time goes: one more iteration under the profiler (after
     # the counts above were read)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def one_iteration():
         model.env_state, _ = model.learning_iteration(model.env_state)
+
+    print("profile: " + json.dumps(profile_spans(one_iteration, "ppo/")))
+    launches_by_path = {"ppo": launches}
+
+    # 7. B3: C51 projection
+    from rlx_tpu_torch.ops.distributional import categorical_projection_reference
+    from rlx_tpu_torch.ops.projection_cuda import (
+        categorical_projection_cuda, projection_bytes, projection_flops,
+    )
+
+    v_min, v_max, nr_atoms = -10.0, 10.0, 101
+    atoms = torch.linspace(v_min, v_max, nr_atoms, device=dev)
+
+    def softmax_probs(n, a):
+        return torch.softmax(2.0 * torch.randn(n, a, device=dev, generator=g), dim=-1)
+
+    def fasttd3_targets(n):
+        # r + gamma_n (1 - d) atoms, as the FastTD3 update builds them
+        r = 3.0 * torch.randn(n, 1, device=dev, generator=g)
+        d = (torch.rand(n, 1, device=dev, generator=g) < 0.1).float()
+        gamma_n = 0.97 ** torch.randint(1, 4, (n, 1), device=dev, generator=g).float()
+        return r + gamma_n * (1.0 - d) * atoms[None]
+
+    on_atoms = atoms[None].repeat(8192, 1)   # every position an atom (b integral or 1 ulp off)
+    on_atoms[4096:] = torch.where(torch.rand(4096, nr_atoms, device=dev, generator=g) < 0.5,
+                                  v_min - 2.0, v_max + 2.0)
+    cases = {
+        "[8192, 101] FastTD3 targets": (fasttd3_targets(8192), softmax_probs(8192, 101)),
+        "[8193, 101] ragged": (28.0 * torch.rand(8193, 101, device=dev, generator=g) - 14.0,
+                               softmax_probs(8193, 101)),
+        "[4096, 51] -> 101": (28.0 * torch.rand(4096, 51, device=dev, generator=g) - 14.0,
+                              softmax_probs(4096, 51)),
+        "[8192, 101] on atoms and beyond the support": (on_atoms, softmax_probs(8192, 101)),
+    }
+    # f32 on both sides with the same true division; the kernel sums over j
+    # in order with fused multiply-adds, the plain einsum in its own order
+    rtol = atol = 1e-6
+    proj_err = 0.0
+    for label, (z, p) in cases.items():
+        out = categorical_projection_cuda(z, p, v_min, v_max, nr_atoms)
+        ref = categorical_projection_reference(z, p, v_min, v_max, nr_atoms)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # A record_function span shows up twice: as a CPU event (host time) and
-    # as a GPU annotation (first to last kernel it launched).  Device busy
-    # time sums only the kernels, which run one at a time on this stream.
-    events = prof.events()
-    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    kernel_ms, host_spans_ms, device_spans_ms = {}, {}, {}
-    for e in events:
-        ms = e.time_range.elapsed_us() / 1e3
-        if e.name.startswith("ppo/"):
-            spans = host_spans_ms if e.device_type == DeviceType.CPU else device_spans_ms
-            spans[e.name] = spans.get(e.name, 0.0) + ms
-        elif e.device_type == DeviceType.CUDA and e.name not in cpu_names:
-            kernel_ms[e.name] = kernel_ms.get(e.name, 0.0) + ms
-    busy_ms = sum(kernel_ms.values())
-    top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:6]
-    print("profile: " + json.dumps({
-        "iteration_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms, "host_spans_ms": host_spans_ms,
-        "device_spans_ms": device_spans_ms, "top_kernels_ms": {k[:60]: v for k, v in top},
-    }))
+        proj_err = max(proj_err, max_err([out], [ref], rtol, atol, f"projection {label}"))
+    z, p = cases["[8192, 101] FastTD3 targets"]
+    project = lambda: categorical_projection_cuda(z, p, v_min, v_max, nr_atoms)
+    proj_ms = time_ms(project, 200)
+    proj_device_ms = kernel_device_ms(project, 200, "projection_kernel")
+    proj_plain_ms = time_ms(lambda: categorical_projection_reference(z, p, v_min, v_max, nr_atoms), 20)
+    nbytes, flops = projection_bytes(8192, 101, 101), projection_flops(8192, 101)
+    proj_bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations"
+    print(f"B3 projection: max|err| {proj_err:.3g} (rtol=atol=1e-6, f32) kernel {proj_ms:.4f} ms "
+          f"(device {proj_device_ms:.4f} ms) plain {proj_plain_ms:.3f} ms bound {proj_bound:.5f} ms "
+          f"({bound_by}: {nbytes} bytes, {flops} flops) at [8192, 101] -> 101")
+    kernels.append(dict(
+        name="categorical_projection", route="cuda", source="rlx_tpu_torch/csrc/projection.cu",
+        replaces="rlx_tpu/ops/projection_pallas.py:47", ms=proj_ms, device_ms=proj_device_ms,
+        plain_ms=proj_plain_ms,
+        bound_ms=proj_bound, bound_by=bound_by, library_ms=None, max_abs_err=proj_err,
+    ))
+
+    # 8. FastTD3 through the entry points
+    nr_envs, learning_steps, log_steps = 1024, 64, 16
+    learning_starts = 5000
+    config = make_config("fasttd3.cuda", "locomotion.ant.cuda", **{
+        "runner.device": "cuda",
+        "environment.nr_envs": nr_envs,
+        "algorithm.batch_size": 8192,
+        "algorithm.n_step": 3,
+        "algorithm.nr_atoms": nr_atoms,
+        "algorithm.v_min": v_min,
+        "algorithm.v_max": v_max,
+        "algorithm.learning_starts": learning_starts,
+        "algorithm.total_timesteps": learning_starts + learning_steps * nr_envs,
+        "algorithm.logging_frequency": log_steps * nr_envs,
+        "algorithm.evaluation_active": False,
+    })
+    td3 = create_model(config)
+    step_cuda.launches = 0
+    categorical_projection_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    td3.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    td3_launches = {"engine_substep": step_cuda.launches,
+                    "categorical_projection": categorical_projection_cuda.launches}
+    expected = {"engine_substep": td3.prefill_iterations + learning_steps,
+                "categorical_projection": learning_steps}
+    if td3.prefill_iterations != 5 or td3_launches != expected:
+        fail(f"FastTD3 launch counts {td3_launches} != {expected} (prefill {td3.prefill_iterations})")
+    history = td3.metrics_history
+    if [m["steps/nr_updates"] for m in history] != [16, 32, 48, 64]:
+        fail(f"FastTD3 logged {[m['steps/nr_updates'] for m in history]}, expected [16, 32, 48, 64]")
+    for it, metrics in enumerate(history):
+        for k, v in metrics.items():
+            if not math.isfinite(v):
+                fail(f"FastTD3 log line {it}: {k} = {v}")
+    for state in (td3.policy, td3.critic):
+        for module in (state.module, state.target):
+            if not all(torch.isfinite(p).all() for p in module.parameters()):
+                fail("FastTD3: non-finite parameters after training")
+    count = float(td3.obs_normalizer["count"])
+    finite = all(torch.isfinite(v).all() for v in td3.obs_normalizer.values())
+    if count < learning_steps * nr_envs or not finite:
+        fail(f"FastTD3 observation normalizer count {count} < {learning_steps * nr_envs} or not finite")
+    env_steps = (td3.prefill_iterations + learning_steps) * nr_envs
+    print(f"train: FastTD3 {td3.prefill_iterations} prefill + {learning_steps} learning steps at "
+          f"{nr_envs} envs, batch 8192, in {elapsed:.2f} s ({env_steps / elapsed:.0f} env-steps/s, "
+          f"buffer allocation and prefill included); env-steps/s of the 4 log lines (the first "
+          f"includes the prefill) {[m['time/sps'] for m in history]}, launches {td3_launches}, "
+          f"normalizer count {count}, "
+          f"buffer {td3.buffer.storage.numel() * 4 / 2**20:.0f} MiB, last log line "
+          + json.dumps({k: v for k, v in history[-1].items() if k.startswith(("loss/", "q_value/"))}))
+    launches_by_path["fasttd3"] = td3_launches
+
+    # 9. where the time goes: 16 more learning steps under the profiler
+    def one_logging_iteration():
+        td3.env_state = td3._logging_iteration(td3.buffer, td3.env_state, learning_steps)
+
+    print("profile fasttd3: " + json.dumps(profile_spans(one_logging_iteration, "fasttd3/")))
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by_path = {path: counts[k["name"]]
+                   for path, counts in launches_by_path.items() if k["name"] in counts}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,0 +1,223 @@
+"""Shared scaffolding of the off-policy algorithms.
+
+The same skeleton as the JAX package's ``algorithms/offpolicy.py`` with
+Python loops in place of its scans: a packed replay buffer on the device, a
+random prefill, then learning steps (1 env step : 1 gradient update) in
+logging iterations inside eval/save iterations, with the same sizing, so
+the counts of env steps, updates and log lines equal the JAX package's.
+Each algorithm implements:
+
+- ``setup_states()``                              networks, targets, optimizers
+- ``act(observation, noise=None) -> action``       normalized [-1, 1]
+- ``eval_act(observation) -> action``
+- ``update(batch, step, ...) -> metrics``          device scalars
+- ``observe_transition(observation, env_state)``   optional hook
+
+The phases of a learning step run under ``torch.profiler.record_function``
+spans ``<algorithm>/act``, ``/env_step``, ``/store``, ``/sample`` and
+``/update``; they cost nothing measurable without an active profiler.
+
+Not ported yet (a config that asks for them has no such key, so it raises):
+the device mesh, parallel seeds, chunked training, checkpointing, test mode,
+``update_with_buffer`` (REDQ/DroQ/AQE) and the per-env sizing keys
+``learning_starts_per_env`` / ``buffer_size_per_env`` of FastMPO.
+"""
+
+import math
+import time
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from rlx_tpu_torch.environments.types import ActionSpaceType
+from rlx_tpu_torch.ops import replay_buffer as rb
+from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
+
+
+class OffPolicyAlgorithm:
+    def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
+        self.config = config
+        self.train_env = train_env
+        self.eval_env = eval_env
+        self.device = train_env.device
+
+        a = config.algorithm
+        self.name = a.name.split(".")[0]
+        self.seed = config.environment.seed
+        self.total_timesteps = int(a.total_timesteps)
+        self.nr_envs = config.environment.nr_envs
+        self.learning_rate = a.learning_rate
+        self.buffer_size = int(a.buffer_size)
+        self.learning_starts = int(a.learning_starts)
+        self.batch_size = a.batch_size
+        self.gamma = a.gamma
+        self.tau = a.tau
+        self.logging_frequency = int(a.logging_frequency)
+        self.logging_active = a.logging_active
+        self.evaluation_active = a.evaluation_active
+        self.n_step = int(a.n_step)
+
+        self.total_training_timesteps = self.total_timesteps - self.learning_starts
+        self.eval_save_frequency = a.evaluation_and_save_frequency
+        if self.eval_save_frequency == -1:
+            self.eval_save_frequency = self.nr_envs * max(self.total_training_timesteps // self.nr_envs, 1)
+        # ceil, so the whole requested budget is trained
+        self.nr_eval_save_iterations = max(
+            int(math.ceil(self.total_training_timesteps / self.eval_save_frequency)), 1
+        )
+        self.nr_loggings_per_eval_save_iteration = max(self.eval_save_frequency // self.logging_frequency, 1)
+        self.nr_updates_per_logging_iteration = max(self.logging_frequency // self.nr_envs, 1)
+        self.capacity = max(self.buffer_size // self.nr_envs, 1)
+        self.prefill_iterations = (
+            int(math.ceil(self.learning_starts / self.nr_envs)) if self.learning_starts > 0 else 0
+        )
+
+        self.horizon = train_env.horizon
+        self.os_shape = tuple(train_env.single_observation_space.shape)
+        if train_env.general_properties.action_space_type != ActionSpaceType.CONTINUOUS:
+            raise NotImplementedError("only continuous actions are ported for off-policy algorithms")
+        self.action_dim = int(np.prod(train_env.single_action_space.shape))
+        # clip to [-1, 1], then rescale to the env's bounds
+        low, high = train_env.single_action_space.low, train_env.single_action_space.high
+        self.process_action = lambda action: low + 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0) * (high - low)
+
+        self.logger = MetricsLogger(config.runner.track_console)
+        rlx_logger.info(f"Using device: {self.device}")
+
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.host_generator = torch.Generator().manual_seed(self.seed)
+        self.setup_states()
+        self.metrics_history = []   # per-logging-iteration float metrics
+        self.eval_history = None
+
+    # --- algorithm hooks ---------------------------------------------------
+    def setup_states(self):
+        raise NotImplementedError
+
+    def act(self, observation, noise=None):
+        raise NotImplementedError
+
+    def eval_act(self, observation):
+        raise NotImplementedError
+
+    def update(self, batch, step):
+        raise NotImplementedError
+
+    def observe_transition(self, observation, env_state):
+        """Hook after each learning env step (running normalizers)."""
+
+    # --- scaffolding -------------------------------------------------------
+    def _make_buffer(self):
+        return rb.create(self.capacity, self.nr_envs, {
+            "observation": (self.os_shape, torch.float32),
+            "next_observation": (self.os_shape, torch.float32),
+            "action": ((self.action_dim,), torch.float32),
+            "reward": ((), torch.float32),
+            "terminated": ((), torch.float32),
+            "truncated": ((), torch.float32),
+        }, device=self.device)
+
+    def _store_step(self, buffer, observation, action, env_state):
+        rb.add(buffer, {
+            "observation": observation,
+            "next_observation": env_state.final_observation,
+            "action": action,
+            "reward": env_state.reward,
+            "terminated": env_state.terminated.to(torch.float32),
+            "truncated": env_state.truncated.to(torch.float32),
+        })
+
+    def _sample(self, buffer):
+        if self.n_step > 1:
+            return rb.sample_nstep(buffer, self.generator, self.batch_size, self.n_step, self.gamma)
+        return rb.sample(buffer, self.generator, self.batch_size)
+
+    def _learning_step(self, buffer, env_state, step):
+        """act -> env step -> store -> observe -> sample -> update."""
+        observation = env_state.observation
+        with record_function(f"{self.name}/act"), torch.no_grad():
+            action = self.act(observation)
+        with record_function(f"{self.name}/env_step"), torch.no_grad():
+            env_state = self.train_env.step(env_state, self.process_action(action))
+        with record_function(f"{self.name}/store"), torch.no_grad():
+            self._store_step(buffer, observation, action, env_state)
+            self.observe_transition(observation, env_state)
+        with record_function(f"{self.name}/sample"), torch.no_grad():
+            batch = self._sample(buffer)
+        with record_function(f"{self.name}/update"):
+            metrics = self.update(batch, step)
+        return env_state, metrics
+
+    def _prefill(self, buffer, env_state):
+        """Uniform [-1, 1] actions; the normalizers do not see these steps."""
+        with torch.no_grad():
+            for _ in range(self.prefill_iterations):
+                action = 2.0 * torch.rand((self.nr_envs, self.action_dim), generator=self.generator,
+                                          device=self.device) - 1.0
+                observation = env_state.observation
+                env_state = self.train_env.step(env_state, self.process_action(action))
+                self._store_step(buffer, observation, action, env_state)
+        return env_state
+
+    def _logging_iteration(self, buffer, env_state, step_base):
+        sums = {}
+        for k in range(self.nr_updates_per_logging_iteration):
+            env_state, metrics = self._learning_step(buffer, env_state, step_base + k)
+            if self.logging_active:
+                means = {key: v.float().mean() for key, v in env_state.info.items()}
+                means.update(metrics)
+                for key, v in means.items():
+                    sums[key] = sums[key] + v.detach() if key in sums else v.detach()
+        nr_updates = step_base + self.nr_updates_per_logging_iteration
+        if self.logging_active:
+            values = {key: float(v) / self.nr_updates_per_logging_iteration for key, v in sums.items()}
+            now = time.time()
+            values["time/sps"] = int(
+                self.nr_envs * self.nr_updates_per_logging_iteration / max(now - self._last_log_time, 1e-9)
+            )
+            self._last_log_time = now
+            values["steps/nr_env_steps"] = nr_updates * self.nr_envs
+            values["steps/nr_updates"] = nr_updates
+            self.metrics_history.append(values)
+            self.logger.log_dict(values, nr_updates * self.nr_envs)
+        return env_state
+
+    @torch.no_grad()
+    def _eval_iteration(self, eval_save_iteration):
+        """``horizon`` deterministic steps from a fresh eval reset; the mean of
+        every ``rollout/*`` info key becomes ``eval/*``."""
+        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        eval_env_state = self.eval_env.reset(seed, eval_mode=True)
+        for _ in range(self.horizon):
+            action = self.eval_act(eval_env_state.observation)
+            eval_env_state = self.eval_env.step(eval_env_state, self.process_action(action))
+        eval_metrics = {
+            "eval/" + k.split("rollout/", 1)[1]: float(v.float().mean())
+            for k, v in eval_env_state.info.items() if k.startswith("rollout/")
+        }
+        if self.logging_active:
+            self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
+        return eval_metrics
+
+    def train(self):
+        start = self._last_log_time = time.time()
+        buffer = self._make_buffer()
+        env_state = self._prefill(buffer, self.train_env.reset(self.seed))
+        evals = []
+        for i in range(self.nr_eval_save_iterations):
+            for j in range(self.nr_loggings_per_eval_save_iteration):
+                logging_iteration = i * self.nr_loggings_per_eval_save_iteration + j
+                step_base = logging_iteration * self.nr_updates_per_logging_iteration
+                env_state = self._logging_iteration(buffer, env_state, step_base)
+            if self.evaluation_active:
+                evals.append(self._eval_iteration(i))
+        self.env_state, self.buffer = env_state, buffer
+        if evals:
+            # x-axis in env interactions consumed: the random prefill
+            # (learning_starts) comes before the first recorded point
+            self.eval_history = {
+                "steps": self.learning_starts + (np.arange(len(evals)) + 1) * self.eval_save_frequency,
+                **{k: np.asarray([e[k] for e in evals]) for k in evals[0]},
+            }
+        rlx_logger.info(f"Average time: {time.time() - start:.2f} s")

@@ -31,24 +31,10 @@ import torch
 from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperties
+from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
-
-
-def global_norm(tensors):
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
-
-
-def clip_by_global_norm_(grads, max_norm):
-    """In place: ``g / norm * max_norm`` where ``norm >= max_norm`` (as
-    ``optax.clip_by_global_norm``); returns the unclipped norm."""
-    norm = global_norm(grads)
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
-    return norm
 
 
 class PPO:

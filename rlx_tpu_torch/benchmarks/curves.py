@@ -1,0 +1,93 @@
+"""Learning checks of the port on the card against the JAX package's records.
+
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_fasttd3 --seeds 0 1 2 \
+        --out chiprun_out/pendulum_spot_fasttd3.json
+
+Each recipe is the JAX package's (``benchmarks/curves.py``): the same
+budget, evaluation points, overrides and threshold, so the outcome reads
+against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
+turn; its final return is the mean of its last three evaluations, and the
+check passes when every seed's final return clears the threshold.  Needs a
+CUDA device and prints the card's name and power limit beside the result.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+RUNS = {
+    # benchmarks/curves.py: _PENDULUM_OFFPOLICY plus the categorical support
+    # that covers Pendulum's raw returns
+    "pendulum_spot_fasttd3": {
+        "algorithm": "fasttd3.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 100_000, "threshold": -500.0, "eval_points": 8,
+        "overrides": {
+            "algorithm.learning_starts": 1_000, "algorithm.buffer_size": 100_000,
+            "algorithm.batch_size": 128, "algorithm.logging_frequency": 2_000,
+            "environment.nr_envs": 8, "algorithm.v_min": -800.0, "algorithm.v_max": 100.0,
+        },
+    },
+}
+
+
+def run_seed(spec, seed):
+    from rlx_tpu_torch.config import create_model, make_config
+
+    budget = spec["budget"]
+    config = make_config(spec["algorithm"], spec["environment"], **{
+        **spec["overrides"],
+        "runner.device": "cuda",
+        "algorithm.total_timesteps": budget,
+        "algorithm.evaluation_and_save_frequency": max(budget // spec["eval_points"], 1),
+        "algorithm.evaluation_active": True,
+        "algorithm.logging_active": False,
+        "environment.seed": seed,
+    })
+    model = create_model(config)
+    start = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    history = model.eval_history
+    returns = [float(r) for r in history["eval/episode_return"]]
+    return {
+        "seed": seed,
+        "steps": [int(s) for s in history["steps"]],
+        "returns": returns,
+        "final_return": sum(returns[-3:]) / len(returns[-3:]),
+        "wall_s": time.perf_counter() - start,
+    }
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("name", choices=sorted(RUNS))
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: the learning checks run on the card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    spec = RUNS[args.name]
+    seeds = [run_seed(spec, seed) for seed in args.seeds]
+    result = {
+        "name": args.name, "algorithm": spec["algorithm"], "environment": spec["environment"],
+        "budget": spec["budget"], "threshold": spec["threshold"], "card": card,
+        "seeds": seeds,
+        "per_seed_passed": [s["final_return"] >= spec["threshold"] for s in seeds],
+    }
+    result["passed"] = all(result["per_seed_passed"])
+    print(json.dumps(result))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

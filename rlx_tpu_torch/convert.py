@@ -1,10 +1,12 @@
-"""Carry PPO weights from the JAX package's flax parameters to the port.
+"""Carry weights from the JAX package's flax parameters to the port.
 
 The input is a flax parameter tree as nested dicts of numpy arrays
 (``policy_state.params`` / ``critic_state.params``, with or without the
 outer ``"params"`` key).  Dense kernels are stored ``[in, out]`` by flax and
 ``[out, in]`` by ``nn.Linear``, so they are transposed; LayerNorm
-``scale``/``bias`` become ``weight``/``bias``.
+``scale``/``bias`` become ``weight``/``bias``.  The ``nn.vmap``-ed critic
+ensemble keeps every leaf stacked on a leading critic axis, which the
+port's ``VectorQCritic`` keeps too.
 """
 
 import numpy as np
@@ -48,4 +50,34 @@ def critic_state_dict(flax_params):
     p = _unwrap(flax_params)
     out = _mlp(p["MLP_0"])
     out.update(_dense("value", p["Dense_0"]))
+    return out
+
+
+def deterministic_policy_state_dict(flax_params):
+    """``DeterministicTanhPolicy`` state_dict from flax ``DeterministicTanhPolicy`` params."""
+    p = _unwrap(flax_params)
+    out = _mlp(p["MLP_0"])
+    out.update(_dense("head", p["Dense_0"]))
+    return out
+
+
+def _batched_dense(prefix, p):
+    return {
+        f"{prefix}.weight": torch.as_tensor(np.swapaxes(np.asarray(p["kernel"], np.float32), 1, 2).copy()),
+        f"{prefix}.bias": torch.as_tensor(np.asarray(p["bias"], np.float32).copy()),
+    }
+
+
+def vector_q_critic_state_dict(flax_params):
+    """``VectorQCritic`` state_dict from flax ``VectorQCritic`` params
+    (``VmapQCritic_0`` with leaves ``[nr_critics, ...]``)."""
+    p = _unwrap(flax_params)["VmapQCritic_0"]
+    mlp = p["MLP_0"]
+    out = {}
+    for i in range(sum(1 for k in mlp if k.startswith("Dense_"))):
+        out.update(_batched_dense(f"layers.{i}", mlp[f"Dense_{i}"]))
+    if "LayerNorm_0" in mlp:
+        out["norm_weight"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["scale"], np.float32).copy())
+        out["norm_bias"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["bias"], np.float32).copy())
+    out.update(_batched_dense("head", p["Dense_0"]))
     return out

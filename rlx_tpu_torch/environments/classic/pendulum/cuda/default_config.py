@@ -1,0 +1,15 @@
+"""Pendulum env defaults (same values as the JAX package's ``classic.pendulum.tpu``)."""
+
+from rlx_tpu_torch.utils.config_dict import ConfigDict
+
+
+def get_config(environment_name):
+    return ConfigDict(
+        name=environment_name,
+        seed=1,
+        nr_envs=8,
+        horizon=200,
+        # POMDP variant (hides the angular velocity): needs the observation
+        # mask wrapper, which is not ported yet
+        mask_velocity=False,
+    )

@@ -1,8 +1,10 @@
 """MLP policy and critic networks.
 
-Init follows the JAX package: orthogonal kernels with sqrt(2) gain on the
-trunk, 0.01 on the policy head, 1.0 on the value head, zero biases, and a
-state-independent ``policy_logstd`` of shape ``(1, action_dim)``.
+Init follows the JAX package: for PPO's nets orthogonal kernels with
+sqrt(2) gain on the trunk, 0.01 on the policy head, 1.0 on the value head,
+zero biases, and a state-independent ``policy_logstd`` of shape
+``(1, action_dim)``; for the off-policy nets (``orthogonal_init=False``)
+flax's default Dense init, lecun normal kernels and zero biases.
 
 ``compute_dtype`` is the trunk's compute type (parameters stay float32):
 with bfloat16 the trunk's products run in bfloat16, while the heads, the
@@ -26,6 +28,8 @@ ACTIVATIONS = {
 }
 
 LAYER_NORM_EPS = 1e-6
+# stddev of a unit normal truncated to [-2, 2] (flax's variance_scaling)
+TRUNCATED_NORMAL_STDDEV = 0.87962566103423978
 
 
 def _orthogonal_linear(in_features, out_features, gain):
@@ -35,16 +39,30 @@ def _orthogonal_linear(in_features, out_features, gain):
     return layer
 
 
+def lecun_normal_(weight):
+    """flax's default kernel init in place: a normal truncated at two
+    standard deviations, scaled to variance 1/fan_in (fan_in is the last
+    axis of a ``[..., out, in]`` weight)."""
+    std = math.sqrt(1.0 / weight.shape[-1]) / TRUNCATED_NORMAL_STDDEV
+    return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+def _lecun_linear(in_features, out_features):
+    layer = nn.Linear(in_features, out_features)
+    lecun_normal_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 class MLP(nn.Module):
     """Dense -> (LayerNorm after the first Dense) -> activation, per layer."""
 
     def __init__(self, in_features, hidden_sizes, activation="tanh", layer_norm=False,
-                 kernel_gain=math.sqrt(2), compute_dtype=None):
+                 kernel_gain=math.sqrt(2), compute_dtype=None, orthogonal_init=True):
         super().__init__()
         sizes = [in_features] + list(hidden_sizes)
-        self.layers = nn.ModuleList(
-            _orthogonal_linear(a, b, kernel_gain) for a, b in zip(sizes[:-1], sizes[1:])
-        )
+        make = (lambda a, b: _orthogonal_linear(a, b, kernel_gain)) if orthogonal_init else _lecun_linear
+        self.layers = nn.ModuleList(make(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
         self.norm = nn.LayerNorm(hidden_sizes[0], eps=LAYER_NORM_EPS) if layer_norm else None
         self.activation = ACTIVATIONS[activation]
         self.compute_dtype = compute_dtype
@@ -87,3 +105,74 @@ class VCritic(nn.Module):
 
     def forward(self, x):
         return self.value(self.trunk(x))
+
+
+class DeterministicTanhPolicy(nn.Module):
+    """DDPG/TD3 policy: obs -> tanh(Dense(trunk)) in [-1, 1]."""
+
+    def __init__(self, obs_dim, action_dim, hidden_sizes, activation="relu", layer_norm=False):
+        super().__init__()
+        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, orthogonal_init=False)
+        self.head = _lecun_linear(hidden_sizes[-1], action_dim)
+
+    def forward(self, x):
+        return torch.tanh(self.head(self.trunk(x)))
+
+
+class BatchedLinear(nn.Module):
+    """``nr`` independent Dense layers: weight ``[nr, out, in]``, bias
+    ``[nr, out]``; one batched product maps ``[B, in]`` (shared input) or
+    ``[nr, B, in]`` to ``[nr, B, out]``."""
+
+    def __init__(self, nr, in_features, out_features):
+        super().__init__()
+        self.weight = nn.Parameter(lecun_normal_(torch.empty(nr, out_features, in_features)))
+        self.bias = nn.Parameter(torch.zeros(nr, out_features))
+
+    def forward(self, x):
+        if x.ndim == 2:
+            return torch.einsum("bi,noi->nbo", x, self.weight) + self.bias[:, None, :]
+        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+
+
+class VectorQCritic(nn.Module):
+    """An ensemble of ``nr_critics`` Q critics, (obs, action) -> ``[nr_critics,
+    B, output_dim]``, with flax's default init and each member's weights
+    stacked on a leading axis (the JAX package's ``nn.vmap``-ed ``QCritic``):
+    Dense -> (LayerNorm after the first Dense) -> activation per layer, then
+    a Dense head."""
+
+    def __init__(self, obs_dim, action_dim, hidden_sizes, nr_critics=2, activation="relu",
+                 layer_norm=False, output_dim=1):
+        super().__init__()
+        sizes = [obs_dim + action_dim] + list(hidden_sizes)
+        self.layers = nn.ModuleList(
+            BatchedLinear(nr_critics, a, b) for a, b in zip(sizes[:-1], sizes[1:])
+        )
+        if layer_norm:
+            self.norm_weight = nn.Parameter(torch.ones(nr_critics, hidden_sizes[0]))
+            self.norm_bias = nn.Parameter(torch.zeros(nr_critics, hidden_sizes[0]))
+        self.layer_norm = layer_norm
+        self.activation = ACTIVATIONS[activation]
+        self.head = BatchedLinear(nr_critics, hidden_sizes[-1], output_dim)
+
+    def forward(self, obs, action):
+        x = torch.cat([obs, action], dim=-1)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i == 0 and self.layer_norm:
+                x = F.layer_norm(x, x.shape[-1:], eps=LAYER_NORM_EPS)
+                x = x * self.norm_weight[:, None, :] + self.norm_bias[:, None, :]
+            x = self.activation(x)
+        return self.head(x)
+
+
+class QCritic(VectorQCritic):
+    """A single Q critic, (obs, action) -> ``[B, output_dim]``."""
+
+    def __init__(self, obs_dim, action_dim, hidden_sizes, activation="relu", layer_norm=False,
+                 output_dim=1):
+        super().__init__(obs_dim, action_dim, hidden_sizes, 1, activation, layer_norm, output_dim)
+
+    def forward(self, obs, action):
+        return super().forward(obs, action)[0]

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import ANT_MODEL
+from rlx_tpu_torch.ops.distributional import categorical_projection_dense, categorical_projection_reference
 from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
 from rlx_tpu_torch.ops.gae import gae_advantages_reference
 from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda
+from rlx_tpu_torch.ops.projection_cuda import categorical_projection_cuda
 from rlx_tpu_torch.physics import engine, load_model
 
 
@@ -66,3 +68,22 @@ def test_engine_step_dispatches_cuda_tensors_to_the_kernel(cuda):
     launches = step_cuda.launches
     engine.step(model, qpos, qvel, qpos[:, 7:], nr_substeps=2)
     assert step_cuda.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_projection_kernel_matches_reference(cuda):
+    """Ragged N, A_in != nr_atoms, positions beyond the support and on
+    atoms; f32 with the same division, sums in another order: 1e-6."""
+    rng = np.random.default_rng(5)
+    z = rng.uniform(-14.0, 14.0, size=(1027, 51)).astype(np.float32)
+    z[0, :3] = [-10.0, 0.0, 10.0]
+    logits = rng.normal(size=z.shape)
+    p = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
+    z, p = torch.tensor(z, device=cuda), torch.tensor(p, device=cuda)
+    launches = categorical_projection_cuda.launches
+    out = categorical_projection_dense(z, p, -10.0, 10.0, 101)
+    assert categorical_projection_cuda.launches == launches + 1
+    torch.testing.assert_close(out, categorical_projection_reference(z, p, -10.0, 10.0, 101),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(RuntimeError):
+        categorical_projection_cuda(z, p.requires_grad_(), -10.0, 10.0, 101)

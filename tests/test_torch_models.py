@@ -1,4 +1,4 @@
-"""The port's policy and critic against the JAX package's flax modules,
+"""The port's policies and critics against the JAX package's flax modules,
 with the weights carried across by rlx_tpu_torch.convert."""
 
 import jax
@@ -12,7 +12,7 @@ from rlx_tpu.models.mlp import GaussianPolicy as JaxGaussianPolicy
 from rlx_tpu.models.mlp import VCritic as JaxVCritic
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.models import distributions as D
-from rlx_tpu_torch.models.mlp import GaussianPolicy, VCritic
+from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, GaussianPolicy, QCritic, VCritic, VectorQCritic
 
 HIDDEN = (32, 16)
 OBS, ACT = 34, 8
@@ -92,3 +92,59 @@ def test_bf16_trunk_keeps_f32_params_and_outputs():
     assert all(p.dtype == torch.float32 for p in policy.parameters())
     mean.sum().backward()
     assert all(p.grad is None or p.grad.dtype == torch.float32 for p in policy.parameters())
+
+
+OFF_HIDDEN, NR_ATOMS = (32, 16), 11
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def close(ours, ref, tol, what):
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=tol, atol=tol, err_msg=what)
+
+
+def test_off_policy_networks_match_flax():
+    """FastTD3's nets; f32 on both sides, other summation orders: 1e-5."""
+    from rlx_tpu.models.mlp import DeterministicTanhPolicy as JaxPolicy
+    from rlx_tpu.models.mlp import QCritic as JaxQCritic
+    from rlx_tpu.models.mlp import VectorQCritic as JaxVectorQCritic
+
+    rng = np.random.default_rng(0)
+    obs = rng.normal(size=(64, OBS)).astype(np.float32)
+    action = rng.uniform(-1, 1, size=(64, ACT)).astype(np.float32)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+
+    jpolicy = JaxPolicy(action_dim=ACT, hidden_sizes=OFF_HIDDEN, activation="elu", layer_norm=True)
+    jp = jpolicy.init(k1, jnp.zeros((1, OBS)))
+    policy = DeterministicTanhPolicy(OBS, ACT, OFF_HIDDEN, "elu", True)
+    policy.load_state_dict(convert.deterministic_policy_state_dict(np_tree(jp)))
+    close(policy(torch.tensor(obs)), jpolicy.apply(jp, obs), 1e-5, "policy")
+
+    jcritic = JaxVectorQCritic(hidden_sizes=OFF_HIDDEN, nr_critics=2, activation="elu", layer_norm=True,
+                               output_dim=NR_ATOMS)
+    jc = jcritic.init(k2, jnp.zeros((1, OBS)), jnp.zeros((1, ACT)))
+    critic = VectorQCritic(OBS, ACT, OFF_HIDDEN, 2, "elu", True, NR_ATOMS)
+    critic.load_state_dict(convert.vector_q_critic_state_dict(np_tree(jc)))
+    out = critic(torch.tensor(obs), torch.tensor(action))
+    assert out.shape == (2, 64, NR_ATOMS)
+    close(out, jcritic.apply(jc, obs, action), 1e-5, "vector critic")
+
+    jsingle = JaxQCritic(hidden_sizes=OFF_HIDDEN, activation="relu", output_dim=3)
+    js = np_tree(jsingle.init(k3, jnp.zeros((1, OBS)), jnp.zeros((1, ACT))))
+    single = QCritic(OBS, ACT, OFF_HIDDEN, "relu", output_dim=3)
+    single.load_state_dict(convert.vector_q_critic_state_dict(
+        {"VmapQCritic_0": jax.tree.map(lambda x: x[None], js["params"])}))
+    close(single(torch.tensor(obs), torch.tensor(action)), jsingle.apply(js, obs, action), 1e-5, "critic")
+
+
+def test_flax_default_init_statistics():
+    """lecun normal: truncated at 2 std, variance 1/fan_in; zero biases."""
+    critic = VectorQCritic(OBS, ACT, (512, 256), 2, "elu", True, 101)
+    w = critic.layers[1].weight.detach()
+    assert w.shape == (2, 256, 512)
+    assert abs(float(w.var()) * 512 - 1.0) < 0.02
+    assert float(w.abs().max()) <= 2.0 * np.sqrt(1 / 512) / 0.87962566103423978 + 1e-6
+    assert not torch.equal(w[0], w[1])
+    assert float(critic.layers[1].bias.detach().abs().max()) == 0.0

@@ -11,7 +11,7 @@ import torch
 from rlx_tpu.config import create_model as jax_create_model
 from rlx_tpu.config import make_config as jax_make_config
 from rlx_tpu_torch import convert
-from rlx_tpu_torch.algorithms.ppo.cuda.ppo import clip_by_global_norm_
+from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.runner.runner import Runner, parse_flags
 
