@@ -7,9 +7,11 @@ Phases (each prints one line; any failure exits nonzero):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``rlx_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernel B1 (GAE) against its plain version at [64, 4096] and [64, 4097];
-4. kernel B2 (physics substep) against ``engine.step_reference`` on the Ant
-   at B=4096, 4 substeps: entry-pose anchors, given anchors, and every
-   DomainParams field set;
+4. kernel B2 (physics substep) against ``engine.step_reference``, 4
+   substeps: the Ant at B=4096 and B=1024 (the PPO and FastTD3 batches) and
+   a ragged B=1000, with entry-pose and given anchors, every DomainParams
+   field set, a ctrl_sequence, and the Ant without contacts / actuators;
+   kernel, device, plain and bound times at both batches;
 5. PPO on ``locomotion.ant.cuda`` at the flagship size (4096 envs x 64
    steps, minibatch 32768, 4 epochs, 512/256/128 ELU+LayerNorm policy and
    critic, bf16 trunk) for 3 iterations through the runner's entry points,
@@ -70,6 +72,8 @@ def max_err(outs, refs, rtol, atol, what):
     for o, r in zip(outs, refs):
         if o.shape != r.shape:
             fail(f"{what}: shape {tuple(o.shape)} != {tuple(r.shape)}")
+        if o.numel() == 0:
+            continue
         if not torch.isfinite(o).all():
             fail(f"{what}: non-finite output")
         diff = (o - r).abs()
@@ -194,52 +198,97 @@ def main():
         max_abs_err=gae_err,
     ))
 
-    # 4. B2: physics substep on the Ant
-    model = load_model(ANT_MODEL)
-    B, S = 4096, 4
-    qpos0 = torch.as_tensor(model.qpos0, device=dev)
-    qpos = qpos0.repeat(B, 1) + 0.1 * torch.randn(B, model.nq, device=dev, generator=g)
-    qpos[:, 2] = 0.55 + 0.2 * torch.rand(B, device=dev, generator=g)
-    qpos[:, 3:7] /= qpos[:, 3:7].norm(dim=1, keepdim=True)
-    qvel = 0.5 * torch.randn(B, model.nv, device=dev, generator=g)
-    ctrl = qpos0[7:] + 0.3 * (2.0 * torch.rand(B, 8, device=dev, generator=g) - 1.0)
-    anchors = engine.contact_anchor_init(model, qpos)
-    u = lambda *shape: 0.8 + 0.4 * torch.rand(*shape, device=dev, generator=g)
-    nu = len(model.act_dof)
-    dr = engine.DomainParams(
-        mass_scale=u(model.nbody, B), damping_scale=u(B), frictionloss_scale=u(B),
-        armature_scale=u(B), friction_scale=u(B), contact_stiffness_scale=u(B),
-        kp_scale=u(nu, B), kv_scale=u(nu, B), forcerange_scale=u(nu, B),
-        ctrl_offset=0.1 * (u(nu, B) - 1.0),
-        gravity=torch.tensor([0.0, 0.0, -9.81], device=dev)[:, None] * u(B),
+    # 4. B2: physics substep, at the PPO (4096) and FastTD3 (1024) batch
+    # sizes, a ragged batch, and the Ant without contacts / without actuators
+    # (the ncon == 0 and nu == 0 branches; the card has no mujoco to compile
+    # another model)
+    from rlx_tpu_torch.ops.engine_substep_cuda import lanes_per_env, resident_warps_per_sm
+
+    S = 4
+    ant = load_model(ANT_MODEL)
+    dropped = {
+        "no contacts": ("con_body", "con_pos", "con_radius", "con_friction", "con_meff",
+                        "con_m_app", "con_m_app_t"),
+        "no actuators": ("act_dof", "act_joint_body", "act_kp", "act_kv", "act_gear",
+                         "act_is_position", "act_forcerange"),
+    }
+    variants = {"Ant": ant, **{name: ant._replace(**{f: getattr(ant, f)[:0] for f in fields})
+                               for name, fields in dropped.items()}}
+
+    def ant_batch(model, B):
+        qpos0 = torch.as_tensor(model.qpos0, device=dev)
+        qpos = qpos0.repeat(B, 1) + 0.1 * torch.randn(B, model.nq, device=dev, generator=g)
+        qpos[:, 2] = 0.55 + 0.2 * torch.rand(B, device=dev, generator=g)
+        qpos[:, 3:7] /= qpos[:, 3:7].norm(dim=1, keepdim=True)
+        qvel = 0.5 * torch.randn(B, model.nv, device=dev, generator=g)
+        nu = len(model.act_dof)
+        ctrl = qpos0[7:7 + nu] + 0.3 * (2.0 * torch.rand(B, nu, device=dev, generator=g) - 1.0)
+        return qpos, qvel, ctrl
+
+    def domain_params(model, B):
+        u = lambda *shape: 0.8 + 0.4 * torch.rand(*shape, device=dev, generator=g)
+        nu = len(model.act_dof)
+        return engine.DomainParams(
+            mass_scale=u(model.nbody, B), damping_scale=u(B), frictionloss_scale=u(B),
+            armature_scale=u(B), friction_scale=u(B), contact_stiffness_scale=u(B),
+            kp_scale=u(nu, B), kv_scale=u(nu, B), forcerange_scale=u(nu, B),
+            ctrl_offset=0.1 * (u(nu, B) - 1.0),
+            gravity=torch.tensor([0.0, 0.0, -9.81], device=dev)[:, None] * u(B),
+        )
+
+    cases = (
+        ("Ant", 4096, "entry-pose anchors"), ("Ant", 4096, "given anchors"),
+        ("Ant", 4096, "all DomainParams"), ("Ant", 1024, "entry-pose anchors"),
+        ("Ant", 1024, "all DomainParams"), ("Ant", 1000, "given anchors"),
+        ("Ant", 1000, "ctrl_sequence"), ("no contacts", 1000, "all DomainParams"),
+        ("no contacts", 1024, "given anchors"), ("no actuators", 1000, "all DomainParams"),
+        ("no actuators", 4096, "entry-pose anchors"),
     )
     # f32 on both sides, but the kernel sums in another order and contracts
     # multiply-adds, and the stiff contact penalties amplify those roundings
     # over 4 substeps: 1e-4 relative + absolute.
     rtol = atol = 1e-4
     step_err = 0.0
-    for label, kw in (("entry-pose anchors", {}), ("given anchors", {"contact_state": anchors}),
-                      ("all DomainParams", {"contact_state": anchors, "dr": dr})):
+    for name, B, label in cases:
+        model = variants[name]
+        qpos, qvel, ctrl = ant_batch(model, B)
+        kw = {}
+        if label != "entry-pose anchors":
+            kw["contact_state"] = engine.contact_anchor_init(model, qpos)
+        if label == "all DomainParams":
+            kw["dr"] = domain_params(model, B)
+        if label == "ctrl_sequence":
+            kw["ctrl_sequence"] = ctrl[None] + 0.1 * torch.randn(3, *ctrl.shape, device=dev, generator=g)
         out = step_cuda(model, qpos, qvel, ctrl, nr_substeps=S, **kw)
         ref = engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=S, **kw)
         torch.cuda.synchronize()
-        step_err = max(step_err, max_err(out, ref, rtol, atol, f"substep ({label})"))
-    substep = lambda: step_cuda(model, qpos, qvel, ctrl, nr_substeps=S)
-    step_ms = time_ms(substep, 100)
-    step_device_ms = kernel_device_ms(substep, 100, "engine_substep_kernel")
-    step_plain_ms = time_ms(lambda: engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=S), 3)
-    flops = substep_flops(model) * B * S
-    nbytes = substep_bytes(model, B, with_anchors=False)
-    step_bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-    bound_by = "bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations"
-    print(f"B2 engine_substep: max|err| {step_err:.3g} (rtol=atol=1e-4) kernel {step_ms:.4f} ms "
-          f"(device {step_device_ms:.4f} ms) plain {step_plain_ms:.2f} ms bound {step_bound:.5f} ms "
-          f"({bound_by}: {flops} flops, {nbytes} bytes) at B={B}, {S} substeps")
+        step_err = max(step_err, max_err(out, ref, rtol, atol, f"substep ({name}, B={B}, {label})"))
+    print(f"B2 engine_substep: {len(cases)} cases against engine.step_reference, max|err| "
+          f"{step_err:.3g} (rtol=atol=1e-4): " + "; ".join(f"{n} B={B} {lab}" for n, B, lab in cases))
+    by_batch = {}
+    for B in (4096, 1024):
+        qpos, qvel, ctrl = ant_batch(ant, B)
+        substep = lambda: step_cuda(ant, qpos, qvel, ctrl, nr_substeps=S)
+        flops = substep_flops(ant) * B * S
+        nbytes = substep_bytes(ant, B, with_anchors=False)
+        lanes = lanes_per_env(B)
+        t = by_batch[B] = dict(
+            ms=time_ms(substep, 100), device_ms=kernel_device_ms(substep, 100, "engine_substep_kernel"),
+            plain_ms=time_ms(lambda: engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=S), 3),
+            bound_ms=max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
+            bound_by="bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations",
+            lanes_per_env=lanes, resident_warps_per_sm=resident_warps_per_sm(ant, lanes),
+        )
+        print(f"B2 engine_substep at B={B}, {S} substeps: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms) plain {t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}: {flops} flops, {nbytes} bytes), {100 * t['bound_ms'] / t['device_ms']:.2f} % "
+              f"of the bound; {lanes} lanes per env, {t['resident_warps_per_sm']} resident warps per SM")
+    main = by_batch[4096]
     kernels.append(dict(
         name="engine_substep", route="cuda", source="rlx_tpu_torch/csrc/engine_substep.cu",
-        replaces="rlx_tpu/ops/engine_substep_pallas.py:82", ms=step_ms, device_ms=step_device_ms,
-        plain_ms=step_plain_ms,
-        bound_ms=step_bound, bound_by=bound_by, library_ms=None, max_abs_err=step_err,
+        replaces="rlx_tpu/ops/engine_substep_pallas.py:82", ms=main["ms"], device_ms=main["device_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, max_abs_err=step_err, by_batch={str(B): t for B, t in by_batch.items()},
     ))
 
     # 5. train: the main path through the runner's entry points

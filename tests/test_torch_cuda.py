@@ -12,6 +12,7 @@ import torch
 
 from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import ANT_MODEL
 from rlx_tpu_torch.ops.distributional import categorical_projection_dense, categorical_projection_reference
+from rlx_tpu_torch.ops import engine_substep_cuda
 from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
 from rlx_tpu_torch.ops.gae import gae_advantages_reference
 from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda
@@ -40,23 +41,80 @@ def test_gae_kernel_matches_reference(cuda):
         torch.testing.assert_close(o, x, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("anchors", [False, True])
-def test_substep_kernel_matches_reference(cuda, anchors):
-    """Ant, 4 substeps; 1e-4 because the kernel sums in another order and
-    contracts multiply-adds, which stiff contacts amplify."""
+def _ant_variant(which):
+    """The Ant, or the Ant without contacts / actuators (the ncon == 0 and
+    nu == 0 branches; the card has no mujoco to compile another XML)."""
     model = load_model(ANT_MODEL)
-    B = 256
-    g = torch.Generator(device=cuda).manual_seed(0)
-    qpos = torch.as_tensor(model.qpos0, device=cuda).repeat(B, 1)
-    qpos[:, 2] += 0.1 * torch.rand(B, device=cuda, generator=g)
+    if which == "no_contacts":
+        fields = ("con_body", "con_pos", "con_radius", "con_friction", "con_meff",
+                  "con_m_app", "con_m_app_t")
+    elif which == "no_actuators":
+        fields = ("act_dof", "act_joint_body", "act_kp", "act_kv", "act_gear",
+                  "act_is_position", "act_forcerange")
+    else:
+        fields = ()
+    return model._replace(**{f: getattr(model, f)[:0] for f in fields})
+
+
+def _ant_state(model, B, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qpos0 = torch.as_tensor(model.qpos0, device=cuda)
+    qpos = qpos0.repeat(B, 1) + 0.1 * torch.randn(B, model.nq, device=cuda, generator=g)
+    qpos[:, 2] = 0.55 + 0.2 * torch.rand(B, device=cuda, generator=g)
+    qpos[:, 3:7] /= qpos[:, 3:7].norm(dim=1, keepdim=True)
     qvel = 0.5 * torch.randn(B, model.nv, device=cuda, generator=g)
-    ctrl = qpos[:, 7:] + 0.3 * torch.randn(B, 8, device=cuda, generator=g)
-    kw = {"contact_state": engine.contact_anchor_init(model, qpos)} if anchors else {}
+    nu = len(model.act_dof)
+    ctrl = qpos0[7:7 + nu] + 0.3 * (2.0 * torch.rand(B, nu, device=cuda, generator=g) - 1.0)
+    return qpos, qvel, ctrl, g
+
+
+def _domain_params(model, B, cuda, g):
+    u = lambda *shape: 0.8 + 0.4 * torch.rand(*shape, device=cuda, generator=g)
+    nu = len(model.act_dof)
+    return engine.DomainParams(
+        mass_scale=u(model.nbody, B), damping_scale=u(B), frictionloss_scale=u(B),
+        armature_scale=u(B), friction_scale=u(B), contact_stiffness_scale=u(B),
+        kp_scale=u(nu, B), kv_scale=u(nu, B), forcerange_scale=u(nu, B),
+        ctrl_offset=0.1 * (u(nu, B) - 1.0),
+        gravity=torch.tensor([0.0, 0.0, -9.81], device=cuda)[:, None] * u(B),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,B,case", [
+    ("ant", 256, "entry-pose anchors"),
+    ("ant", 256, "given anchors"),
+    ("ant", 4096, "all DomainParams"),
+    ("ant", 1024, "given anchors"),
+    ("ant", 1000, "all DomainParams"),
+    ("ant", 1000, "ctrl_sequence"),
+    ("no_contacts", 1000, "given anchors"),
+    ("no_contacts", 256, "all DomainParams"),
+    ("no_actuators", 1000, "entry-pose anchors"),
+    ("no_actuators", 256, "all DomainParams"),
+])
+@pytest.mark.parametrize("lanes", [32, 16])
+def test_substep_kernel_matches_reference(cuda, monkeypatch, which, B, case, lanes):
+    """4 substeps (3 for ctrl_sequence), ragged B = 1000 included, at 32
+    and 16 lanes per env; 1e-4 because the kernel sums in another order and
+    contracts multiply-adds, which stiff contacts amplify."""
+    monkeypatch.setattr(engine_substep_cuda, "lanes_per_env", lambda B: lanes)
+    model = _ant_variant(which)
+    qpos, qvel, ctrl, g = _ant_state(model, B, cuda)
+    kw = {}
+    if case != "entry-pose anchors":
+        kw["contact_state"] = engine.contact_anchor_init(model, qpos)
+    if case == "all DomainParams":
+        kw["dr"] = _domain_params(model, B, cuda, g)
+    if case == "ctrl_sequence":
+        kw["ctrl_sequence"] = ctrl[None] + 0.1 * torch.randn(3, *ctrl.shape, device=cuda, generator=g)
+    launches = step_cuda.launches
     out = step_cuda(model, qpos, qvel, ctrl, nr_substeps=4, **kw)
+    assert step_cuda.launches == launches + 1
     ref = engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=4, **kw)
-    assert len(out) == len(ref) == (3 if anchors else 2)
+    assert len(out) == len(ref) == (3 if "contact_state" in kw else 2)
     for o, r in zip(out, ref):
+        assert o.shape == r.shape
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
 
 

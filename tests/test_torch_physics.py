@@ -15,7 +15,10 @@ from rlx_tpu.physics import engine as jax_engine
 from rlx_tpu.physics import load_mjcf as jax_load_mjcf
 from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import ANT_MODEL
 from rlx_tpu_torch.physics import engine, load_mjcf, load_model, save_model
-from rlx_tpu_torch.ops.engine_substep_cuda import model_tables, step_cuda, substep_flops
+from rlx_tpu_torch.ops.engine_substep_cuda import (
+    BLOCK_THREADS, MAX_BLOCK_SHARED, body_levels, chain_entries, env_layout, lanes_per_env,
+    ltdl_schedule, model_tables, step_cuda, substep_flops,
+)
 from tests.test_physics import ANT_XML, TEST_XML, random_state
 
 RTOL = ATOL = 1e-5
@@ -184,23 +187,140 @@ def test_step_dispatch_and_unsupported_paths():
 
 
 def test_kernel_tables_and_bound():
-    """Host-side kernel tables hold the model and the engine's derived
-    constants; the flop count is positive and grows with the model."""
+    """The kernel's flat table holds the model and the engine's derived
+    constants; a model whose per-env state overflows a block's shared memory
+    raises; the flop count is positive and grows with the model."""
     _, ant, _, _ = _models("ant")
-    ti, tf = model_tables(ant, 0.015, 1.0, 200.0)
-    assert (ti.nbody, ti.nq, ti.nv, ti.nu, ti.ncon) == (13, 15, 14, 8, 8)
+    t = model_tables(ant, 0.015, 1.0, 200.0)
+    assert [t.scalar(n) for n in ("nbody", "nq", "nv", "nu", "ncon")] == [13, 15, 14, 8, 8]
     lam, dof_body = engine.dof_structure(ant)
-    assert list(ti.lam)[:14] == list(lam) and list(ti.dof_body)[:14] == list(dof_body)
+    assert list(t.section("dof_body")) == list(dof_body)
+    assert list(t.section("parent")) == list(ant.parent)
+    ent_start, ent_j = t.section("ent_start"), t.section("ent_j")
+    assert [ent_j[ent_start[d] + 1] if lam[d] >= 0 else -1 for d in range(14)] == list(lam)
     dt = float(ant.timestep)
+    assert t.scalar("timestep") == np.float32(dt)
     m_eff, m_app = float(ant.con_meff[0]), float(ant.con_m_app[0])
-    np.testing.assert_allclose(tf.con_k[0], min(m_eff / 0.015 ** 2, 2.0 * m_app / dt ** 2), rtol=1e-6)
+    np.testing.assert_allclose(t.section("con_k")[0], min(m_eff / 0.015 ** 2, 2.0 * m_app / dt ** 2), rtol=1e-6)
     limited = [i for i in range(ant.nbody) if ant.jnt_limited[i]]
-    i_arm = float(ant.dof_armature[int(ant.dof_adr[limited[0]])])
+    d = int(ant.dof_adr[limited[0]])
+    i_arm = float(ant.dof_armature[d])
     np.testing.assert_allclose(
-        tf.jnt_dlim[limited[0]], min(2.0 * np.sqrt(200.0 * i_arm), 0.7 * i_arm / dt), rtol=1e-6
+        t.section("dof_dlim")[d], min(2.0 * np.sqrt(200.0 * i_arm), 0.7 * i_arm / dt), rtol=1e-6
     )
+    assert len(t.words) % 4 == 0 and t.used <= len(t.words) < t.used + 4
+    assert t.shared_bytes == 4 * (len(t.words) + BLOCK_THREADS // 16 * t.env_floats) <= MAX_BLOCK_SHARED
     _, chain, _, _ = _models("chain")
     assert substep_flops(ant) > substep_flops(chain) > 0
-    too_big = ant._replace(nbody=100)
+    too_big = ant._replace(nbody=200)
     with pytest.raises(ValueError, match="nbody"):
         model_tables(too_big, 0.015, 1.0, 200.0)
+
+
+def _ltdl_solve_as_kernel(t, M, rhs):
+    """The kernel's tree-sparse LTDL factor of one env's M and its solve of
+    M x = rhs, in float64, driven by the table's schedule sections as the
+    kernel reads them."""
+    sec = t.section
+    ent_d, ent_j, ent_start = sec("ent_d"), sec("ent_j"), sec("ent_start")
+    Mv = np.array([M[d, j] for d, j in zip(ent_d, ent_j)], dtype=np.float64)
+    L = np.full(len(Mv), np.nan)
+    inv_d = np.full(t.scalar("nv"), np.nan)
+    x = np.array(rhs, dtype=np.float64)
+    blk = lambda d, j: d * (d + 1) // 2 + d - j
+    for g in range(t.scalar("ngroup")):
+        for r in range(sec("grp_start")[g], sec("grp_start")[g + 1]):
+            e, diag = sec("grp_ent")[r], sec("grp_diag")[r]
+            if e == diag:
+                inv_d[ent_d[e]] = 1.0 / Mv[diag]
+            else:
+                L[e] = Mv[e] / Mv[diag]
+        for tt in range(sec("ftgt_start")[g], sec("ftgt_start")[g + 1]):
+            for c in range(sec("ftgt_cstart")[tt], sec("ftgt_cstart")[tt + 1]):
+                Mv[sec("ftgt_entry")[tt]] -= L[sec("fc_ki")[c]] * Mv[sec("fc_kj")[c]]
+        for tt in range(sec("stgt_start")[g], sec("stgt_start")[g + 1]):
+            for c in range(sec("stgt_cstart")[tt], sec("stgt_cstart")[tt + 1]):
+                x[sec("stgt_dof")[tt]] -= L[sec("sc_e")[c]] * x[sec("sc_i")[c]]
+    if t.scalar("free_block"):
+        A = Mv[:21].copy()
+        for k in range(5, -1, -1):
+            inv_d[k] = 1.0 / A[blk(k, k)]
+            for i in range(k - 1, -1, -1):
+                a = A[blk(k, i)] * inv_d[k]
+                for j in range(i, -1, -1):
+                    A[blk(i, j)] -= a * A[blk(k, j)]
+                A[blk(k, i)] = a
+        for i in range(5, -1, -1):
+            for j in range(i - 1, -1, -1):
+                x[j] -= A[blk(i, j)] * x[i]
+        x[:6] *= inv_d[:6]
+        for i in range(6):
+            for j in range(i - 1, -1, -1):
+                x[i] -= A[blk(i, j)] * x[j]
+    for D in range(t.scalar("ndepth")):
+        for i in sec("depth_dof")[sec("depth_start")[D]: sec("depth_start")[D + 1]]:
+            x[i] *= inv_d[i]
+            for e in range(ent_start[i] + 1, ent_start[i + 1]):
+                x[i] -= L[e] * x[ent_j[e]]
+    return x
+
+
+@pytest.mark.parametrize("which", ["ant", "chain"])
+def test_kernel_schedule(which):
+    """The host-side schedule of the substep kernel: every body's parent in
+    an earlier level; M's chain entries are the nonzero pattern of
+    ``mass_matrix_bias``'s M (with the free joint's zero translational
+    couplings); the LTDL finishes each dof after its subtree, and the table's
+    factor and solve schedule solves M x = b; the per-env shared memory is
+    the model's count."""
+    _, model, m, height = _models(which)
+    nv, nbody, ncon = model.nv, model.nbody, len(model.con_body)
+    levels = body_levels(model)
+    level_of = {i: L for L, bodies in enumerate(levels) for i in bodies}
+    assert sorted(level_of) == list(range(nbody))
+    for i, L in level_of.items():
+        par = int(model.parent[i])
+        assert (L == 0) if par < 0 else level_of[par] == L - 1
+
+    qpos, qvel, _ = _batch(m, model, 4, 8, height)
+    M, _ = engine.mass_matrix_bias(model, torch.tensor(qpos), torch.tensor(qvel))
+    M = M.double().numpy()
+    entries, start = chain_entries(model)
+    nonzero = {(d, j) for d in range(nv) for j in range(d + 1) if (M[:, d, j] != 0).any()}
+    free_zero = {(int(model.dof_adr[i]) + a, int(model.dof_adr[i]) + b)
+                 for i in range(nbody) if int(model.jnt_type[i]) == 0 for a in range(3) for b in range(a)}
+    assert len(entries) == len(set(entries)) and set(entries) == nonzero | free_zero
+    assert start == [0] + [sum(1 for d, _ in entries if d <= k) for k in range(nv)]
+    assert all(entries[start[d]] == (d, d) for d in range(nv))
+
+    lam, _ = engine.dof_structure(model)
+    sched = ltdl_schedule(model)
+    assert sorted(sched["order"]) == list(range(nv))
+    assert all(group == sorted(group, reverse=True) for group in sched["groups"])
+    seen = set()
+    for k in sched["order"]:
+        descendants = {d for d in range(nv) if d != k and k in _ancestors(lam, d)}
+        assert descendants <= seen, (k, descendants - seen)
+        seen.add(k)
+
+    t = model_tables(model, 0.015, 1.0, 200.0)
+    rhs = np.random.default_rng(9).normal(size=nv)
+    for b in range(M.shape[0]):
+        np.testing.assert_allclose(_ltdl_solve_as_kernel(t, M[b], rhs), np.linalg.solve(M[b], rhs),
+                                   rtol=1e-9, atol=1e-9)
+
+    nent = len(entries)
+    offsets, env_floats = env_layout(nbody, model.nq, nv, ncon, nent)
+    assert env_floats == t.env_floats == (model.nq + nv + 2 * ncon + 3 + (9 + 3 + 4 * 6 + 13) * nbody
+                                          + 6 * ncon + 6 * nv + 2 * nent + 2 * nv)
+    assert list(offsets.values()) == sorted(offsets.values()) and offsets["inv_d"] + nv == env_floats
+    assert [t.scalar("o_" + n) for n in offsets] == list(offsets.values())
+    assert lanes_per_env(4096) == 16 and lanes_per_env(1024) == 32
+
+
+def _ancestors(lam, d):
+    out = []
+    while lam[d] >= 0:
+        d = int(lam[d])
+        out.append(d)
+    return out
