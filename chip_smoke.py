@@ -6,12 +6,15 @@ Phases (each prints one line; any failure exits nonzero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``rlx_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernel B1 (GAE) against its plain version at [64, 4096] and [64, 4097];
+3. kernel B1 (GAE) against its plain version at [64, 4096] (the PPO
+   path's shape) and a ragged [64, 4097], at T = 1, 17, 65 and 200 with a
+   ragged B = 1000, and with float terminations; two launches on the path's
+   input must give the same bits;
 4. kernel B2 (physics substep) against ``engine.step_reference``, 4
    substeps: the Ant at B=4096 and B=1024 (the PPO and FastTD3 batches) and
    a ragged B=1000, with entry-pose and given anchors, every DomainParams
    field set, a ctrl_sequence, and the Ant without contacts / actuators;
-   kernel, device, plain and bound times at both batches;
+   kernel, device, host, plain and bound times at both batches;
 5. PPO on ``locomotion.ant.cuda`` at the flagship size (4096 envs x 64
    steps, minibatch 32768, 4 epochs, 512/256/128 ELU+LayerNorm policy and
    critic, bf16 trunk) for 3 iterations through the runner's entry points,
@@ -20,7 +23,10 @@ Phases (each prints one line; any failure exits nonzero):
    time and idle share, per-phase host spans, the top kernels by device time;
 7. kernel B3 (C51 projection) against its plain version at [8192, 101] ->
    101 (the FastTD3 path's shape), a ragged [8193, 101], [4096, 51] -> 101,
-   and positions beyond the support and on atoms;
+   positions beyond the support and on atoms, every position at v_max
+   (b = A_out - 1), rows whose 101 positions all clip to one end,
+   101 -> 2 atoms, [64, 8192] -> 101 and [1027, 101] -> 11; two launches on
+   the path's input must give the same bits;
 8. FastTD3 on ``locomotion.ant.cuda`` at full width (1024 envs, batch 8192,
    n_step 3, 101 atoms, 512/256/128 ELU+LayerNorm policy and twin critic,
    f32, the default 1e6-transition buffer) through the entry points: 5
@@ -28,9 +34,10 @@ Phases (each prints one line; any failure exits nonzero):
    proving every update went through B3 and every env step through B2;
 9. 16 more FastTD3 learning steps under torch.profiler, as phase 6.
 
-Each kernel is timed twice: CUDA events around a run of calls (``ms``: the
-wrapper's host cost shows when it exceeds the kernel's) and the profiler's
-time of the kernel alone (``device_ms``).  The line before the last is the
+Each kernel is timed three ways: CUDA events around a run of calls
+(``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
+profiler's time of the kernel alone (``device_ms``), and the host's time
+per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record, the last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
@@ -64,6 +71,19 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of ``fn``: ``perf_counter`` over ``calls``
+    enqueues with no sync inside (what the wrapper costs the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def max_err(outs, refs, rtol, atol, what):
@@ -155,7 +175,8 @@ def main():
     from rlx_tpu_torch.ops import _build
     from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda, substep_bytes, substep_flops
     from rlx_tpu_torch.ops.gae import gae_advantages_reference
-    from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda, gae_bytes
+    from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda, gae_bytes, gae_geometry
+    from rlx_tpu_torch.ops.projection_cuda import projection_geometry
     from rlx_tpu_torch.physics import engine, load_model
     from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import ANT_MODEL
 
@@ -167,35 +188,51 @@ def main():
                if "registers" in line or "stack frame" in line]
         for name, (_, out) in report.items()
     }
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)} {json.dumps(resources)}")
+    shared = {"gae": gae_geometry(64, 4096).shared_bytes,
+              "projection": projection_geometry(8192, 101, 101).shared_bytes}
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)} {json.dumps(resources)}; "
+          f"dynamic shared memory a block at the path's shape {json.dumps(shared)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
     kernels = []
 
     # 3. B1: GAE
-    gae_err, gae_times = 0.0, None
-    for B in (4096, 4097):
-        r, v, nv = (torch.randn(64, B, device=dev, generator=g) for _ in range(3))
-        d = torch.rand(64, B, device=dev, generator=g) < 0.05
-        out = gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)
-        ref = gae_advantages_reference(r, v, nv, d, 0.99, 0.95)
+    def gae_inputs(T, B, float_terminations=False):
+        r, v, nv = (torch.randn(T, B, device=dev, generator=g) for _ in range(3))
+        d = torch.rand(T, B, device=dev, generator=g) < 0.05
+        return r, v, nv, d.float() if float_terminations else d
+
+    gae_cases = {
+        "[64, 4096]": gae_inputs(64, 4096), "[64, 4097]": gae_inputs(64, 4097),
+        "[64, 4096] float terminations": gae_inputs(64, 4096, True),
+        **{f"[{T}, 1000]": gae_inputs(T, 1000) for T in (1, 17, 65, 200)},
+        "[17, 1000] float terminations": gae_inputs(17, 1000, True),
+    }
+    gae_err = 0.0
+    for label, args in gae_cases.items():
+        out = gae_advantages_cuda(*args, 0.99, 0.95)
+        ref = gae_advantages_reference(*args, 0.99, 0.95)
         torch.cuda.synchronize()
-        gae_err = max(gae_err, max_err(out, ref, 1e-5, 1e-5, f"GAE [64, {B}]"))
-        if B == 4096:
-            gae = lambda: gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)
-            gae_times = (time_ms(gae, 200),
-                         time_ms(lambda: gae_advantages_reference(r, v, nv, d, 0.99, 0.95), 20),
-                         kernel_device_ms(gae, 200, "gae_kernel"))
+        gae_err = max(gae_err, max_err(out, ref, 1e-5, 1e-5, f"GAE {label}"))
+    args = gae_cases["[64, 4096]"]
+    gae = lambda: gae_advantages_cuda(*args, 0.99, 0.95)
+    if not all(torch.equal(a, b) for a, b in zip(gae(), gae())):
+        fail("GAE: two launches on the same input differ")
+    gae_t = dict(ms=time_ms(gae, 200), device_ms=kernel_device_ms(gae, 200, "gae_kernel"),
+                 host_us=host_us(gae),
+                 plain_ms=time_ms(lambda: gae_advantages_reference(*args, 0.99, 0.95), 20))
     gae_bound = gae_bytes(64, 4096) / H100_BYTES_PER_S * 1e3
-    print(f"B1 gae: max|err| {gae_err:.3g} (rtol=atol=1e-5, f32) kernel {gae_times[0]:.4f} ms "
-          f"(device {gae_times[2]:.4f} ms) plain {gae_times[1]:.3f} ms bound {gae_bound:.4f} ms "
-          f"at [64, 4096]")
+    launch = gae_geometry(64, 4096)
+    print(f"B1 gae: {len(gae_cases)} cases ({', '.join(gae_cases)}), max|err| {gae_err:.3g} "
+          f"(rtol=atol=1e-5, f32), the same bits over two launches; kernel {gae_t['ms']:.4f} ms "
+          f"(device {gae_t['device_ms']:.4f} ms, host {gae_t['host_us']:.1f} us a call) plain "
+          f"{gae_t['plain_ms']:.3f} ms bound {gae_bound:.4f} ms at [64, 4096] ({launch.blocks} "
+          f"blocks of {launch.threads} threads, {launch.shared_bytes} bytes of shared memory each)")
     kernels.append(dict(
         name="gae", route="cuda", source="rlx_tpu_torch/csrc/gae.cu",
-        replaces="rlx_tpu/ops/gae_pallas.py:53", ms=gae_times[0], device_ms=gae_times[2],
-        plain_ms=gae_times[1], bound_ms=gae_bound, bound_by="bytes", library_ms=None,
-        max_abs_err=gae_err,
+        replaces="rlx_tpu/ops/gae_pallas.py:53", **gae_t, bound_ms=gae_bound, bound_by="bytes",
+        library_ms=None, max_abs_err=gae_err,
     ))
 
     # 4. B2: physics substep, at the PPO (4096) and FastTD3 (1024) batch
@@ -274,19 +311,22 @@ def main():
         lanes = lanes_per_env(B)
         t = by_batch[B] = dict(
             ms=time_ms(substep, 100), device_ms=kernel_device_ms(substep, 100, "engine_substep_kernel"),
+            host_us=host_us(substep),
             plain_ms=time_ms(lambda: engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=S), 3),
             bound_ms=max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
             bound_by="bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations",
             lanes_per_env=lanes, resident_warps_per_sm=resident_warps_per_sm(ant, lanes),
         )
         print(f"B2 engine_substep at B={B}, {S} substeps: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']:.4f} ms) plain {t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}: {flops} flops, {nbytes} bytes), {100 * t['bound_ms'] / t['device_ms']:.2f} % "
-              f"of the bound; {lanes} lanes per env, {t['resident_warps_per_sm']} resident warps per SM")
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.2f} ms "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {flops} flops, {nbytes} bytes), "
+              f"{100 * t['bound_ms'] / t['device_ms']:.2f} % of the bound; {lanes} lanes per env, "
+              f"{t['resident_warps_per_sm']} resident warps per SM")
     main = by_batch[4096]
     kernels.append(dict(
         name="engine_substep", route="cuda", source="rlx_tpu_torch/csrc/engine_substep.cu",
         replaces="rlx_tpu/ops/engine_substep_pallas.py:82", ms=main["ms"], device_ms=main["device_ms"],
+        host_us=main["host_us"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=None, max_abs_err=step_err, by_batch={str(B): t for B, t in by_batch.items()},
     ))
@@ -364,41 +404,56 @@ def main():
         gamma_n = 0.97 ** torch.randint(1, 4, (n, 1), device=dev, generator=g).float()
         return r + gamma_n * (1.0 - d) * atoms[None]
 
+    def uniform(n, a):
+        return 28.0 * torch.rand(n, a, device=dev, generator=g) - 14.0
+
     on_atoms = atoms[None].repeat(8192, 1)   # every position an atom (b integral or 1 ulp off)
     on_atoms[4096:] = torch.where(torch.rand(4096, nr_atoms, device=dev, generator=g) < 0.5,
                                   v_min - 2.0, v_max + 2.0)
-    cases = {
-        "[8192, 101] FastTD3 targets": (fasttd3_targets(8192), softmax_probs(8192, 101)),
-        "[8193, 101] ragged": (28.0 * torch.rand(8193, 101, device=dev, generator=g) - 14.0,
-                               softmax_probs(8193, 101)),
-        "[4096, 51] -> 101": (28.0 * torch.rand(4096, 51, device=dev, generator=g) - 14.0,
-                              softmax_probs(4096, 51)),
-        "[8192, 101] on atoms and beyond the support": (on_atoms, softmax_probs(8192, 101)),
+    clipped = torch.full((64, nr_atoms), v_max + 3.0, device=dev)   # runs of 32 lanes on one atom
+    clipped[32:] = v_min - 3.0
+    cases = {   # label: (positions, masses, output atoms)
+        "[8192, 101] FastTD3 targets": (fasttd3_targets(8192), softmax_probs(8192, 101), nr_atoms),
+        "[8193, 101] ragged": (uniform(8193, 101), softmax_probs(8193, 101), nr_atoms),
+        "[4096, 51] -> 101": (uniform(4096, 51), softmax_probs(4096, 51), nr_atoms),
+        "[8192, 101] on atoms and beyond the support": (on_atoms, softmax_probs(8192, 101), nr_atoms),
+        "[64, 101] at v_max (b = A_out - 1)": (torch.full((64, nr_atoms), v_max, device=dev),
+                                               softmax_probs(64, 101), nr_atoms),
+        "[64, 101] every position clipped to one end": (clipped, softmax_probs(64, 101), nr_atoms),
+        "[1000, 101] -> 2": (uniform(1000, 101), softmax_probs(1000, 101), 2),
+        "[64, 8192] -> 101": (uniform(64, 8192), softmax_probs(64, 8192), nr_atoms),
+        "[1027, 101] -> 11": (uniform(1027, 101), softmax_probs(1027, 101), 11),
     }
-    # f32 on both sides with the same true division; the kernel sums over j
-    # in order with fused multiply-adds, the plain einsum in its own order
+    # f32 on both sides with the same true division and the same hat
+    # weights; the kernel sums each atom's terms in its own fixed order, the
+    # plain einsum in another
     rtol = atol = 1e-6
     proj_err = 0.0
-    for label, (z, p) in cases.items():
-        out = categorical_projection_cuda(z, p, v_min, v_max, nr_atoms)
-        ref = categorical_projection_reference(z, p, v_min, v_max, nr_atoms)
+    for label, (z, p, a_out) in cases.items():
+        out = categorical_projection_cuda(z, p, v_min, v_max, a_out)
+        ref = categorical_projection_reference(z, p, v_min, v_max, a_out)
         torch.cuda.synchronize()
         proj_err = max(proj_err, max_err([out], [ref], rtol, atol, f"projection {label}"))
-    z, p = cases["[8192, 101] FastTD3 targets"]
+    z, p, _ = cases["[8192, 101] FastTD3 targets"]
     project = lambda: categorical_projection_cuda(z, p, v_min, v_max, nr_atoms)
-    proj_ms = time_ms(project, 200)
-    proj_device_ms = kernel_device_ms(project, 200, "projection_kernel")
-    proj_plain_ms = time_ms(lambda: categorical_projection_reference(z, p, v_min, v_max, nr_atoms), 20)
+    if not torch.equal(project(), project()):
+        fail("projection: two launches on the same input differ")
+    plain = lambda: categorical_projection_reference(z, p, v_min, v_max, nr_atoms)
+    proj_t = dict(ms=time_ms(project, 200), device_ms=kernel_device_ms(project, 200, "projection_kernel"),
+                  host_us=host_us(project), plain_ms=time_ms(plain, 20))
     nbytes, flops = projection_bytes(8192, 101, 101), projection_flops(8192, 101)
     proj_bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations"
-    print(f"B3 projection: max|err| {proj_err:.3g} (rtol=atol=1e-6, f32) kernel {proj_ms:.4f} ms "
-          f"(device {proj_device_ms:.4f} ms) plain {proj_plain_ms:.3f} ms bound {proj_bound:.5f} ms "
-          f"({bound_by}: {nbytes} bytes, {flops} flops) at [8192, 101] -> 101")
+    launch = projection_geometry(8192, 101, 101)
+    print(f"B3 projection: {len(cases)} cases ({', '.join(cases)}), max|err| {proj_err:.3g} "
+          f"(rtol=atol=1e-6, f32), the same bits over two launches; kernel {proj_t['ms']:.4f} ms "
+          f"(device {proj_t['device_ms']:.4f} ms, host {proj_t['host_us']:.1f} us a call) plain "
+          f"{proj_t['plain_ms']:.3f} ms bound {proj_bound:.5f} ms ({bound_by}: {nbytes} bytes, {flops} "
+          f"flops) at [8192, 101] -> 101 ({launch.blocks} blocks of {launch.threads} threads, "
+          f"{launch.shared_bytes} bytes of shared memory each)")
     kernels.append(dict(
         name="categorical_projection", route="cuda", source="rlx_tpu_torch/csrc/projection.cu",
-        replaces="rlx_tpu/ops/projection_pallas.py:47", ms=proj_ms, device_ms=proj_device_ms,
-        plain_ms=proj_plain_ms,
+        replaces="rlx_tpu/ops/projection_pallas.py:47", **proj_t,
         bound_ms=proj_bound, bound_by=bound_by, library_ms=None, max_abs_err=proj_err,
     ))
 

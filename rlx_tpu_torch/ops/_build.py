@@ -9,6 +9,7 @@ never loaded.  All missing libraries are compiled together, one ``nvcc``
 process per source.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,10 @@ NVCC_FLAGS = [
 ]
 
 _loaded = {}
+
+# A kernel's launch shape as its wrapper computes it: grid and block size,
+# dynamic shared memory per block, and the chunks of work each block walks.
+Launch = collections.namedtuple("Launch", "blocks threads shared_bytes chunks")
 
 
 def _nvcc():

@@ -3,10 +3,12 @@ shifted support onto a fixed atom grid (FastTD3's categorical critics).
 
 - ``categorical_projection``: the scatter formulation (each mass split
   between its two neighbouring atoms), kept as the oracle;
-- ``categorical_projection_dense``: the dense hat-kernel formulation.  A
-  CUDA tensor goes through the hand-written kernel
-  (``rlx_tpu_torch.ops.projection_cuda``), a CPU tensor through
-  ``categorical_projection_reference``, the kernel's plain version.
+- ``categorical_projection_dense``: the function of the TPU kernel, whose
+  plain version ``categorical_projection_reference`` is its dense
+  hat-kernel formulation.  A CUDA tensor goes through the hand-written
+  kernel (``rlx_tpu_torch.ops.projection_cuda``), which computes the same
+  hat weights but scatters them, a warp per row, onto the two atoms each
+  mass touches; a CPU tensor goes through the plain version.
 """
 
 import torch

@@ -1,10 +1,13 @@
 """Wrapper of the GAE kernel (``csrc/gae.cu``).
 
 Replaces ``rlx_tpu/ops/gae_pallas.py::gae_advantages_pallas``.  Bound by
-bytes: each input element is read once and each output written once; one
-thread per env column walks t from T-1 to 0 with the running advantage in a
-register, and the warp's loads of row t are coalesced.  The plain version
-is ``rlx_tpu_torch.ops.gae.gae_advantages_reference``.
+bytes: each input element is read once and each output written once.  A
+block of 16 warps takes 32 env columns; for each chunk of 64 time rows, all
+warps stage each row's delta and discount in shared memory from coalesced
+loads, one warp walks the chunk from its last row to its first with the
+running advantage in a register, and all warps store the results.  The
+launch shape is ``gae_geometry``.  The plain version is
+``rlx_tpu_torch.ops.gae.gae_advantages_reference``.
 """
 
 import ctypes
@@ -13,14 +16,24 @@ import torch
 
 from rlx_tpu_torch.ops import _build
 
+COLUMNS = 32        # env columns per block (``kCols`` in the kernel)
+WARPS = 16          # ``kWarps``
+TIME_CHUNK = 64     # time rows staged at once (``kChunk``)
+
+
+def gae_geometry(T, B):
+    """Launch of the kernel on ``[T, B]``: a block per 32 env columns, two
+    f32 ``[TIME_CHUNK, 32]`` arrays of shared memory, ``chunks`` time
+    chunks walked one after another."""
+    return _build.Launch(blocks=-(-B // COLUMNS), threads=32 * WARPS,
+                         shared_bytes=2 * TIME_CHUNK * COLUMNS * 4, chunks=-(-T // TIME_CHUNK))
+
 
 def _lib():
-    lib = _build.load("gae")
-    fn = lib.rlx_gae
+    fn = _build.load("gae").rlx_gae
     if fn.argtypes is None:
-        P = ctypes.c_void_p
-        fn.argtypes = [P, P, P, P, ctypes.c_int, P, P, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_float, P]
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P, P, P, P, I, P, P, I, I, F, F, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -52,11 +65,13 @@ def gae_advantages_cuda(rewards, values, next_values, terminations, gamma, gae_l
     )
     advantages = torch.empty_like(rewards)
     returns = torch.empty_like(rewards)
+    launch = gae_geometry(T, B)
     stream = torch.cuda.current_stream(rewards.device).cuda_stream
     err = _lib()(
         rewards.data_ptr(), values.data_ptr(), next_values.data_ptr(), terminations.data_ptr(),
         terminations_are_float, advantages.data_ptr(), returns.data_ptr(), T, B,
-        float(gamma), float(gamma) * float(gae_lambda), stream,
+        float(gamma), float(gamma) * float(gae_lambda),
+        launch.blocks, launch.threads, launch.shared_bytes, stream,
     )
     if err != 0:
         raise RuntimeError(f"GAE kernel launch failed (cudaError {err})")

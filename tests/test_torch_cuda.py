@@ -28,17 +28,28 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_gae_kernel_matches_reference(cuda):
-    """f32, same operation order: rtol=atol=1e-5; ragged B."""
-    rng = np.random.default_rng(4)
-    r, v, nv = (torch.tensor(rng.normal(size=(64, 4097)), dtype=torch.float32, device=cuda)
+@pytest.mark.parametrize("T,B,dtype", [
+    (64, 4097, torch.bool),      # the PPO path's T, ragged B
+    (64, 4096, torch.float32),
+    (1, 1000, torch.bool),
+    (17, 1000, torch.float32),
+    (65, 1000, torch.uint8),     # two time chunks, the earlier one partial
+    (200, 1000, torch.bool),
+])
+def test_gae_kernel_matches_reference(cuda, T, B, dtype):
+    """f32, same operation order: rtol=atol=1e-5; two launches on the same
+    input give the same bits."""
+    rng = np.random.default_rng(T)
+    r, v, nv = (torch.tensor(rng.normal(size=(T, B)), dtype=torch.float32, device=cuda)
                 for _ in range(3))
-    d = torch.tensor(rng.random((64, 4097)) < 0.05, device=cuda)
+    d = torch.tensor(rng.random((T, B)) < 0.05, device=cuda).to(dtype)
     launches = gae_advantages_cuda.launches
     out = gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)
     assert gae_advantages_cuda.launches == launches + 1
     for o, x in zip(out, gae_advantages_reference(r, v, nv, d, 0.99, 0.95)):
         torch.testing.assert_close(o, x, rtol=1e-5, atol=1e-5)
+    for o, again in zip(out, gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)):
+        assert torch.equal(o, again)
 
 
 def _ant_variant(which):
@@ -145,3 +156,37 @@ def test_projection_kernel_matches_reference(cuda):
                                rtol=1e-6, atol=1e-6)
     with pytest.raises(RuntimeError):
         categorical_projection_cuda(z, p.requires_grad_(), -10.0, 10.0, 101)
+
+
+def _projection_case(name, rng):
+    """(positions, masses, output atoms) of an edge case of the scatter."""
+    shapes = {"fasttd3": (8192, 101), "v_max": (64, 101), "clipped": (64, 101), "two_atoms": (1000, 101),
+              "wide_input": (64, 8192), "eleven_atoms": (1027, 101), "reversed": (512, 101)}
+    n, a = shapes[name]
+    z = rng.uniform(-14.0, 14.0, size=(n, a))
+    if name in ("fasttd3", "reversed"):    # r + gamma_n (1 - d) atoms, increasing in j
+        gamma = np.where(rng.random((n, 1)) < 0.1, 0.0, 0.97 ** rng.integers(1, 4, (n, 1)))
+        z = 3.0 * rng.normal(size=(n, 1)) + gamma * np.linspace(-10.0, 10.0, a)
+        z = z[:, ::-1] if name == "reversed" else z
+    elif name == "v_max":                  # every b == A_out - 1
+        z[:] = 10.0
+    elif name == "clipped":                # runs of 32 lanes on one end atom
+        z[: n // 2], z[n // 2:] = 13.0, -13.0
+    logits = 2.0 * rng.normal(size=(n, a))
+    p = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    out_atoms = {"two_atoms": 2, "eleven_atoms": 11}.get(name, 101)
+    return np.ascontiguousarray(z, dtype=np.float32), p.astype(np.float32), out_atoms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fasttd3", "v_max", "clipped", "two_atoms", "wide_input",
+                                  "eleven_atoms", "reversed"])
+def test_projection_kernel_edge_cases(cuda, name):
+    """The scatter's edge cases at 1e-6 against the dense plain version, and
+    the same bits over two launches."""
+    z, p, out_atoms = _projection_case(name, np.random.default_rng(6))
+    z, p = torch.tensor(z, device=cuda), torch.tensor(p, device=cuda)
+    out = categorical_projection_cuda(z, p, -10.0, 10.0, out_atoms)
+    torch.testing.assert_close(out, categorical_projection_reference(z, p, -10.0, 10.0, out_atoms),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, categorical_projection_cuda(z, p, -10.0, 10.0, out_atoms))

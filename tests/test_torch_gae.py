@@ -9,7 +9,9 @@ import torch
 from rlx_tpu.ops.gae import gae_advantages as jax_gae
 from rlx_tpu.ops.gae_pallas import gae_advantages_pallas
 from rlx_tpu_torch.ops.gae import gae_advantages, gae_advantages_reference
-from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda, gae_bytes
+from rlx_tpu_torch.ops.gae_cuda import (
+    COLUMNS, TIME_CHUNK, WARPS, gae_advantages_cuda, gae_bytes, gae_geometry,
+)
 
 RTOL = ATOL = 1e-5
 
@@ -21,7 +23,7 @@ def _inputs(T, B, seed):
     return rewards, values, next_values, terminations
 
 
-@pytest.mark.parametrize("T,B", [(17, 5), (64, 130)])
+@pytest.mark.parametrize("T,B", [(17, 5), (64, 130), (1, 7), (65, 33)])
 def test_gae_matches_jax_scan(T, B):
     r, v, nv, d = _inputs(T, B, T)
     ref = jax_gae(jnp.asarray(r), jnp.asarray(v), jnp.asarray(nv), jnp.asarray(d), 0.99, 0.95)
@@ -63,3 +65,16 @@ def test_gae_cuda_wrapper_rejects_cpu_tensors_and_counts_bytes():
     with pytest.raises(ValueError, match="CUDA"):
         gae_advantages_cuda(r, v, nv, d, 0.99, 0.95)
     assert gae_bytes(64, 4096) == 64 * 4096 * (12 + 1 + 8)
+
+
+@pytest.mark.parametrize("T,B", [(64, 4096), (64, 4097), (1, 1000), (65, 33), (200, 1), (0, 5)])
+def test_gae_geometry_covers_every_column_and_row(T, B):
+    """A block per 32 env columns with fewer than 32 to spare, time chunks
+    covering every row, whole rows per warp while staging, and two staged
+    arrays within the shared memory a block has without opting in."""
+    launch = gae_geometry(T, B)
+    assert launch.threads == 32 * WARPS <= 1024
+    assert 0 <= launch.blocks * COLUMNS - B < COLUMNS
+    assert 0 <= launch.chunks * TIME_CHUNK - T < TIME_CHUNK
+    assert TIME_CHUNK % WARPS == 0
+    assert launch.shared_bytes == 2 * TIME_CHUNK * COLUMNS * 4 <= 48 * 1024
