@@ -32,7 +32,21 @@ Phases (each prints one line; any failure exits nonzero):
    f32, the default 1e6-transition buffer) through the entry points: 5
    prefill and 64 learning steps in 4 log lines, with the launch counters
    proving every update went through B3 and every env step through B2;
-9. 16 more FastTD3 learning steps under torch.profiler, as phase 6.
+9. 16 more FastTD3 learning steps under torch.profiler, as phase 6;
+10. PPO at the flagship width through ``Runner(argv=[...]).run()``: 2
+    eval/save iterations of 1 learning iteration each, evaluation and
+    ``save_model`` on, ``environment.horizon`` cut from 1000 to 200 (the
+    widths stay full), in a run directory under a temporary directory; the
+    counters must read 2 B1 and 2 * 64 + 2 * 200 B2 launches, the history
+    must step at 262144 and 524288, ``latest.model`` and ``best.model``
+    must exist.  Then the same runner in test mode from ``latest.model``:
+    every loaded parameter equal to the trained model's bit for bit, 10
+    finite returns, at most 200 B2 launches.  Train, eval and test wall
+    time, save and load ms and the checkpoint's MiB;
+11. phase 8's FastTD3 saved with its optimizer state, loaded through the
+    runner's test mode (1024 envs, horizon 200, 4 episodes): every
+    parameter, target, normalizer entry, AdamW moment and the update count
+    equal bit for bit, finite returns, at most 200 B2 launches.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -46,6 +60,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -160,9 +175,30 @@ def profile_spans(fn, span_prefix):
     }
 
 
+def same_tree(a, b):
+    """Number of tensors in two nested checkpoint trees, failing unless
+    every tensor is equal bit for bit and every other leaf equal."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"checkpoint trees have other keys: {sorted(a)} != {sorted(b)}")
+        return sum(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            fail("checkpoint trees have lists of other lengths")
+        return sum(same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b.cpu()):
+            fail(f"a loaded tensor of shape {tuple(a.shape)} differs from the saved one")
+        return 1
+    if a != b:
+        fail(f"a loaded value {b!r} differs from the saved {a!r}")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke runs the CUDA kernels and has no CPU fallback")
+    workdir = tempfile.TemporaryDirectory()
     dev = torch.device("cuda")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -350,6 +386,7 @@ def main():
         "algorithm.activation": "elu",
         "algorithm.layer_norm": True,
         "algorithm.compute_dtype": "bfloat16",
+        "algorithm.evaluation_active": False,
     })
     model = create_model(config)
     step_cuda.launches = 0
@@ -472,8 +509,10 @@ def main():
         "algorithm.total_timesteps": learning_starts + learning_steps * nr_envs,
         "algorithm.logging_frequency": log_steps * nr_envs,
         "algorithm.evaluation_active": False,
+        "runner.save_optimizer_state": True,   # for phase 11's save
     })
-    td3 = create_model(config)
+    td3_run_path = os.path.join(workdir.name, "fasttd3")
+    td3 = create_model(config, run_path=td3_run_path)
     step_cuda.launches = 0
     categorical_projection_cuda.launches = 0
     torch.cuda.synchronize()
@@ -517,6 +556,124 @@ def main():
         td3.env_state = td3._logging_iteration(td3.buffer, td3.env_state, learning_steps)
 
     print("profile fasttd3: " + json.dumps(profile_spans(one_logging_iteration, "fasttd3/")))
+
+    # 10. PPO through the Runner: eval/save iterations, then test mode
+    from rlx_tpu_torch.runner.runner import Runner
+    from rlx_tpu_torch.utils import checkpoint as ckpt
+
+    nr_envs, horizon = 4096, 200   # the horizon cut from the Ant's 1000; the widths stay full
+    flagship = [
+        "--runner.device=cuda", f"--environment.nr_envs={nr_envs}", f"--environment.horizon={horizon}",
+        f"--algorithm.nr_steps={nr_steps}", f"--algorithm.minibatch_size={batch // 8}",
+        "--algorithm.nr_epochs=4", "--algorithm.policy_hidden_sizes=(512, 256, 128)",
+        "--algorithm.critic_hidden_sizes=(512, 256, 128)", "--algorithm.activation=elu",
+        "--algorithm.layer_norm=True", "--algorithm.compute_dtype=bfloat16",
+    ]
+    os.chdir(workdir.name)   # the runner makes its run directory under the working directory
+    runner = Runner([*flagship, f"--algorithm.total_timesteps={2 * batch}",
+                     f"--algorithm.evaluation_and_save_frequency={batch}", "--runner.save_model=True",
+                     "--runner.run_name=ppo"])
+    step_cuda.launches = 0
+    gae_advantages_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"engine_substep": step_cuda.launches, "gae": gae_advantages_cuda.launches}
+    expected = {"engine_substep": 2 * nr_steps + 2 * horizon, "gae": 2}
+    if launches != expected:
+        fail(f"PPO runner launch counts {launches} != {expected}")
+    history = trained.eval_history
+    if history is None or [int(x) for x in history["steps"]] != [batch, 2 * batch]:
+        fail(f"PPO eval history steps {None if history is None else history['steps']} != [{batch}, {2 * batch}]")
+    eval_returns = [float(r) for r in history["eval/episode_return"]]
+    if not all(math.isfinite(r) for r in eval_returns):
+        fail(f"PPO eval returns {eval_returns}")
+    models_dir = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "ppo", "models")
+    latest, best = os.path.join(models_dir, "latest.model"), os.path.join(models_dir, "best.model")
+    # the first evaluation always beats -inf, so best.model must exist
+    if not os.path.isfile(latest) or not os.path.isfile(best) or os.path.exists(os.path.join(models_dir, "tmp")):
+        fail(f"PPO models {sorted(os.listdir(models_dir))}: expected latest.model and best.model, no tmp")
+    if eval_returns[1] > eval_returns[0]:
+        same_tree(ckpt.load_model_file(latest)[0], ckpt.load_model_file(best)[0])
+    # the times of one more evaluation and one more save, after the counts were read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained._eval_iteration(2)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained.save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    checkpoint_mib = os.path.getsize(latest) / 2**20
+
+    tester = Runner([*flagship, "--runner.mode=test", f"--runner.load_model={latest}",
+                     "--runner.nr_test_episodes=10", "--runner.run_name=ppo_test"])
+    step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = step_cuda.launches
+    if len(test_returns) != 10 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"PPO test mode returned {test_returns}, expected 10 finite returns")
+    if not 0 < test_launches <= horizon:
+        fail(f"PPO test mode launched B2 {test_launches} times, expected 1 to {horizon}")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    t0 = time.perf_counter()
+    tester.model.restore_from_tree(ckpt.load_model_file(latest)[0])
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    os.chdir(root)
+    print(f"runner ppo: 2 eval/save iterations of 1 learning iteration at {nr_envs}x{nr_steps}, horizon "
+          f"{horizon}: train {train_s:.2f} s (2 iterations, 2 evaluations, 3 saves), one evaluation "
+          f"({horizon} steps) {eval_s:.2f} s, save {save_ms:.1f} ms, load {load_ms:.1f} ms, checkpoint "
+          f"{checkpoint_mib:.2f} MiB; launches {launches}; eval returns {eval_returns}; test mode "
+          f"{test_s:.2f} s (load included), {test_launches} B2 launches, {compared} tensors restored bit "
+          f"for bit, returns {[round(r, 2) for r in test_returns]}")
+    launches_by_path["ppo_runner"] = launches
+    launches_by_path["ppo_test"] = {"engine_substep": test_launches}
+
+    # 11. FastTD3: full-state save of phase 8's model, load and test mode through the runner
+    t0 = time.perf_counter()
+    td3.save()
+    td3_save_ms = (time.perf_counter() - t0) * 1e3
+    td3_latest = os.path.join(td3_run_path, "models", "latest.model")
+    os.chdir(workdir.name)
+    tester = Runner(["--algorithm.name=fasttd3.cuda", "--environment.name=locomotion.ant.cuda",
+                     "--runner.device=cuda", "--runner.mode=test", f"--runner.load_model={td3_latest}",
+                     "--runner.save_optimizer_state=True",
+                     "--environment.nr_envs=1024", f"--environment.horizon={horizon}",
+                     "--runner.nr_test_episodes=4", "--runner.run_name=fasttd3_test"])
+    step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = step_cuda.launches
+    os.chdir(root)
+    if len(test_returns) != 4 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"FastTD3 test mode returned {test_returns}, expected 4 finite returns")
+    if not 0 < test_launches <= horizon:
+        fail(f"FastTD3 test mode launched B2 {test_launches} times, expected 1 to {horizon}")
+    tree = td3.checkpoint_tree()
+    if set(tree) != {"full"} or tree["full"]["nr_updates"] != td3.nr_updates:
+        fail(f"FastTD3 checkpoint tree {sorted(tree)} without the full state")
+    compared = same_tree(tree, tester.model.checkpoint_tree())
+    t0 = time.perf_counter()
+    tester.model.restore_from_tree(ckpt.load_model_file(td3_latest)[0])
+    torch.cuda.synchronize()
+    td3_load_ms = (time.perf_counter() - t0) * 1e3
+    print(f"runner fasttd3: full-state save {td3_save_ms:.1f} ms, load {td3_load_ms:.1f} ms, checkpoint "
+          f"{os.path.getsize(td3_latest) / 2**20:.2f} MiB, {compared} tensors (parameters, targets, "
+          f"normalizer, AdamW moments and steps) and the update count {td3.nr_updates} restored bit for "
+          f"bit; test mode at 1024 envs, horizon {horizon}: {test_s:.2f} s (load included), "
+          f"{test_launches} B2 launches, returns {[round(r, 2) for r in test_returns]}")
+    launches_by_path["fasttd3_test"] = {"engine_substep": test_launches}
+    workdir.cleanup()
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

@@ -34,6 +34,10 @@ from rlx_tpu_torch.ops.distributional import categorical_projection_dense
 
 
 class FastTD3(OffPolicyAlgorithm):
+    # the JAX package's state names: the checkpoint tree holds policy,
+    # policy_target, critic, critic_target and obs_normalizer
+    state_names = ("policy", "critic", "obs_normalizer")
+
     def setup_states(self):
         a = self.config.algorithm
         self.v_min, self.v_max = a.v_min, a.v_max

@@ -5,9 +5,14 @@ Python loops in place of its scans: a packed replay buffer on the device, a
 random prefill, then learning steps (1 env step : 1 gradient update) in
 logging iterations inside eval/save iterations, with the same sizing, so
 the counts of env steps, updates and log lines equal the JAX package's.
-Each algorithm implements:
+After each eval/save iteration come the evaluation and, with
+``runner.save_model``, ``latest.model`` (and ``best.model`` when the eval
+return is the best so far); ``save``, ``load`` and ``test`` follow the JAX
+package's.  Each algorithm implements:
 
 - ``setup_states()``                              networks, targets, optimizers
+- ``state_names``                                 attributes the checkpoint holds:
+                                                  ``TrainState``s and dicts of tensors
 - ``act(observation, noise=None) -> action``       normalized [-1, 1]
 - ``eval_act(observation) -> action``
 - ``update(batch, step, ...) -> metrics``          device scalars
@@ -18,9 +23,9 @@ spans ``<algorithm>/act``, ``/env_step``, ``/store``, ``/sample`` and
 ``/update``; they cost nothing measurable without an active profiler.
 
 Not ported yet (a config that asks for them has no such key, so it raises):
-the device mesh, parallel seeds, chunked training, checkpointing, test mode,
-``update_with_buffer`` (REDQ/DroQ/AQE) and the per-env sizing keys
-``learning_starts_per_env`` / ``buffer_size_per_env`` of FastMPO.
+the device mesh, parallel seeds, ``update_with_buffer`` (REDQ/DroQ/AQE)
+and the per-env sizing keys ``learning_starts_per_env`` /
+``buffer_size_per_env`` of FastMPO.
 """
 
 import math
@@ -30,8 +35,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
+from rlx_tpu_torch.algorithms.train_state import TrainState
+from rlx_tpu_torch.algorithms.training_program import run_training_program
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.ops import replay_buffer as rb
+from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
@@ -44,6 +53,8 @@ class OffPolicyAlgorithm:
 
         a = config.algorithm
         self.name = a.name.split(".")[0]
+        self.save_model = config.runner.save_model
+        self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
@@ -88,10 +99,13 @@ class OffPolicyAlgorithm:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.host_generator = torch.Generator().manual_seed(self.seed)
         self.setup_states()
+        self.nr_updates = 0          # learning steps taken, over every train() call
         self.metrics_history = []   # per-logging-iteration float metrics
         self.eval_history = None
 
     # --- algorithm hooks ---------------------------------------------------
+    state_names = ()
+
     def setup_states(self):
         raise NotImplementedError
 
@@ -164,6 +178,7 @@ class OffPolicyAlgorithm:
         sums = {}
         for k in range(self.nr_updates_per_logging_iteration):
             env_state, metrics = self._learning_step(buffer, env_state, step_base + k)
+            self.nr_updates += 1
             if self.logging_active:
                 means = {key: v.float().mean() for key, v in env_state.info.items()}
                 means.update(metrics)
@@ -200,24 +215,92 @@ class OffPolicyAlgorithm:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics
 
-    def train(self):
-        start = self._last_log_time = time.time()
+    def _init_train_carry(self):
+        """(buffer, env state after the prefill, best eval return)."""
         buffer = self._make_buffer()
         env_state = self._prefill(buffer, self.train_env.reset(self.seed))
-        evals = []
-        for i in range(self.nr_eval_save_iterations):
-            for j in range(self.nr_loggings_per_eval_save_iteration):
-                logging_iteration = i * self.nr_loggings_per_eval_save_iteration + j
-                step_base = logging_iteration * self.nr_updates_per_logging_iteration
-                env_state = self._logging_iteration(buffer, env_state, step_base)
-            if self.evaluation_active:
-                evals.append(self._eval_iteration(i))
-        self.env_state, self.buffer = env_state, buffer
-        if evals:
+        return buffer, env_state, -math.inf
+
+    def _eval_save_iteration(self, carry, eval_save_iteration):
+        buffer, env_state, best_return = carry
+        for j in range(self.nr_loggings_per_eval_save_iteration):
+            logging_iteration = eval_save_iteration * self.nr_loggings_per_eval_save_iteration + j
+            step_base = logging_iteration * self.nr_updates_per_logging_iteration
+            env_state = self._logging_iteration(buffer, env_state, step_base)
+        eval_metrics, is_best = None, False
+        if self.evaluation_active:
+            eval_metrics = self._eval_iteration(eval_save_iteration)
+            is_best = eval_metrics["eval/episode_return"] > best_return
+            best_return = max(best_return, eval_metrics["eval/episode_return"])
+        if self.save_model:
+            self.save()
+            if is_best:
+                self.save(file_name="best.model")
+        return (buffer, env_state, best_return), eval_metrics
+
+    def train(self):
+        start = self._last_log_time = time.time()
+        (self.buffer, self.env_state, _), eval_history = run_training_program(self)
+        self.eval_history = None
+        if eval_history is not None:
             # x-axis in env interactions consumed: the random prefill
             # (learning_starts) comes before the first recorded point
-            self.eval_history = {
-                "steps": self.learning_starts + (np.arange(len(evals)) + 1) * self.eval_save_frequency,
-                **{k: np.asarray([e[k] for e in evals]) for k in evals[0]},
-            }
+            steps = self.learning_starts + (np.arange(self.nr_eval_save_iterations) + 1) * self.eval_save_frequency
+            self.eval_history = {"steps": steps, **eval_history}
         rlx_logger.info(f"Average time: {time.time() - start:.2f} s")
+
+    # --- save / load / test ------------------------------------------------
+    def checkpoint_tree(self):
+        """``{name: params, name_target: target params}`` per ``TrainState``
+        and ``{name: tensors}`` per dict state; with
+        ``runner.save_optimizer_state``, ``{"full": ...}`` with the
+        optimizers' state and the update count as well."""
+        states = {name: getattr(self, name) for name in self.state_names}
+        if self.config.runner.save_optimizer_state:
+            full = {name: state.state_dict() if isinstance(state, TrainState) else state
+                    for name, state in states.items()}
+            return {"full": {**full, "nr_updates": self.nr_updates}}
+        tree = {}
+        for name, state in states.items():
+            if isinstance(state, TrainState):
+                tree[name] = state.module.state_dict()
+                tree[f"{name}_target"] = state.target.state_dict()
+            else:
+                tree[name] = state
+        return tree
+
+    def restore_from_tree(self, tree):
+        full = tree.get("full")
+        for name in self.state_names:
+            state = getattr(self, name)
+            if isinstance(state, TrainState):
+                if full is not None:
+                    state.load_state_dict(full[name])
+                else:
+                    state.module.load_state_dict(tree[name])
+                    state.target.load_state_dict(tree[f"{name}_target"])
+            else:
+                stored = (full if full is not None else tree)[name]
+                setattr(self, name, {k: v.to(self.device) for k, v in stored.items()})
+        if full is not None:
+            self.nr_updates = full["nr_updates"]
+
+    def save(self, file_name="latest.model"):
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+
+    @classmethod
+    def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):
+        return ckpt.load_model(cls, config, train_env, eval_env, run_path, writer,
+                               explicitly_set_algorithm_params)
+
+    @torch.no_grad()
+    def test(self, episodes):
+        """Deterministic rollouts until ``episodes`` episodes are done (the
+        JAX package's ``nr_test_episodes`` semantics)."""
+        def step(env_state):
+            action = self.eval_act(env_state.observation)
+            return self.eval_env.step(env_state, self.process_action(action))
+
+        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        env_state = self.eval_env.reset(seed, eval_mode=True)
+        return collect_test_returns(step, env_state, episodes, self.horizon)

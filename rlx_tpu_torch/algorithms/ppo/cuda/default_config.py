@@ -27,5 +27,7 @@ def get_config(algorithm_name):
         # trunk compute dtype ("float32" | "bfloat16"); heads, distribution
         # math and Adam stay float32
         compute_dtype="float32",
+        evaluation_and_save_frequency=-1,
+        evaluation_active=True,
         logging_active=True,
     )

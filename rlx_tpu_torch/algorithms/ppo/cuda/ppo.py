@@ -14,10 +14,17 @@ Per learning iteration:
   gradient clip and Adam, separately for the policy and the critic, with the
   learning rate annealed linearly on the optimizer step count.
 
-The three phases run under ``torch.profiler.record_function`` spans
-(``ppo/rollout``, ``ppo/advantages``, ``ppo/update``), which cost nothing
-measurable without an active profiler and give a trace its per-phase host
-time.
+The learning iterations run in eval/save iterations, with the JAX
+package's sizing (``rlx_tpu/algorithms/ppo/tpu/ppo.py``): after each, an
+evaluation of ``horizon`` deterministic steps from a fresh eval reset and,
+with ``runner.save_model``, ``latest.model`` (and ``best.model`` when the
+eval return is the best so far).  ``save``, ``load`` and ``test`` follow the
+JAX package's.
+
+The phases run under ``torch.profiler.record_function`` spans
+(``ppo/rollout``, ``ppo/advantages``, ``ppo/update``, ``ppo/eval``), which
+cost nothing measurable without an active profiler and give a trace its
+per-phase host time.
 
 The optimizer matches ``optax.chain(clip_by_global_norm(max_grad_norm),
 inject_hyperparams(adam)(lr=schedule))``: gradients are scaled by
@@ -25,15 +32,22 @@ inject_hyperparams(adam)(lr=schedule))``: gradients are scaled by
 the learning rate is evaluated from the step count before each step.
 """
 
+import math
 import time
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
 from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperties
-from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
+from rlx_tpu_torch.algorithms.train_state import (
+    clip_by_global_norm_, load_module_state_dict, module_state_dict,
+)
+from rlx_tpu_torch.algorithms.training_program import run_training_program
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
+from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
@@ -45,6 +59,8 @@ class PPO:
         self.device = train_env.device
 
         a = config.algorithm
+        self.save_model = config.runner.save_model
+        self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
@@ -60,12 +76,21 @@ class PPO:
         self.critic_coef = a.critic_coef
         self.max_grad_norm = a.max_grad_norm
         self.logging_active = a.logging_active
+        self.evaluation_active = a.evaluation_active
 
         self.batch_size = self.nr_envs * self.nr_steps
         self.nr_updates = self.total_timesteps // self.batch_size
         self.nr_minibatches = self.batch_size // self.minibatch_size
         if self.nr_minibatches * self.minibatch_size != self.batch_size:
             raise ValueError("minibatch_size must divide nr_envs * nr_steps")
+        self.eval_save_frequency = a.evaluation_and_save_frequency
+        if self.eval_save_frequency == -1:
+            self.eval_save_frequency = self.batch_size * max(self.nr_updates, 1)
+        if self.eval_save_frequency % self.batch_size != 0:
+            raise ValueError("evaluation_and_save_frequency must be a multiple of nr_envs * nr_steps")
+        self.nr_eval_save_iterations = max(self.total_timesteps // self.eval_save_frequency, 1)
+        self.nr_updates_per_eval_save_iteration = self.eval_save_frequency // self.batch_size
+        self.horizon = train_env.horizon
 
         self.logger = MetricsLogger(config.runner.track_console)
         rlx_logger.info(f"Using device: {self.device}")
@@ -85,8 +110,11 @@ class PPO:
         )
         self.nr_optimizer_steps = 0
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        # seeds of the eval and test resets
+        self.host_generator = torch.Generator().manual_seed(self.seed)
         self.env_state = None
         self.metrics_history = []  # per-iteration float metrics when logging is active
+        self.eval_history = None
 
     def learning_rate_at(self, count):
         """Learning rate for the update that follows ``count`` updates."""
@@ -231,22 +259,111 @@ class PPO:
         out["lr/learning_rate"] = torch.tensor(lr)
         return out
 
-    def train(self):
+    # ------------------------------------------------------- eval/save loop
+
+    @torch.no_grad()
+    def _eval_iteration(self, eval_save_iteration):
+        """``horizon`` steps of ``policy.mode`` from a fresh eval reset; every
+        ``rollout/*`` info key becomes ``eval/*`` (mean over envs), with
+        ``eval/policy_std``.  The train env state is not touched (the Ant's
+        eval env is its train env)."""
+        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        with record_function("ppo/eval"):
+            eval_env_state = self.eval_env.reset(seed, eval_mode=True)
+            for _ in range(self.horizon):
+                action = self.policy.mode(eval_env_state.observation)
+                eval_env_state = self.eval_env.step(eval_env_state, self.policy.process_action(action))
+        eval_metrics = {
+            "eval/" + k.split("rollout/", 1)[1]: float(v.float().mean())
+            for k, v in eval_env_state.info.items() if k.startswith("rollout/")
+        }
+        eval_metrics["eval/policy_std"] = float(torch.exp(self.policy.module.policy_logstd).mean())
+        if self.logging_active:
+            self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
+        return eval_metrics
+
+    def _init_train_carry(self):
+        """(env state, best eval return); training goes on from
+        ``env_state`` when an earlier ``train()`` left one."""
         if self.env_state is None:
             self.env_state = self.train_env.reset(self.seed)
-        start = last = time.time()
-        for iteration in range(self.nr_updates):
-            self.env_state, metrics = self.learning_iteration(self.env_state)
+        return self.env_state, -math.inf
+
+    def _eval_save_iteration(self, carry, eval_save_iteration):
+        env_state, best_return = carry
+        for j in range(self.nr_updates_per_eval_save_iteration):
+            env_state, metrics = self.learning_iteration(env_state)
             if self.logging_active:
+                iteration = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j + 1
                 values = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
-                values["time/sps"] = int(self.batch_size / max(now - last, 1e-9))
-                last = now
-                values["steps/nr_env_steps"] = (iteration + 1) * self.batch_size
+                values["time/sps"] = int(self.batch_size / max(now - self._last_log_time, 1e-9))
+                self._last_log_time = now
+                values["steps/nr_env_steps"] = iteration * self.batch_size
                 values["steps/nr_updates"] = self.nr_optimizer_steps
                 self.metrics_history.append(values)
-                self.logger.log_dict(values, (iteration + 1) * self.batch_size)
+                self.logger.log_dict(values, iteration * self.batch_size)
+        self.env_state = env_state
+        eval_metrics, is_best = None, False
+        if self.evaluation_active:
+            eval_metrics = self._eval_iteration(eval_save_iteration)
+            is_best = eval_metrics["eval/episode_return"] > best_return
+            best_return = max(best_return, eval_metrics["eval/episode_return"])
+        if self.save_model:
+            self.save()
+            if is_best:
+                self.save(file_name="best.model")
+        return (env_state, best_return), eval_metrics
+
+    def train(self):
+        start = self._last_log_time = time.time()
+        (self.env_state, _), eval_history = run_training_program(self)
+        self.eval_history = None
+        if eval_history is not None:
+            steps = (np.arange(self.nr_eval_save_iterations) + 1) * self.eval_save_frequency
+            self.eval_history = {"steps": steps, **eval_history}
         rlx_logger.info(f"Average time: {time.time() - start:.2f} s")
+
+    # ----------------------------------------------------- save / load / test
+
+    def checkpoint_tree(self):
+        if self.config.runner.save_optimizer_state:
+            return {"full": {
+                "policy": module_state_dict(self.policy.module, self.policy_optimizer),
+                "critic": module_state_dict(self.critic, self.critic_optimizer),
+                "nr_optimizer_steps": self.nr_optimizer_steps,
+            }}
+        return {"policy": self.policy.module.state_dict(), "critic": self.critic.state_dict()}
+
+    def restore_from_tree(self, tree):
+        if "full" in tree:
+            full = tree["full"]
+            load_module_state_dict(full["policy"], self.policy.module, self.policy_optimizer)
+            load_module_state_dict(full["critic"], self.critic, self.critic_optimizer)
+            self.nr_optimizer_steps = full["nr_optimizer_steps"]
+        else:
+            self.policy.module.load_state_dict(tree["policy"])
+            self.critic.load_state_dict(tree["critic"])
+
+    def save(self, file_name="latest.model"):
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+
+    @classmethod
+    def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):
+        return ckpt.load_model(cls, config, train_env, eval_env, run_path, writer,
+                               explicitly_set_algorithm_params)
+
+    @torch.no_grad()
+    def test(self, episodes):
+        """Deterministic rollouts until ``episodes`` episodes are done (the
+        JAX package's ``nr_test_episodes`` semantics)."""
+        def step(env_state):
+            action = self.policy.mode(env_state.observation)
+            return self.eval_env.step(env_state, self.policy.process_action(action))
+
+        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        env_state = self.eval_env.reset(seed, eval_mode=True)
+        return collect_test_returns(step, env_state, episodes, self.horizon)
 
     def general_properties():
         return GeneralProperties

@@ -23,6 +23,25 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
+def module_state_dict(module, optimizer, target=None):
+    """A network's full state, named as flax's ``TrainState`` fields:
+    ``params``, ``opt_state`` and, with a target, ``target_params``."""
+    out = {"params": module.state_dict(), "opt_state": optimizer.state_dict()}
+    if target is not None:
+        out["target_params"] = target.state_dict()
+    return out
+
+
+def load_module_state_dict(state, module, optimizer, target=None):
+    """Inverse of ``module_state_dict``.  The optimizer's state is loaded
+    after the parameters, which already sit on their device, so its moments
+    land there too."""
+    module.load_state_dict(state["params"])
+    if target is not None:
+        target.load_state_dict(state["target_params"])
+    optimizer.load_state_dict(state["opt_state"])
+
+
 class TrainState:
     def __init__(self, module, optimizer):
         self.module = module
@@ -36,3 +55,9 @@ class TrainState:
         targets = list(self.target.parameters())
         torch._foreach_mul_(targets, 1.0 - tau)
         torch._foreach_add_(targets, torch._foreach_mul(list(self.module.parameters()), tau))
+
+    def state_dict(self):
+        return module_state_dict(self.module, self.optimizer, self.target)
+
+    def load_state_dict(self, state):
+        load_module_state_dict(state, self.module, self.optimizer, self.target)

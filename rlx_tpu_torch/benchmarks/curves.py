@@ -2,10 +2,12 @@
 
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_fasttd3 --seeds 0 1 2 \
         --out chiprun_out/pendulum_spot_fasttd3.json
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_ppo --seeds 1 2 3
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
-budget, evaluation points, overrides and threshold, so the outcome reads
-against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
+budget, evaluation points, overrides and threshold (an on-policy run's evaluation
+interval rounded down to a multiple of its rollout batch, as there), so the
+outcome reads against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
 turn; its final return is the mean of its last three evaluations, and the
 check passes when every seed's final return clears the threshold.  Needs a
 CUDA device and prints the card's name and power limit beside the result.
@@ -21,6 +23,16 @@ import time
 import torch
 
 RUNS = {
+    # benchmarks/curves.py: pendulum_ppo (gamma 0.9, 8 envs x 256 steps)
+    "pendulum_ppo": {
+        "algorithm": "ppo.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 200_000, "threshold": -700.0, "eval_points": 10,
+        "overrides": {
+            "algorithm.nr_steps": 256, "algorithm.minibatch_size": 512,
+            "algorithm.nr_epochs": 10, "algorithm.learning_rate": 1e-3,
+            "algorithm.gamma": 0.9, "environment.nr_envs": 8,
+        },
+    },
     # benchmarks/curves.py: _PENDULUM_OFFPOLICY plus the categorical support
     # that covers Pendulum's raw returns
     "pendulum_spot_fasttd3": {
@@ -38,12 +50,16 @@ RUNS = {
 def run_seed(spec, seed):
     from rlx_tpu_torch.config import create_model, make_config
 
-    budget = spec["budget"]
+    budget, overrides = spec["budget"], spec["overrides"]
+    eval_frequency = max(budget // spec["eval_points"], 1)
+    if "algorithm.nr_steps" in overrides:
+        batch = overrides["algorithm.nr_steps"] * overrides["environment.nr_envs"]
+        eval_frequency = max(eval_frequency // batch, 1) * batch
     config = make_config(spec["algorithm"], spec["environment"], **{
-        **spec["overrides"],
+        **overrides,
         "runner.device": "cuda",
         "algorithm.total_timesteps": budget,
-        "algorithm.evaluation_and_save_frequency": max(budget // spec["eval_points"], 1),
+        "algorithm.evaluation_and_save_frequency": eval_frequency,
         "algorithm.evaluation_active": True,
         "algorithm.logging_active": False,
         "environment.seed": seed,

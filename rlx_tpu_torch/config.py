@@ -58,6 +58,8 @@ def create_env(config):
 
 
 def create_model(config, train_env=None, eval_env=None, run_path=None, writer=None):
+    """The algorithm's model; with ``run_path`` it saves into
+    ``<run_path>/models``, and without one ``runner.save_model`` raises."""
     if train_env is None:
         train_env, eval_env = create_env(config)
     model_class = get_algorithm_model_class(config.algorithm.name)()

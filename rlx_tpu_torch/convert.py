@@ -7,6 +7,12 @@ outer ``"params"`` key).  Dense kernels are stored ``[in, out]`` by flax and
 ``scale``/``bias`` become ``weight``/``bias``.  The ``nn.vmap``-ed critic
 ensemble keeps every leaf stacked on a leading critic axis, which the
 port's ``VectorQCritic`` keeps too.
+
+``checkpoint_tree_from_jax`` turns the parameter tree of a JAX
+``latest.model`` / ``best.model`` (as the JAX package's
+``utils/checkpoint.load_model_file`` returns it) into the port's checkpoint
+tree.  Optimizer state is not carried across: a JAX checkpoint written with
+``save_optimizer_state`` raises.
 """
 
 import numpy as np
@@ -81,3 +87,23 @@ def vector_q_critic_state_dict(flax_params):
         out["norm_bias"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["bias"], np.float32).copy())
     out.update(_batched_dense("head", p["Dense_0"]))
     return out
+
+
+def checkpoint_tree_from_jax(algorithm, restored):
+    """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"`` or
+    ``"fasttd3"`` from a JAX checkpoint's parameter tree."""
+    if "full" in restored:
+        raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
+    if algorithm == "ppo":
+        return {"policy": policy_state_dict(restored["policy"]),
+                "critic": critic_state_dict(restored["critic"])}
+    if algorithm == "fasttd3":
+        return {
+            "policy": deterministic_policy_state_dict(restored["policy"]),
+            "policy_target": deterministic_policy_state_dict(restored["policy_target"]),
+            "critic": vector_q_critic_state_dict(restored["critic"]),
+            "critic_target": vector_q_critic_state_dict(restored["critic_target"]),
+            "obs_normalizer": {k: torch.as_tensor(np.asarray(v, np.float32).copy())
+                               for k, v in restored["obs_normalizer"].items()},
+        }
+    raise ValueError(f"no checkpoint conversion for {algorithm!r}")

@@ -1,4 +1,6 @@
-"""Runner config namespace."""
+"""Runner config namespace (the JAX package's keys that the port runs;
+the trackers, rendering, the mesh and the JAX set-up keys are left out,
+so setting one raises ``KeyError``)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -10,6 +12,17 @@ def get_config():
         project_name="rlx_tpu_torch",
         exp_name="default",
         run_name="",
+        save_model=False,
+        load_model="",
+        # include optimizer state and step counters in the checkpoint, so an
+        # interrupted run restores exactly
+        save_optimizer_state=False,
+        nr_test_episodes=10,
+        # accepted for the JAX package's command lines: the eager port always
+        # runs one host call per eval/save iteration (training_program.py)
+        chunked_train=False,
+        # write a torch.profiler Chrome trace of train() into this directory
+        profile_dir="",
         # "cuda" (default) or "cpu"; a CUDA device runs the hand-written kernels
         device="cuda",
     )

@@ -1,23 +1,41 @@
-"""Experiment entry point (train mode).
+"""Experiment entry point: train, test and show_config modes.
 
     python -m rlx_tpu_torch.runner.runner --algorithm.name=ppo.cuda \
         --environment.name=locomotion.ant.cuda --runner.track_console=True \
-        --algorithm.nr_steps=64
+        --algorithm.nr_steps=64 --runner.save_model=True
+
+    python -m rlx_tpu_torch.runner.runner --runner.mode=test \
+        --runner.load_model=runs/rlx_tpu_torch/default/run/models/latest.model
 
 Flags are dotted config keys; values are parsed as Python literals where
 they are one (``64``, ``True``, ``(512, 256)``) and kept as strings
 otherwise.  ``--runner.device=cpu`` runs the plain versions of the kernels
 on the CPU; the default ``cuda`` runs the CUDA kernels.
+
+Train and test mode make the run directory
+``runs/<project_name>/<exp_name>/<run_name or "run">`` under the working
+directory, with ``provenance.json`` and ``diff.patch``, and build the model
+or, with ``runner.load_model``, load it: the stored algorithm config wins
+over the defaults, the ``algorithm.*`` flags given here over both.  The
+``runner.*`` and ``environment.*`` keys always come from this command line.
 """
 
 import ast
+import json
+import os
+import subprocess
 import sys
+from pathlib import Path
 
-from rlx_tpu_torch.algorithms.algorithm_manager import get_algorithm_general_properties
-from rlx_tpu_torch.config import create_model, make_config
+import torch
+
+from rlx_tpu_torch.algorithms.algorithm_manager import (
+    get_algorithm_general_properties, get_algorithm_model_class,
+)
+from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments.environment_manager import get_environment_general_properties
 from rlx_tpu_torch.runner.runner_mode import RunnerMode
-from rlx_tpu_torch.utils.logging import setup_logger
+from rlx_tpu_torch.utils.logging import rlx_logger, setup_logger
 
 DEFAULT_ALGORITHM = "ppo.cuda"
 DEFAULT_ENVIRONMENT = "locomotion.ant.cuda"
@@ -51,6 +69,8 @@ class Runner:
         self.algorithm_name = flags.pop("algorithm.name", DEFAULT_ALGORITHM)
         self.environment_name = flags.pop("environment.name", DEFAULT_ENVIRONMENT)
         self.mode = flags.pop("runner.mode", RunnerMode.TRAIN)
+        self.explicitly_set_algorithm_params = [k for k in flags if k.startswith("algorithm.")]
+        self.model = None
         self.config = make_config(self.algorithm_name, self.environment_name,
                                   implementation_package_names, **flags)
         self.check_compatibility(
@@ -68,15 +88,95 @@ class Runner:
             raise ValueError("algorithm does not support the environment's data interface")
 
     def run(self):
-        if self.mode != RunnerMode.TRAIN:
-            raise NotImplementedError(f"runner mode {self.mode!r} is not ported yet (train only)")
+        """Train mode returns the trained model, test mode the list of test
+        returns, show_config the config; ``self.model`` keeps the model."""
         setup_logger()
-        model = create_model(self.config)
+        if self.mode == RunnerMode.TRAIN:
+            return self._train()
+        if self.mode == RunnerMode.TEST:
+            return self._test()
+        if self.mode == RunnerMode.SHOW_CONFIG:
+            return self._show_config()
+        raise ValueError(f"Unknown runner mode: {self.mode}")
+
+    def _make_run_path(self):
+        runner = self.config.runner
+        run_path = Path("runs") / runner.project_name / runner.exp_name / (runner.run_name or "run")
+        run_path.mkdir(parents=True, exist_ok=True)
+        run_path = str(run_path.resolve())
+        log_run_provenance(run_path)
+        return run_path
+
+    def _make_model(self, train_env, eval_env, run_path):
+        model_class = get_algorithm_model_class(self.algorithm_name)()
+        if self.config.runner.load_model:
+            return model_class.load(self.config, train_env, eval_env, run_path, None,
+                                    self.explicitly_set_algorithm_params)
+        return model_class(self.config, train_env, eval_env, run_path, None)
+
+    def _train(self):
+        run_path = self._make_run_path()
+        train_env, eval_env = create_env(self.config)
         try:
-            model.train()
+            self.model = self._make_model(train_env, eval_env, run_path)
+            profile_dir = self.config.runner.profile_dir
+            if profile_dir:
+                with torch.profiler.profile() as profiler:
+                    self.model.train()
+                os.makedirs(profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            else:
+                self.model.train()
         finally:
-            model.train_env.close()
-        return model
+            close_envs(train_env, eval_env)
+        return self.model
+
+    def _test(self):
+        run_path = self._make_run_path()
+        train_env, eval_env = create_env(self.config)
+        try:
+            self.model = self._make_model(train_env, eval_env, run_path)
+            returns = self.model.test(self.config.runner.nr_test_episodes)
+        finally:
+            close_envs(train_env, eval_env)
+        rlx_logger.info(f"test: {len(returns)} episodes, returns {[round(r, 2) for r in returns]}")
+        return returns
+
+    def _show_config(self):
+        rlx_logger.info("\n" + json.dumps(self.config.to_dict(), indent=1))
+        return self.config
+
+
+def close_envs(train_env, eval_env):
+    train_env.close()
+    if eval_env is not train_env:
+        eval_env.close()
+
+
+def log_run_provenance(run_path):
+    """``provenance.json`` (pip freeze, git commit, ``SLURM_JOB_ID``) and
+    ``diff.patch`` (the working tree's diff) in the run directory, as the
+    JAX package's runner writes them; what cannot be read is left out."""
+    provenance = {}
+    try:
+        packages = subprocess.check_output([sys.executable, "-m", "pip", "freeze"],
+                                           stderr=subprocess.DEVNULL, text=True).splitlines()
+        provenance["python_packages"] = dict(p.split("==", 1) for p in packages if "==" in p)
+    except (OSError, subprocess.CalledProcessError) as e:
+        rlx_logger.warning(f"Could not capture pip freeze: {e}")
+    project_dir = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        provenance["git_commit_hash"] = subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], cwd=project_dir, stderr=subprocess.DEVNULL, text=True).strip()
+        diff = subprocess.check_output(["git", "diff"], cwd=project_dir, stderr=subprocess.DEVNULL, text=True)
+        with open(os.path.join(run_path, "diff.patch"), "w") as f:
+            f.write(diff)
+    except (OSError, subprocess.CalledProcessError) as e:
+        rlx_logger.warning(f"Could not capture git state: {e}")
+    if "SLURM_JOB_ID" in os.environ:
+        provenance["SLURM_JOB_ID"] = os.environ["SLURM_JOB_ID"]
+    with open(os.path.join(run_path, "provenance.json"), "w") as f:
+        json.dump(provenance, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -2,4 +2,6 @@
 
 
 class RunnerMode:
+    SHOW_CONFIG = "show_config"
     TRAIN = "train"
+    TEST = "test"

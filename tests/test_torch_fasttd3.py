@@ -6,8 +6,11 @@
   target parameter and normalizer leaf after each call;
 - ``act`` with JAX's exploration noise replayed;
 - the whole slice through ``make_config`` / ``create_model`` / ``train()``
-  on the CPU (Ant and Pendulum).
+  on the CPU (Ant and Pendulum), with the best-model checkpoint and test
+  mode.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -206,7 +209,8 @@ def test_fasttd3_trains_and_evaluates_on_pendulum():
     assert np.isfinite(model.eval_history["eval/episode_return"]).all()
 
 
-def test_runner_trains_fasttd3():
+def test_runner_trains_fasttd3(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     model = Runner([
         "--algorithm.name=fasttd3.cuda", "--environment.name=classic.pendulum.cuda",
         "--runner.device=cpu", "--algorithm.total_timesteps=96", "--algorithm.learning_starts=32",
@@ -225,3 +229,27 @@ def test_left_out_features_raise():
     with pytest.raises(NotImplementedError):
         create_model(make_config("fasttd3.cuda", "classic.pendulum.cuda", **{
             "runner.device": "cpu", "environment.mask_velocity": True}))
+
+
+def test_best_model_written_iff_an_eval_improved_and_test_mode(tmp_path):
+    """latest.model after every eval/save iteration, best.model when the eval
+    return beats the best so far (scripted returns -5, -3, -4); then test
+    mode collects finite returns and the update count covers every step."""
+    config = make_config("fasttd3.cuda", "classic.pendulum.cuda", **{
+        **SMALL, "runner.device": "cpu", "runner.save_model": True, "algorithm.total_timesteps": 80,
+        "algorithm.learning_starts": 32, "algorithm.buffer_size": 256, "algorithm.logging_frequency": 16,
+        "algorithm.evaluation_and_save_frequency": 16, "environment.nr_envs": 4,
+    })
+    model = create_model(config, run_path=str(tmp_path))
+    scripted = iter([-5.0, -3.0, -4.0])
+    model._eval_iteration = lambda i: {"eval/episode_return": next(scripted)}
+    saves = []
+    save = model.save
+    model.save = lambda file_name="latest.model": (saves.append(file_name), save(file_name))
+    model.train()
+    assert saves == ["latest.model", "best.model", "latest.model", "best.model", "latest.model"]
+    assert sorted(os.listdir(tmp_path / "models")) == ["best.model", "latest.model"]
+    assert model.nr_updates == 3 * 4
+    np.testing.assert_array_equal(model.eval_history["steps"], [48, 64, 80])
+    returns = model.test(3)
+    assert len(returns) == 3 and all(np.isfinite(returns))

@@ -1,7 +1,11 @@
 """The port's PPO against the JAX package's: one ``_optimize`` call from
 converted parameters on a fixed batch, with JAX's own epoch permutations
-injected; plus a tiny end-to-end CPU train through the runner, and the
-config/registry contract."""
+injected; the eval/save sizing and the eval history's step axis and keys;
+plus a tiny end-to-end CPU train through the runner, the best-model
+checkpoint, evaluation leaving training as it was, and the config/registry
+contract."""
+
+import os
 
 import jax
 import numpy as np
@@ -12,7 +16,7 @@ from rlx_tpu.config import create_model as jax_create_model
 from rlx_tpu.config import make_config as jax_make_config
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
-from rlx_tpu_torch.config import create_model, make_config
+from rlx_tpu_torch.config import create_env, create_model, make_config
 from rlx_tpu_torch.runner.runner import Runner, parse_flags
 
 NR_ENVS, NR_STEPS, MINIBATCH, EPOCHS = 4, 4, 8, 2
@@ -108,14 +112,16 @@ def test_learning_rate_schedule():
     assert model.learning_rate_at(3 * per_update) == pytest.approx(3e-4 * 0.25)
 
 
-def test_tiny_train_through_runner():
+def test_tiny_train_through_runner(tmp_path, monkeypatch):
     """8 envs x 8 steps, 2 iterations, plain kernels on the CPU."""
+    monkeypatch.chdir(tmp_path)
     model = Runner([
         "--runner.device=cpu", "--environment.nr_envs=8", "--algorithm.nr_steps=8",
         "--algorithm.minibatch_size=16", "--algorithm.nr_epochs=2",
         "--algorithm.total_timesteps=128", "--algorithm.policy_hidden_sizes=(32, 32)",
         "--algorithm.critic_hidden_sizes=(32, 32)", "--algorithm.activation=elu",
         "--algorithm.layer_norm=True", "--algorithm.compute_dtype=bfloat16",
+        "--algorithm.evaluation_active=False",
     ]).run()
     assert len(model.metrics_history) == 2
     for metrics in model.metrics_history:
@@ -135,5 +141,99 @@ def test_config_overrides_and_registries():
     with pytest.raises(KeyError):
         make_config("ppo.cuda", "locomotion.ant.cuda", **{"algorithm.nr_stepz": 64})
     assert parse_flags(["--a.b=3", "--c.d", "x", "--e.f=(1, 2)"]) == {"a.b": 3, "c.d": "x", "e.f": (1, 2)}
-    with pytest.raises(NotImplementedError):
-        Runner(["--runner.mode=test", "--runner.device=cpu"]).run()
+    with pytest.raises(ValueError, match="Unknown runner mode"):
+        Runner(["--runner.mode=bogus", "--runner.device=cpu"]).run()
+
+
+PENDULUM = {
+    "runner.device": "cpu",
+    "environment.nr_envs": 4,
+    "algorithm.nr_steps": 8,
+    "algorithm.minibatch_size": 16,
+    "algorithm.nr_epochs": 2,
+    "algorithm.policy_hidden_sizes": (16, 16),
+    "algorithm.critic_hidden_sizes": (16, 16),
+    "algorithm.logging_active": False,
+}
+BATCH = 4 * 8
+
+
+@pytest.mark.parametrize("total,frequency", [
+    (2 * BATCH, -1), (3 * BATCH, BATCH), (5 * BATCH, 2 * BATCH), (2 * BATCH, 3 * BATCH), (4 * BATCH, 20),
+])
+def test_eval_save_sizing_and_history_match_jax(total, frequency):
+    """``nr_eval_save_iterations``, ``nr_updates_per_eval_save_iteration``,
+    the history's steps and its eval keys equal JAX ``PPO``'s; a frequency
+    that is not a multiple of the batch raises in both."""
+    shared = {k: v for k, v in PENDULUM.items() if k != "runner.device"}
+    shared.update({"algorithm.total_timesteps": total, "algorithm.evaluation_and_save_frequency": frequency,
+                   "environment.horizon": 16})
+    jax_config = jax_make_config("ppo.tpu", "classic.pendulum.tpu", **shared, **{"runner.mesh_dp": 1})
+    config = make_config("ppo.cuda", "classic.pendulum.cuda", **shared, **{"runner.device": "cpu"})
+    if frequency != -1 and frequency % BATCH != 0:
+        for make in (lambda: jax_create_model(jax_config), lambda: create_model(config)):
+            with pytest.raises(ValueError, match="multiple"):
+                make()
+        return
+    jmodel, model = jax_create_model(jax_config), create_model(config)
+    for attribute in ("nr_updates", "eval_save_frequency", "nr_eval_save_iterations",
+                      "nr_updates_per_eval_save_iteration"):
+        assert getattr(model, attribute) == getattr(jmodel, attribute), attribute
+    jmodel.train()
+    model.train()
+    assert set(model.eval_history) == set(jmodel.eval_history)
+    np.testing.assert_array_equal(model.eval_history["steps"], jmodel.eval_history["steps"])
+    assert model.nr_optimizer_steps == (model.nr_eval_save_iterations * model.nr_updates_per_eval_save_iteration
+                                        * model.nr_minibatches * model.nr_epochs)
+    assert len(model.eval_history["eval/episode_return"]) == model.nr_eval_save_iterations
+
+
+def test_best_model_written_iff_an_eval_improved(tmp_path):
+    """latest.model after every eval/save iteration, best.model when the eval
+    return beats the best so far (scripted returns -5, -7, -3)."""
+    model = create_model(make_config("ppo.cuda", "classic.pendulum.cuda", **{
+        **PENDULUM, "runner.save_model": True, "algorithm.total_timesteps": 3 * BATCH,
+        "algorithm.evaluation_and_save_frequency": BATCH,
+    }), run_path=str(tmp_path))
+    scripted = iter([-5.0, -7.0, -3.0])
+    model._eval_iteration = lambda i: {"eval/episode_return": next(scripted)}
+    saves = []
+    save = model.save
+    model.save = lambda file_name="latest.model": (saves.append(file_name), save(file_name))
+    model.train()
+    assert saves == ["latest.model", "best.model", "latest.model", "latest.model", "best.model"]
+    assert sorted(os.listdir(tmp_path / "models")) == ["best.model", "latest.model"]
+
+    quiet = create_model(make_config("ppo.cuda", "classic.pendulum.cuda", **{
+        **PENDULUM, "runner.save_model": True, "algorithm.total_timesteps": BATCH,
+        "algorithm.evaluation_active": False,
+    }), run_path=str(tmp_path / "quiet"))
+    quiet.train()
+    assert sorted(os.listdir(tmp_path / "quiet" / "models")) == ["latest.model"]
+
+
+def test_evaluation_leaves_training_as_it_was():
+    """With the train env as the eval env (the Ant's
+    ``copy_train_env_for_eval``), an evaluation leaves ``env_state`` and the
+    train generator as they were, and the next learning iteration equals one
+    that followed no evaluation, bit for bit."""
+    config = make_config("ppo.cuda", "classic.pendulum.cuda", **{**PENDULUM, "algorithm.total_timesteps": BATCH})
+    models = []
+    for evaluate in (False, True):
+        train_env = create_env(config)[0]
+        model = create_model(config, train_env, train_env)
+        env_state, _ = model._init_train_carry()
+        if evaluate:
+            before = (env_state.observation.clone(), [t.clone() for t in env_state.physics],
+                      env_state.generator.get_state(), model.generator.get_state())
+            model._eval_iteration(0)
+            assert model.env_state is env_state
+            assert torch.equal(env_state.observation, before[0])
+            assert all(torch.equal(a, b) for a, b in zip(env_state.physics, before[1]))
+            assert torch.equal(env_state.generator.get_state(), before[2])
+            assert torch.equal(model.generator.get_state(), before[3])
+        model.env_state, _ = model.learning_iteration(env_state)
+        models.append(model)
+    for a, b in zip(models[0].policy.module.parameters(), models[1].policy.module.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(models[0].env_state.observation, models[1].env_state.observation)
