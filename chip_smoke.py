@@ -46,7 +46,20 @@ Phases (each prints one line; any failure exits nonzero):
 11. phase 8's FastTD3 saved with its optimizer state, loaded through the
     runner's test mode (1024 envs, horizon 200, 4 episodes): every
     parameter, target, normalizer entry, AdamW moment and the update count
-    equal bit for bit, finite returns, at most 200 B2 launches.
+    equal bit for bit, finite returns, at most 200 B2 launches;
+12. SAC on ``locomotion.ant.cuda`` at the JAX bench's off-policy shape
+    (1024 envs, batch 8192, 512/256/128 policy and twin critic, relu, f32,
+    learning_starts 1024, a 1024 * 1024-transition buffer, evaluation off):
+    1 prefill and 64 learning steps in 4 log lines, B2 launched exactly 65
+    times, env-steps/s per log line; then 16 more steps under
+    torch.profiler, as phase 6;
+13. TD3 and DDPG at the same shape, 32 learning steps each: B2 exactly 33
+    launches each, finite losses, env-steps/s;
+14. SAC through ``Runner(argv=[...]).run()`` at that shape with its
+    optimizer state (1 prefill + 16 learning steps, B2 exactly 17), then
+    test mode from its ``latest.model`` (1024 envs, horizon 200, 4
+    episodes): every parameter, target, ``log_alpha``, Adam moment and the
+    update count equal bit for bit, at most 200 B2 launches.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -68,6 +81,17 @@ import torch
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 ITERATIONS = 3
+# bench_offpolicy's shape (the JAX package's bench.py): batch 8192,
+# 512/256/128 nets, learning_starts = nr_envs; the rest of each
+# algorithm's defaults (SAC, TD3, DDPG: relu, no LayerNorm, f32)
+OFFPOLICY_SHAPE = {
+    "algorithm.batch_size": 8192,
+    "algorithm.policy_hidden_sizes": (512, 256, 128),
+    "algorithm.critic_hidden_sizes": (512, 256, 128),
+    "algorithm.learning_starts": 1024,
+    "algorithm.buffer_size": 1024 * 1024,
+    "algorithm.evaluation_active": False,
+}
 
 
 def fail(msg):
@@ -563,7 +587,8 @@ def main():
 
     nr_envs, horizon = 4096, 200   # the horizon cut from the Ant's 1000; the widths stay full
     flagship = [
-        "--runner.device=cuda", f"--environment.nr_envs={nr_envs}", f"--environment.horizon={horizon}",
+        "--environment.name=locomotion.ant.cuda", "--runner.device=cuda", f"--environment.nr_envs={nr_envs}",
+        f"--environment.horizon={horizon}",
         f"--algorithm.nr_steps={nr_steps}", f"--algorithm.minibatch_size={batch // 8}",
         "--algorithm.nr_epochs=4", "--algorithm.policy_hidden_sizes=(512, 256, 128)",
         "--algorithm.critic_hidden_sizes=(512, 256, 128)", "--algorithm.activation=elu",
@@ -673,6 +698,104 @@ def main():
           f"bit; test mode at 1024 envs, horizon {horizon}: {test_s:.2f} s (load included), "
           f"{test_launches} B2 launches, returns {[round(r, 2) for r in test_returns]}")
     launches_by_path["fasttd3_test"] = {"engine_substep": test_launches}
+
+    # 12-13. SAC, TD3 and DDPG on the Ant at bench_offpolicy's shape
+    def offpolicy_path(algorithm, learning_steps):
+        """Train ``algorithm`` through the entry points: 1 prefill step and
+        ``learning_steps`` learning steps in log lines of 16; fails unless
+        B2 launched once a step and every logged value is finite."""
+        nr_envs, log_steps = 1024, 16
+        config = make_config(algorithm, "locomotion.ant.cuda", **{
+            "runner.device": "cuda", "environment.nr_envs": nr_envs, **OFFPOLICY_SHAPE,
+            "algorithm.total_timesteps": nr_envs + learning_steps * nr_envs,
+            "algorithm.logging_frequency": log_steps * nr_envs,
+        })
+        model = create_model(config)
+        step_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"engine_substep": step_cuda.launches}
+        if model.prefill_iterations != 1 or launches["engine_substep"] != 1 + learning_steps:
+            fail(f"{algorithm} launch counts {launches} != {1 + learning_steps} "
+                 f"(prefill {model.prefill_iterations})")
+        history = model.metrics_history
+        logged = [m["steps/nr_updates"] for m in history]
+        if logged != list(range(log_steps, learning_steps + 1, log_steps)):
+            fail(f"{algorithm} logged updates {logged}")
+        for it, metrics in enumerate(history):
+            for k, v in metrics.items():
+                if not math.isfinite(v):
+                    fail(f"{algorithm} log line {it}: {k} = {v}")
+        for name in model.state_names:
+            state = getattr(model, name)
+            for module in (state.module, state.target):
+                if module is not None and not all(torch.isfinite(p).all() for p in module.parameters()):
+                    fail(f"{algorithm}: non-finite {name} parameters after training")
+        env_steps = (1 + learning_steps) * nr_envs
+        print(f"train: {algorithm} 1 prefill + {learning_steps} learning steps at {nr_envs} envs, batch "
+              f"8192, 512/256/128, in {elapsed:.2f} s ({env_steps / elapsed:.0f} env-steps/s with the buffer "
+              f"allocation and the prefill); env-steps/s of the {len(history)} log lines (the first "
+              f"includes the prefill) {[m['time/sps'] for m in history]}, launches {launches}, last log line "
+              + json.dumps({k: v for k, v in history[-1].items() if k.startswith(("loss/", "q_value/", "entropy/"))}))
+        return model, launches
+
+    sac, launches_by_path["sac"] = offpolicy_path("sac.cuda", 64)
+
+    def sac_logging_iteration():
+        sac.env_state = sac._logging_iteration(sac.buffer, sac.env_state, 64)
+
+    print("profile sac: " + json.dumps(profile_spans(sac_logging_iteration, "sac/")))
+    _, launches_by_path["td3"] = offpolicy_path("td3.cuda", 32)
+    _, launches_by_path["ddpg"] = offpolicy_path("ddpg.cuda", 32)
+
+    # 14. SAC through the Runner with its optimizer state, then test mode
+    os.chdir(workdir.name)
+    shape = [f"--{k}={v}" for k, v in OFFPOLICY_SHAPE.items()]
+    sac_args = ["--algorithm.name=sac.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
+                "--environment.nr_envs=1024", *shape, "--runner.save_optimizer_state=True"]
+    runner = Runner([*sac_args, f"--algorithm.total_timesteps={1024 + 16 * 1024}",
+                     f"--algorithm.logging_frequency={16 * 1024}", "--runner.save_model=True",
+                     "--runner.run_name=sac"])
+    step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = {"engine_substep": step_cuda.launches}
+    if runner_launches["engine_substep"] != 17 or trained.nr_updates != 16:
+        fail(f"SAC runner launch counts {runner_launches} != 17 or {trained.nr_updates} updates != 16")
+    sac_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "sac", "models", "latest.model")
+    tester = Runner([*sac_args, f"--environment.horizon={horizon}", "--runner.mode=test",
+                     f"--runner.load_model={sac_latest}", "--runner.nr_test_episodes=4",
+                     "--runner.run_name=sac_test"])
+    step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = step_cuda.launches
+    os.chdir(root)
+    if len(test_returns) != 4 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"SAC test mode returned {test_returns}, expected 4 finite returns")
+    if not 0 < test_launches <= horizon:
+        fail(f"SAC test mode launched B2 {test_launches} times, expected 1 to {horizon}")
+    tree = trained.checkpoint_tree()
+    if set(tree) != {"full"} or set(tree["full"]) != {"policy", "critic", "alpha", "nr_updates"}:
+        fail(f"SAC checkpoint tree {sorted(tree)} without the full state")
+    compared = same_tree(tree, tester.model.checkpoint_tree())
+    print(f"runner sac: train {train_s:.2f} s (1 prefill + 16 learning steps at 1024 envs, 1 full-state "
+          f"save), launches {runner_launches}; {compared} tensors (parameters, critic target, log_alpha, "
+          f"Adam moments and steps) and the update count {trained.nr_updates} restored bit for bit, "
+          f"checkpoint {os.path.getsize(sac_latest) / 2**20:.2f} MiB; test mode at 1024 envs, horizon "
+          f"{horizon}: {test_s:.2f} s (load included), {test_launches} B2 launches, returns "
+          f"{[round(r, 2) for r in test_returns]}")
+    launches_by_path["sac_runner"] = runner_launches
+    launches_by_path["sac_test"] = {"engine_substep": test_launches}
     workdir.cleanup()
 
     for k in kernels:

@@ -1,0 +1,30 @@
+"""DDPG defaults (the JAX package's ``ddpg.tpu`` values; its
+``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
+the mesh and parallel seeds, so setting one raises ``KeyError``).
+``anneal_learning_rate`` is kept for the JAX package's command lines; DDPG
+does not read it there either."""
+
+from rlx_tpu_torch.utils.config_dict import ConfigDict
+
+
+def get_config(algorithm_name):
+    return ConfigDict(
+        name=algorithm_name,
+        total_timesteps=1_000_000,
+        learning_rate=3e-4,
+        anneal_learning_rate=False,
+        buffer_size=1_000_000,
+        learning_starts=5_000,
+        batch_size=256,
+        tau=0.005,
+        gamma=0.99,
+        epsilon=0.1,
+        policy_hidden_sizes=(256, 256),
+        critic_hidden_sizes=(256, 256),
+        activation="relu",
+        layer_norm=False,
+        logging_frequency=3_000,
+        evaluation_and_save_frequency=-1,
+        evaluation_active=True,
+        logging_active=True,
+    )

@@ -132,18 +132,14 @@ class FastTD3(OffPolicyAlgorithm):
         logits = self.critic.module(obs, batch["action"])                               # [2, B, atoms]
         q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
         critic_grads = torch.autograd.grad(q_loss, critic_params)
-        for p, g in zip(critic_params, critic_grads):
-            p.grad = g
-        self.critic.optimizer.step()
+        self.critic.apply_gradients(critic_grads)
 
         # the policy loss on the updated critic; gradients to the policy only
         policy_params = list(self.policy.module.parameters())
         policy_loss = -self.expected_value(self.critic.module(obs, self.policy.module(obs))).mean(-1).mean()
         policy_grads = torch.autograd.grad(policy_loss, policy_params)
         if step % self.policy_delay == 0:
-            for p, g in zip(policy_params, policy_grads):
-                p.grad = g
-            self.policy.optimizer.step()
+            self.policy.apply_gradients(policy_grads)
             self.policy.polyak_update(self.tau)
             self.critic.polyak_update(self.tau)
 

@@ -37,7 +37,7 @@ from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
 from rlx_tpu_torch.algorithms.train_state import TrainState
-from rlx_tpu_torch.algorithms.training_program import run_training_program
+from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.ops import replay_buffer as rb
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -67,7 +67,7 @@ class OffPolicyAlgorithm:
         self.logging_frequency = int(a.logging_frequency)
         self.logging_active = a.logging_active
         self.evaluation_active = a.evaluation_active
-        self.n_step = int(a.n_step)
+        self.n_step = int(getattr(a, "n_step", 1))
 
         self.total_training_timesteps = self.total_timesteps - self.learning_starts
         self.eval_save_frequency = a.evaluation_and_save_frequency
@@ -99,6 +99,7 @@ class OffPolicyAlgorithm:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.host_generator = torch.Generator().manual_seed(self.seed)
         self.setup_states()
+        self.nr_train_resets = 0
         self.nr_updates = 0          # learning steps taken, over every train() call
         self.metrics_history = []   # per-logging-iteration float metrics
         self.eval_history = None
@@ -216,9 +217,10 @@ class OffPolicyAlgorithm:
         return eval_metrics
 
     def _init_train_carry(self):
-        """(buffer, env state after the prefill, best eval return)."""
+        """(buffer, env state after the prefill, best eval return), from a
+        new buffer and the reset that starts this ``train()`` call."""
         buffer = self._make_buffer()
-        env_state = self._prefill(buffer, self.train_env.reset(self.seed))
+        env_state = self._prefill(buffer, self.train_env.reset(train_reset_seed(self)))
         return buffer, env_state, -math.inf
 
     def _eval_save_iteration(self, carry, eval_save_iteration):
@@ -251,8 +253,9 @@ class OffPolicyAlgorithm:
 
     # --- save / load / test ------------------------------------------------
     def checkpoint_tree(self):
-        """``{name: params, name_target: target params}`` per ``TrainState``
-        and ``{name: tensors}`` per dict state; with
+        """``{name: params}`` per ``TrainState``, ``{name_target: target
+        params}`` for each that has a target, and ``{name: tensors}`` per
+        dict state; with
         ``runner.save_optimizer_state``, ``{"full": ...}`` with the
         optimizers' state and the update count as well."""
         states = {name: getattr(self, name) for name in self.state_names}
@@ -264,7 +267,8 @@ class OffPolicyAlgorithm:
         for name, state in states.items():
             if isinstance(state, TrainState):
                 tree[name] = state.module.state_dict()
-                tree[f"{name}_target"] = state.target.state_dict()
+                if state.target is not None:
+                    tree[f"{name}_target"] = state.target.state_dict()
             else:
                 tree[name] = state
         return tree
@@ -278,7 +282,8 @@ class OffPolicyAlgorithm:
                     state.load_state_dict(full[name])
                 else:
                     state.module.load_state_dict(tree[name])
-                    state.target.load_state_dict(tree[f"{name}_target"])
+                    if state.target is not None:
+                        state.target.load_state_dict(tree[f"{name}_target"])
             else:
                 stored = (full if full is not None else tree)[name]
                 setattr(self, name, {k: v.to(self.device) for k, v in stored.items()})

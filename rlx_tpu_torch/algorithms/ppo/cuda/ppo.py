@@ -44,7 +44,7 @@ from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperti
 from rlx_tpu_torch.algorithms.train_state import (
     clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
-from rlx_tpu_torch.algorithms.training_program import run_training_program
+from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -113,6 +113,7 @@ class PPO:
         # seeds of the eval and test resets
         self.host_generator = torch.Generator().manual_seed(self.seed)
         self.env_state = None
+        self.nr_train_resets = 0
         self.metrics_history = []  # per-iteration float metrics when logging is active
         self.eval_history = None
 
@@ -283,10 +284,9 @@ class PPO:
         return eval_metrics
 
     def _init_train_carry(self):
-        """(env state, best eval return); training goes on from
-        ``env_state`` when an earlier ``train()`` left one."""
-        if self.env_state is None:
-            self.env_state = self.train_env.reset(self.seed)
+        """(env state from the reset that starts this ``train()`` call, best
+        eval return)."""
+        self.env_state = self.train_env.reset(train_reset_seed(self))
         return self.env_state, -math.inf
 
     def _eval_save_iteration(self, carry, eval_save_iteration):
@@ -300,7 +300,9 @@ class PPO:
                 values["time/sps"] = int(self.batch_size / max(now - self._last_log_time, 1e-9))
                 self._last_log_time = now
                 values["steps/nr_env_steps"] = iteration * self.batch_size
-                values["steps/nr_updates"] = self.nr_optimizer_steps
+                # this call's updates, as JAX logs them; nr_optimizer_steps
+                # also counts earlier calls and restored ones
+                values["steps/nr_updates"] = iteration * self.nr_epochs * self.nr_minibatches
                 self.metrics_history.append(values)
                 self.logger.log_dict(values, iteration * self.batch_size)
         self.env_state = env_state

@@ -1,0 +1,140 @@
+"""SAC: soft actor-critic with a learned temperature.
+
+The same algorithm as the JAX package's ``sac.tpu``:
+
+- a tanh-squashed Gaussian policy with a clamped state-dependent log-std;
+- ``nr_critics`` Q critics (twin by default) with a Polyak-averaged target;
+  the target is the minimum over the target critics, minus ``alpha`` times
+  the next action's log-probability;
+- a learned ``alpha = exp(log_alpha)`` driven towards ``target_entropy``
+  (``"auto"``: ``-action_dim``);
+- Adam (eps 1e-8) on the policy, the critic and ``log_alpha``; with
+  ``anneal_learning_rate`` the rate falls linearly with the optimizers'
+  step count (``learning_rate_at``).
+
+The JAX package takes one gradient of ``q_loss + policy_loss + alpha_loss``
+with ``stop_gradient`` on the other parameter sets, so each set gets the
+gradient of its own term only: the critic of ``q_loss``, the policy of
+``policy_loss``, ``log_alpha`` of ``alpha_loss``.  Here each is one
+``torch.autograd.grad`` of its term with respect to its set, all taken at
+the parameters before the update, then the three optimizers step and the
+critic's target moves.
+"""
+
+import math
+
+import torch
+
+from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
+from rlx_tpu_torch.algorithms.sac.cuda.general_properties import GeneralProperties
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.models import distributions as D
+from rlx_tpu_torch.models.mlp import EntropyCoefficient, SquashedGaussianPolicy, VectorQCritic
+
+
+class SAC(OffPolicyAlgorithm):
+    # the JAX package's state names: the checkpoint tree holds policy,
+    # critic, critic_target and alpha
+    state_names = ("policy", "critic", "alpha")
+
+    def setup_states(self):
+        a = self.config.algorithm
+        self.anneal_learning_rate = a.anneal_learning_rate
+        self.target_entropy = (-float(self.action_dim) if a.target_entropy == "auto"
+                               else float(a.target_entropy))
+        obs_dim = math.prod(self.os_shape)
+        # parameters are initialized on the CPU from the seed, then moved
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            policy = SquashedGaussianPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+                                            a.activation, a.layer_norm, a.log_std_min, a.log_std_max)
+            critic = VectorQCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+                                   a.activation, a.layer_norm)
+        alpha = EntropyCoefficient(1.0)
+        for module in (policy, critic, alpha):
+            module.to(self.device)
+        adam = lambda module: torch.optim.Adam(module.parameters(), lr=self.learning_rate,
+                                               betas=(0.9, 0.999), eps=1e-8)
+        self.policy = TrainState(policy, adam(policy), target=False)
+        self.critic = TrainState(critic, adam(critic))
+        self.alpha = TrainState(alpha, adam(alpha), target=False)
+
+    def learning_rate_at(self, count):
+        """The rate of the optimizer step that follows ``count`` steps: with
+        ``anneal_learning_rate``, ``lr * (1 - (count * nr_envs -
+        learning_starts) / total_training_timesteps)``, as the JAX package's
+        schedule."""
+        if not self.anneal_learning_rate:
+            return self.learning_rate
+        step = count * self.nr_envs - self.learning_starts
+        return self.learning_rate * (1.0 - step / max(self.total_training_timesteps, 1))
+
+    @torch.no_grad()
+    def act(self, observation, noise=None):
+        """``tanh(mean + std * noise)``; ``noise`` (standard normal,
+        ``[nr_envs, action_dim]``) is drawn from the generator unless given."""
+        mean, log_std = self.policy.module(observation)
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=self.generator, device=self.device)
+        return torch.tanh(mean + torch.exp(log_std) * noise)
+
+    @torch.no_grad()
+    def eval_act(self, observation):
+        return D.tanh_gaussian_mode(self.policy.module(observation)[0])
+
+    def update(self, batch, step, target_noise=None, current_noise=None):
+        """One step of the policy, the critic and ``log_alpha``, then the
+        critic's Polyak update.  ``target_noise`` / ``current_noise``
+        (standard normal, ``[batch, action_dim]``) sample the next and the
+        current action; each is drawn from the generator unless given.
+        Returns the metrics as device scalars."""
+        obs, next_obs = batch["observation"], batch["next_observation"]
+        alpha_with_grad = self.alpha.module()
+        alpha = alpha_with_grad.detach()
+
+        with torch.no_grad():
+            next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
+                *self.policy.module(next_obs), generator=self.generator, noise=target_noise)
+            min_next_q_target = self.critic.target(next_obs, next_action).squeeze(-1).min(dim=0).values
+            y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * (
+                min_next_q_target - alpha * next_log_prob)
+
+        q = self.critic.module(obs, batch["action"]).squeeze(-1)
+        q_loss = ((q - y[None, :]) ** 2).mean()
+
+        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
+            *self.policy.module(obs), generator=self.generator, noise=current_noise)
+        entropy = -current_log_prob.detach()
+        # gradients of the policy loss go to the policy only (below), through
+        # the critic's output but not into its parameters
+        min_q_pi = self.critic.module(obs, current_action).squeeze(-1).min(dim=0).values
+        policy_loss = (alpha * current_log_prob - min_q_pi).mean()
+        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
+
+        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
+        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
+
+        # the three optimizers step together, so their counts are equal
+        learning_rate = self.learning_rate_at(self.policy.step_count())
+        for state, grads in ((self.policy, policy_grads), (self.critic, critic_grads),
+                             (self.alpha, alpha_grads)):
+            state.apply_gradients(grads, learning_rate)
+        self.critic.polyak_update(self.tau)
+
+        with torch.no_grad():
+            return {
+                "loss/q_loss": q_loss.detach(),
+                "loss/policy_loss": policy_loss.detach(),
+                "loss/entropy_loss": alpha_loss.detach(),
+                "entropy/entropy": entropy.mean(),
+                "entropy/alpha": alpha,
+                "q_value/q_value": min_q_pi.detach().mean(),
+                "lr/learning_rate": torch.tensor(learning_rate),
+                "gradients/policy_grad_norm": global_norm(policy_grads),
+                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "gradients/entropy_grad_norm": global_norm(alpha_grads),
+            }
+
+    def general_properties():
+        return GeneralProperties

@@ -1,0 +1,107 @@
+"""TD3: twin delayed deep deterministic policy gradient.
+
+The same algorithm as the JAX package's ``td3.tpu``:
+
+- a deterministic tanh policy; exploration adds ``epsilon`` times a
+  standard normal to every action, clipped to [-1, 1];
+- twin Q critics; the target takes the minimum of the two target critics at
+  the target policy's action plus ``smoothing_epsilon`` times a standard
+  normal clipped to ``smoothing_clip_value``;
+- Adam (eps 1e-8) on both nets at a constant rate (the JAX config's
+  ``anneal_learning_rate`` key is accepted and, as there, not read).  The
+  critic steps every update; on every ``policy_delay``-th update the policy
+  steps on ``-q[0].mean()`` (the first critic only) of the UPDATED critic,
+  and both targets move by Polyak averaging.  On the other updates the
+  policy loss is still computed for the metrics, but the policy's optimizer
+  (its Adam moments and step count) and both targets stay as they were.
+"""
+
+import math
+
+import torch
+
+from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
+from rlx_tpu_torch.algorithms.td3.cuda.general_properties import GeneralProperties
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic
+
+
+class TD3(OffPolicyAlgorithm):
+    # the checkpoint tree holds policy, policy_target, critic, critic_target
+    state_names = ("policy", "critic")
+
+    def setup_states(self):
+        a = self.config.algorithm
+        self.epsilon = a.epsilon
+        self.smoothing_epsilon = a.smoothing_epsilon
+        self.smoothing_clip_value = a.smoothing_clip_value
+        self.policy_delay = a.policy_delay
+        obs_dim = math.prod(self.os_shape)
+        # parameters are initialized on the CPU from the seed, then moved
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            policy = DeterministicTanhPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+                                             a.activation, a.layer_norm)
+            critic = VectorQCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), 2,
+                                   a.activation, a.layer_norm)
+        policy.to(self.device)
+        critic.to(self.device)
+        adam = lambda module: torch.optim.Adam(module.parameters(), lr=self.learning_rate,
+                                               betas=(0.9, 0.999), eps=1e-8)
+        self.policy = TrainState(policy, adam(policy))
+        self.critic = TrainState(critic, adam(critic))
+
+    @torch.no_grad()
+    def act(self, observation, noise=None):
+        """Policy action plus ``epsilon`` times ``noise`` (standard normal,
+        ``[nr_envs, action_dim]``, drawn from the generator unless given),
+        clipped to [-1, 1]."""
+        action = self.policy.module(observation)
+        if noise is None:
+            noise = torch.randn(action.shape, generator=self.generator, device=self.device)
+        return torch.clamp(action + self.epsilon * noise, -1.0, 1.0)
+
+    @torch.no_grad()
+    def eval_act(self, observation):
+        return self.policy.module(observation)
+
+    def update(self, batch, step, smoothing_noise=None):
+        """One critic step and, on ``step % policy_delay == 0``, one policy
+        step and both Polyak updates.  ``smoothing_noise`` (standard normal,
+        ``[batch, action_dim]``) is drawn from the generator unless given.
+        Returns the metrics as device scalars."""
+        obs, next_obs = batch["observation"], batch["next_observation"]
+        with torch.no_grad():
+            if smoothing_noise is None:
+                smoothing_noise = torch.randn(batch["action"].shape, generator=self.generator,
+                                              device=self.device)
+            smoothing = torch.clamp(self.smoothing_epsilon * smoothing_noise,
+                                    -self.smoothing_clip_value, self.smoothing_clip_value)
+            next_action = torch.clamp(self.policy.target(next_obs) + smoothing, -1.0, 1.0)
+            next_q = self.critic.target(next_obs, next_action).squeeze(-1).min(dim=0).values
+            y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * next_q
+
+        q = self.critic.module(obs, batch["action"]).squeeze(-1)
+        q_loss = ((q - y[None, :]) ** 2).mean()
+        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        self.critic.apply_gradients(critic_grads)
+
+        # the policy loss on the updated critic; gradients to the policy only
+        policy_loss = -self.critic.module(obs, self.policy.module(obs))[0].mean()
+        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
+        if step % self.policy_delay == 0:
+            self.policy.apply_gradients(policy_grads)
+            self.policy.polyak_update(self.tau)
+            self.critic.polyak_update(self.tau)
+
+        with torch.no_grad():
+            return {
+                "loss/q_loss": q_loss.detach(),
+                "loss/policy_loss": policy_loss.detach(),
+                "q_value/q_value": q.detach().mean(),
+                "gradients/policy_grad_norm": global_norm(policy_grads),
+                "gradients/critic_grad_norm": global_norm(critic_grads),
+            }
+
+    def general_properties():
+        return GeneralProperties

@@ -1,7 +1,7 @@
 """Training state and optimizer helpers shared by the algorithms: a network
-with its target copy and its optimizer (the JAX package's ``RLTrainState``
-idea: a train state with target parameters), and the global-norm gradient
-helpers the JAX package takes from optax."""
+with its optimizer and, by default, its target copy (the JAX package's
+``RLTrainState``; with ``target=False`` flax's plain ``TrainState``), and
+the global-norm gradient helpers the JAX package takes from optax."""
 
 import copy
 
@@ -43,10 +43,25 @@ def load_module_state_dict(state, module, optimizer, target=None):
 
 
 class TrainState:
-    def __init__(self, module, optimizer):
+    def __init__(self, module, optimizer, target=True):
         self.module = module
         self.optimizer = optimizer
-        self.target = copy.deepcopy(module).requires_grad_(False)
+        self.target = copy.deepcopy(module).requires_grad_(False) if target else None
+
+    def apply_gradients(self, grads, learning_rate=None):
+        """One optimizer step on ``grads`` (one per parameter, in
+        ``module.parameters()`` order), at ``learning_rate`` when given
+        (flax's ``TrainState.apply_gradients``)."""
+        for p, g in zip(self.module.parameters(), grads):
+            p.grad = g
+        if learning_rate is not None:
+            self.optimizer.param_groups[0]["lr"] = learning_rate
+        self.optimizer.step()
+
+    def step_count(self):
+        """Optimizer steps taken (optax's ``count``): 0 before the first."""
+        state = self.optimizer.state.get(next(self.module.parameters()))
+        return int(state["step"]) if state else 0
 
     @torch.no_grad()
     def polyak_update(self, tau):

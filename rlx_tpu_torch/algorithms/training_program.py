@@ -9,9 +9,12 @@ device call per eval/save iteration, ``runner.chunked_train=True``); its
 The eager port has no fused program: it always runs the chunked loop, one
 host call per eval/save iteration, and accepts ``runner.chunked_train`` with
 either value.
+
+Each ``train()`` call starts from a fresh env reset (``train_reset_seed``).
 """
 
 import numpy as np
+import torch
 
 
 def run_training_program(model):
@@ -29,3 +32,14 @@ def run_training_program(model):
             evals.append(eval_metrics)
     eval_history = {k: np.asarray([e[k] for e in evals]) for k in evals[0]} if evals else None
     return carry, eval_history
+
+
+def train_reset_seed(model):
+    """The seed of the env reset that starts a ``train()`` call: the
+    environment's seed on the model's first call, a fresh draw from
+    ``model.host_generator`` on every later one (the JAX package splits a
+    fresh reset key off the model's key for every call)."""
+    model.nr_train_resets += 1
+    if model.nr_train_resets == 1:
+        return model.seed
+    return int(torch.randint(2**31 - 1, (), generator=model.host_generator))

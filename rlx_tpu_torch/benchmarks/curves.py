@@ -3,6 +3,7 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_fasttd3 --seeds 0 1 2 \
         --out chiprun_out/pendulum_spot_fasttd3.json
     python -m rlx_tpu_torch.benchmarks.curves pendulum_ppo --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_sac --seeds 0
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
@@ -22,6 +23,12 @@ import time
 
 import torch
 
+# benchmarks/curves.py: _PENDULUM_OFFPOLICY
+PENDULUM_OFFPOLICY = {
+    "algorithm.learning_starts": 1_000, "algorithm.buffer_size": 100_000,
+    "algorithm.batch_size": 128, "algorithm.logging_frequency": 2_000, "environment.nr_envs": 8,
+}
+
 RUNS = {
     # benchmarks/curves.py: pendulum_ppo (gamma 0.9, 8 envs x 256 steps)
     "pendulum_ppo": {
@@ -38,12 +45,13 @@ RUNS = {
     "pendulum_spot_fasttd3": {
         "algorithm": "fasttd3.cuda", "environment": "classic.pendulum.cuda",
         "budget": 100_000, "threshold": -500.0, "eval_points": 8,
-        "overrides": {
-            "algorithm.learning_starts": 1_000, "algorithm.buffer_size": 100_000,
-            "algorithm.batch_size": 128, "algorithm.logging_frequency": 2_000,
-            "environment.nr_envs": 8, "algorithm.v_min": -800.0, "algorithm.v_max": 100.0,
-        },
+        "overrides": {**PENDULUM_OFFPOLICY, "algorithm.v_min": -800.0, "algorithm.v_max": 100.0},
     },
+    # benchmarks/curves.py: the pendulum_spot_* family checks
+    **{f"pendulum_spot_{name}": {
+        "algorithm": f"{name}.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 100_000, "threshold": -500.0, "eval_points": 8, "overrides": dict(PENDULUM_OFFPOLICY),
+    } for name in ("sac", "td3", "ddpg")},
 }
 
 

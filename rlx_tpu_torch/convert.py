@@ -6,7 +6,8 @@ outer ``"params"`` key).  Dense kernels are stored ``[in, out]`` by flax and
 ``[out, in]`` by ``nn.Linear``, so they are transposed; LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``.  The ``nn.vmap``-ed critic
 ensemble keeps every leaf stacked on a leading critic axis, which the
-port's ``VectorQCritic`` keeps too.
+port's ``VectorQCritic`` keeps too; the single ``QCritic`` of DDPG is not
+vmapped in flax, and its leaves gain a leading axis of 1 here.
 
 ``checkpoint_tree_from_jax`` turns the parameter tree of a JAX
 ``latest.model`` / ``best.model`` (as the JAX package's
@@ -14,6 +15,8 @@ port's ``VectorQCritic`` keeps too.
 tree.  Optimizer state is not carried across: a JAX checkpoint written with
 ``save_optimizer_state`` raises.
 """
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -67,6 +70,21 @@ def deterministic_policy_state_dict(flax_params):
     return out
 
 
+def squashed_gaussian_policy_state_dict(flax_params):
+    """``SquashedGaussianPolicy`` state_dict from flax ``SquashedGaussianPolicy``
+    params (``Dense_0`` the mean head, ``Dense_1`` the log-std head)."""
+    p = _unwrap(flax_params)
+    out = _mlp(p["MLP_0"])
+    out.update(_dense("mean", p["Dense_0"]))
+    out.update(_dense("log_std", p["Dense_1"]))
+    return out
+
+
+def entropy_coefficient_state_dict(flax_params):
+    """``EntropyCoefficient`` state_dict from flax ``EntropyCoefficient`` params."""
+    return {"log_alpha": torch.as_tensor(np.asarray(_unwrap(flax_params)["log_alpha"], np.float32).copy())}
+
+
 def _batched_dense(prefix, p):
     return {
         f"{prefix}.weight": torch.as_tensor(np.swapaxes(np.asarray(p["kernel"], np.float32), 1, 2).copy()),
@@ -74,10 +92,7 @@ def _batched_dense(prefix, p):
     }
 
 
-def vector_q_critic_state_dict(flax_params):
-    """``VectorQCritic`` state_dict from flax ``VectorQCritic`` params
-    (``VmapQCritic_0`` with leaves ``[nr_critics, ...]``)."""
-    p = _unwrap(flax_params)["VmapQCritic_0"]
+def _q_critic_ensemble(p):
     mlp = p["MLP_0"]
     out = {}
     for i in range(sum(1 for k in mlp if k.startswith("Dense_"))):
@@ -89,9 +104,28 @@ def vector_q_critic_state_dict(flax_params):
     return out
 
 
+def vector_q_critic_state_dict(flax_params):
+    """``VectorQCritic`` state_dict from flax ``VectorQCritic`` params
+    (``VmapQCritic_0`` with leaves ``[nr_critics, ...]``)."""
+    return _q_critic_ensemble(_unwrap(flax_params)["VmapQCritic_0"])
+
+
+def _add_leading_axis(tree):
+    return {k: _add_leading_axis(v) if isinstance(v, Mapping) else np.asarray(v)[None]
+            for k, v in tree.items()}
+
+
+def q_critic_state_dict(flax_params):
+    """``QCritic`` state_dict from flax ``QCritic`` params (``MLP_0`` and
+    ``Dense_0`` with kernels ``[in, out]``, no critic axis): the port's
+    ``QCritic`` is an ensemble of one."""
+    return _q_critic_ensemble(_add_leading_axis(_unwrap(flax_params)))
+
+
 def checkpoint_tree_from_jax(algorithm, restored):
-    """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"`` or
-    ``"fasttd3"`` from a JAX checkpoint's parameter tree."""
+    """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"``,
+    ``"fasttd3"``, ``"sac"``, ``"td3"`` or ``"ddpg"`` from a JAX
+    checkpoint's parameter tree."""
     if "full" in restored:
         raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
     if algorithm == "ppo":
@@ -105,5 +139,20 @@ def checkpoint_tree_from_jax(algorithm, restored):
             "critic_target": vector_q_critic_state_dict(restored["critic_target"]),
             "obs_normalizer": {k: torch.as_tensor(np.asarray(v, np.float32).copy())
                                for k, v in restored["obs_normalizer"].items()},
+        }
+    if algorithm == "sac":
+        return {
+            "policy": squashed_gaussian_policy_state_dict(restored["policy"]),
+            "critic": vector_q_critic_state_dict(restored["critic"]),
+            "critic_target": vector_q_critic_state_dict(restored["critic_target"]),
+            "alpha": entropy_coefficient_state_dict(restored["alpha"]),
+        }
+    if algorithm in ("td3", "ddpg"):
+        critic = vector_q_critic_state_dict if algorithm == "td3" else q_critic_state_dict
+        return {
+            "policy": deterministic_policy_state_dict(restored["policy"]),
+            "policy_target": deterministic_policy_state_dict(restored["policy_target"]),
+            "critic": critic(restored["critic"]),
+            "critic_target": critic(restored["critic_target"]),
         }
     raise ValueError(f"no checkpoint conversion for {algorithm!r}")

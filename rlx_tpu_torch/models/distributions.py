@@ -1,11 +1,13 @@
-"""Diagonal-Gaussian helpers for continuous policies (the same log-prob and
-entropy formulations as the JAX package)."""
+"""Diagonal-Gaussian and tanh-Gaussian helpers for continuous policies (the
+same log-prob and entropy formulations as the JAX package)."""
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 LOG_2PI = math.log(2.0 * math.pi)
+LOG_2 = math.log(2.0)
 
 
 def gaussian_sample(mean, logstd, generator=None, noise=None):
@@ -25,3 +27,23 @@ def gaussian_log_prob(mean, logstd, action):
 def gaussian_entropy(logstd):
     """Per-dim entropy summed over dims (state-independent logstd)."""
     return (logstd + 0.5 * math.log(2.0 * math.pi * math.e)).sum(-1)
+
+
+def tanh_gaussian_sample_and_log_prob(mean, logstd, generator=None, noise=None):
+    """SAC's reparameterized sample ``tanh(mean + std * noise)`` and its log
+    probability summed over action dims, with the change of variables in the
+    stable form ``log(1 - tanh(x)^2) = 2 (log 2 - x - softplus(-2x))``: the
+    direct form loses all precision once |x| passes ~9.  ``noise`` is drawn
+    from ``generator`` unless given."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    std = torch.exp(logstd)
+    gaussian = mean + std * noise
+    action = torch.tanh(gaussian)
+    log_prob = -0.5 * ((gaussian - mean) / std) ** 2 - 0.5 * LOG_2PI - logstd
+    log_prob = log_prob - 2.0 * (LOG_2 - gaussian - F.softplus(-2.0 * gaussian))
+    return action, log_prob.sum(-1)
+
+
+def tanh_gaussian_mode(mean):
+    return torch.tanh(mean)

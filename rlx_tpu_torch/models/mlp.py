@@ -119,6 +119,37 @@ class DeterministicTanhPolicy(nn.Module):
         return torch.tanh(self.head(self.trunk(x)))
 
 
+class SquashedGaussianPolicy(nn.Module):
+    """SAC policy: obs -> (mean, log_std), both Dense heads on a lecun-init
+    trunk, ``log_std`` clamped to ``[log_std_min, log_std_max]`` (zero
+    gradient outside, as ``jnp.clip``); the tanh squash and its log-prob
+    are in ``models/distributions.py``."""
+
+    def __init__(self, obs_dim, action_dim, hidden_sizes, activation="elu", layer_norm=True,
+                 log_std_min=-20.0, log_std_max=2.0):
+        super().__init__()
+        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, orthogonal_init=False)
+        self.mean = _lecun_linear(hidden_sizes[-1], action_dim)
+        self.log_std = _lecun_linear(hidden_sizes[-1], action_dim)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+
+    def forward(self, x):
+        x = self.trunk(x)
+        return self.mean(x), torch.clamp(self.log_std(x), self.log_std_min, self.log_std_max)
+
+
+class EntropyCoefficient(nn.Module):
+    """SAC's learnable temperature: a scalar ``log_alpha`` parameter,
+    initialized to ``log(init_ent_coef)``; ``forward()`` is ``exp(log_alpha)``."""
+
+    def __init__(self, init_ent_coef=1.0):
+        super().__init__()
+        self.log_alpha = nn.Parameter(torch.full((), math.log(init_ent_coef)))
+
+    def forward(self):
+        return torch.exp(self.log_alpha)
+
+
 class BatchedLinear(nn.Module):
     """``nr`` independent Dense layers: weight ``[nr, out, in]``, bias
     ``[nr, out]``; one batched product maps ``[B, in]`` (shared input) or

@@ -1,6 +1,13 @@
 """Runner config namespace (the JAX package's keys that the port runs;
 the trackers, rendering, the mesh and the JAX set-up keys are left out,
-so setting one raises ``KeyError``)."""
+so setting one raises ``KeyError``).
+
+One default differs from the JAX package's on purpose: ``device`` is
+``"cuda"``, where JAX's ``""`` means "the default backend".  The port runs
+on the card unless the caller asks for the CPU with ``device="cpu"``, and
+never falls back to it: without a card a run with the default device fails
+instead of training on the CPU unnoticed.
+"""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -23,6 +30,7 @@ def get_config():
         chunked_train=False,
         # write a torch.profiler Chrome trace of train() into this directory
         profile_dir="",
-        # "cuda" (default) or "cpu"; a CUDA device runs the hand-written kernels
+        # "cuda" (default; no fallback, see above) or "cpu"; a CUDA device
+        # runs the hand-written kernels
         device="cuda",
     )

@@ -7,10 +7,17 @@
     python -m rlx_tpu_torch.runner.runner --runner.mode=test \
         --runner.load_model=runs/rlx_tpu_torch/default/run/models/latest.model
 
-Flags are dotted config keys; values are parsed as Python literals where
-they are one (``64``, ``True``, ``(512, 256)``) and kept as strings
-otherwise.  ``--runner.device=cpu`` runs the plain versions of the kernels
-on the CPU; the default ``cuda`` runs the CUDA kernels.
+Flags are dotted config keys.  Each value is cast to the type of the
+field's default, as the JAX package's ``ml_collections`` flags cast it
+(``config.cast_to_field``): ``--algorithm.evaluation_active=false`` is
+``False``, ``--runner.run_name=1`` the string ``"1"``,
+``--algorithm.learning_rate=1`` the float ``1.0`` and
+``--algorithm.policy_hidden_sizes=(64, 64)`` a tuple.  Without
+``--algorithm.name`` / ``--environment.name`` the runner trains
+``ppo.cuda`` on ``classic.pendulum.cuda``, the JAX runner's defaults.
+``--runner.device=cpu`` runs the plain versions of the kernels on the CPU;
+the default ``cuda`` runs the CUDA kernels and fails without a card
+(``runner/default_config.py``).
 
 Train and test mode make the run directory
 ``runs/<project_name>/<exp_name>/<run_name or "run">`` under the working
@@ -20,7 +27,6 @@ over the defaults, the ``algorithm.*`` flags given here over both.  The
 ``runner.*`` and ``environment.*`` keys always come from this command line.
 """
 
-import ast
 import json
 import os
 import subprocess
@@ -38,11 +44,12 @@ from rlx_tpu_torch.runner.runner_mode import RunnerMode
 from rlx_tpu_torch.utils.logging import rlx_logger, setup_logger
 
 DEFAULT_ALGORITHM = "ppo.cuda"
-DEFAULT_ENVIRONMENT = "locomotion.ant.cuda"
+DEFAULT_ENVIRONMENT = "classic.pendulum.cuda"
 
 
 def parse_flags(argv):
-    """``--a.b=value`` / ``--a.b value`` -> {"a.b": parsed value}."""
+    """``--a.b=value`` / ``--a.b value`` -> {"a.b": "value"}; the text is
+    cast to the field's type when the config is made."""
     flags, i = {}, 0
     while i < len(argv):
         arg = argv[i]
@@ -56,10 +63,7 @@ def parse_flags(argv):
                 raise ValueError(f"flag {arg!r} has no value")
             key, value = arg[2:], argv[i + 1]
             i += 2
-        try:
-            flags[key] = ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            flags[key] = value
+        flags[key] = value
     return flags
 
 

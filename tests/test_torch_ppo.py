@@ -140,7 +140,12 @@ def test_config_overrides_and_registries():
     assert config.to_dict()["algorithm"]["nr_steps"] == 64
     with pytest.raises(KeyError):
         make_config("ppo.cuda", "locomotion.ant.cuda", **{"algorithm.nr_stepz": 64})
-    assert parse_flags(["--a.b=3", "--c.d", "x", "--e.f=(1, 2)"]) == {"a.b": 3, "c.d": "x", "e.f": (1, 2)}
+    # the command line's text, cast to each field's type when the config is made
+    assert parse_flags(["--a.b=3", "--c.d", "x", "--e.f=(1, 2)"]) == {"a.b": "3", "c.d": "x", "e.f": "(1, 2)"}
+    flagged = make_config("ppo.cuda", "locomotion.ant.cuda", **parse_flags([
+        "--algorithm.nr_steps=3", "--algorithm.activation", "x", "--algorithm.policy_hidden_sizes=(1, 2)"]))
+    assert (flagged.algorithm.nr_steps, flagged.algorithm.activation,
+            flagged.algorithm.policy_hidden_sizes) == (3, "x", (1, 2))
     with pytest.raises(ValueError, match="Unknown runner mode"):
         Runner(["--runner.mode=bogus", "--runner.device=cpu"]).run()
 
