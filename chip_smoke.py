@@ -59,13 +59,35 @@ Phases (each prints one line; any failure exits nonzero):
     optimizer state (1 prefill + 16 learning steps, B2 exactly 17), then
     test mode from its ``latest.model`` (1024 envs, horizon 200, 4
     episodes): every parameter, target, ``log_alpha``, Adam moment and the
-    update count equal bit for bit, at most 200 B2 launches.
+    update count equal bit for bit, at most 200 B2 launches;
+15. C51 on ``classic.cart_pole.cuda`` through the Runner at the
+    ``cartpole_spot_c51`` recipe (8 envs, batch 128, (512,) relu, 51 atoms
+    over 0..500, lr 1e-3) with its optimizer state: the 10k-step prefill and
+    256 learning steps, B3 launched exactly once a step, then test mode from
+    its ``latest.model`` with every tensor equal bit for bit; B3 against its
+    plain version at C51's [128, 51] -> 51 (0..500) and [32, 51] -> 51
+    (-10..10), with rows whose every position is an atom or clips to one
+    end, and its times and bound at both;
+16. DQN, DDQN and DQN-HL-Gauss on CartPole at their recipes: the prefill and
+    64 learning steps each, no kernel launched, env-steps/s;
+17. PQN on CartPole through the Runner at its recipe: 2 learning iterations,
+    2 evaluations and saves, then test mode, no kernel launched;
+18. discrete PPO on CartPole at the flagship rollout and update shape (4096
+    envs x 64 steps, minibatch 32768, 4 epochs) with the PPO defaults'
+    network: 2 iterations, B1 launched exactly twice; B1 against its plain
+    version on CartPole-like inputs at [64, 4096];
+19. PPO, PPO over an observation window and PPO with memory actions on the
+    velocity-masked Pendulum through the Runner at the
+    ``pendulum_masked_*`` recipes (8 envs x 256 steps): 2 eval/save
+    iterations each, B1 launched exactly twice each; B1 against its plain
+    version at [256, 8], with its times and bound.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
-kernels' JSON record, the last line the device record.  Needs a CUDA device; never falls back to the CPU.
+kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
+shapes of phases 15 and 19), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
@@ -199,6 +221,50 @@ def profile_spans(fn, span_prefix):
     }
 
 
+def kernel_times(fn, plain, kernel_name, reps=200):
+    """ms (CUDA events), device_ms (the profiler's kernel time), host_us
+    and plain_ms of one kernel call ``fn`` and its plain version ``plain``."""
+    return dict(ms=time_ms(fn, reps), device_ms=kernel_device_ms(fn, reps, kernel_name), host_us=host_us(fn),
+                plain_ms=time_ms(plain, 20))
+
+
+def roofline(nbytes, flops):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and f32 operations over the f32 rate."""
+    by_bytes, by_flops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return max(by_bytes, by_flops) * 1e3, "bytes" if by_bytes >= by_flops else "operations"
+
+
+def counts():
+    """The three kernels' launch counters."""
+    from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
+    from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda
+    from rlx_tpu_torch.ops.projection_cuda import categorical_projection_cuda
+
+    return {"engine_substep": step_cuda.launches, "gae": gae_advantages_cuda.launches,
+            "categorical_projection": categorical_projection_cuda.launches}
+
+
+def zero_counts():
+    from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
+    from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda
+    from rlx_tpu_torch.ops.projection_cuda import categorical_projection_cuda
+
+    torch.cuda.synchronize()
+    step_cuda.launches = gae_advantages_cuda.launches = categorical_projection_cuda.launches = 0
+
+
+def check_logged(name, history, expected_updates=None):
+    """Fails unless every logged value is finite (and, when given, the
+    logged update counts are ``expected_updates``)."""
+    if expected_updates is not None and [m["steps/nr_updates"] for m in history] != expected_updates:
+        fail(f"{name} logged updates {[m['steps/nr_updates'] for m in history]} != {expected_updates}")
+    for it, metrics in enumerate(history):
+        for k, v in metrics.items():
+            if not math.isfinite(v):
+                fail(f"{name} log line {it}: {k} = {v}")
+
+
 def same_tree(a, b):
     """Number of tensors in two nested checkpoint trees, failing unless
     every tensor is equal bit for bit and every other leaf equal."""
@@ -279,9 +345,7 @@ def main():
     gae = lambda: gae_advantages_cuda(*args, 0.99, 0.95)
     if not all(torch.equal(a, b) for a, b in zip(gae(), gae())):
         fail("GAE: two launches on the same input differ")
-    gae_t = dict(ms=time_ms(gae, 200), device_ms=kernel_device_ms(gae, 200, "gae_kernel"),
-                 host_us=host_us(gae),
-                 plain_ms=time_ms(lambda: gae_advantages_reference(*args, 0.99, 0.95), 20))
+    gae_t = kernel_times(gae, lambda: gae_advantages_reference(*args, 0.99, 0.95), "gae_kernel")
     gae_bound = gae_bytes(64, 4096) / H100_BYTES_PER_S * 1e3
     launch = gae_geometry(64, 4096)
     print(f"B1 gae: {len(gae_cases)} cases ({', '.join(gae_cases)}), max|err| {gae_err:.3g} "
@@ -369,12 +433,12 @@ def main():
         flops = substep_flops(ant) * B * S
         nbytes = substep_bytes(ant, B, with_anchors=False)
         lanes = lanes_per_env(B)
+        bound_ms, bound_by = roofline(nbytes, flops)
         t = by_batch[B] = dict(
             ms=time_ms(substep, 100), device_ms=kernel_device_ms(substep, 100, "engine_substep_kernel"),
             host_us=host_us(substep),
             plain_ms=time_ms(lambda: engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=S), 3),
-            bound_ms=max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
-            bound_by="bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             lanes_per_env=lanes, resident_warps_per_sm=resident_warps_per_sm(ant, lanes),
         )
         print(f"B2 engine_substep at B={B}, {S} substeps: kernel {t['ms']:.4f} ms (device "
@@ -500,11 +564,9 @@ def main():
     if not torch.equal(project(), project()):
         fail("projection: two launches on the same input differ")
     plain = lambda: categorical_projection_reference(z, p, v_min, v_max, nr_atoms)
-    proj_t = dict(ms=time_ms(project, 200), device_ms=kernel_device_ms(project, 200, "projection_kernel"),
-                  host_us=host_us(project), plain_ms=time_ms(plain, 20))
+    proj_t = kernel_times(project, plain, "projection_kernel")
     nbytes, flops = projection_bytes(8192, 101, 101), projection_flops(8192, 101)
-    proj_bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-    bound_by = "bytes" if nbytes / H100_BYTES_PER_S > flops / H100_F32_FLOPS else "operations"
+    proj_bound, bound_by = roofline(nbytes, flops)
     launch = projection_geometry(8192, 101, 101)
     print(f"B3 projection: {len(cases)} cases ({', '.join(cases)}), max|err| {proj_err:.3g} "
           f"(rtol=atol=1e-6, f32), the same bits over two launches; kernel {proj_t['ms']:.4f} ms "
@@ -796,6 +858,235 @@ def main():
           f"{[round(r, 2) for r in test_returns]}")
     launches_by_path["sac_runner"] = runner_launches
     launches_by_path["sac_test"] = {"engine_substep": test_launches}
+
+    # 15. C51 on CartPole through the Runner at the cartpole_spot_c51 recipe
+    # (8 envs, batch 128, (512,) relu, 51 atoms over 0..500, lr 1e-3): the
+    # 10k-step random prefill, then 256 learning steps, each through B3
+    from rlx_tpu_torch.benchmarks.curves import RUNS
+
+    recipe = lambda name: [f"--{k}={v}" for k, v in RUNS[name]["overrides"].items()]
+    cartpole = ["--environment.name=classic.cart_pole.cuda", "--runner.device=cuda"]
+    c51_steps, c51_starts = 256, 10_000
+    os.chdir(workdir.name)
+    c51_args = ["--algorithm.name=c51.cuda", *cartpole, *recipe("cartpole_spot_c51"),
+                "--runner.save_optimizer_state=True"]
+    runner = Runner([*c51_args, f"--algorithm.learning_starts={c51_starts}",
+                     f"--algorithm.total_timesteps={c51_starts + c51_steps * 8}",
+                     f"--algorithm.logging_frequency={64 * 8}", "--algorithm.evaluation_active=False",
+                     "--runner.save_model=True", "--runner.run_name=c51"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c51_launches = counts()
+    expected = {"engine_substep": 0, "gae": 0, "categorical_projection": c51_steps}
+    if c51_launches != expected or trained.prefill_iterations != c51_starts // 8:
+        fail(f"C51 launch counts {c51_launches} != {expected} (prefill {trained.prefill_iterations})")
+    if trained.nr_updates != c51_steps or trained.critic.step_count() != c51_steps:
+        fail(f"C51 took {trained.nr_updates} learning steps and {trained.critic.step_count()} Adam steps")
+    check_logged("C51", trained.metrics_history, [64, 128, 192, 256])
+    c51_sps = [m["time/sps"] for m in trained.metrics_history]
+    c51_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "c51", "models", "latest.model")
+    tester = Runner([*c51_args, "--runner.mode=test", f"--runner.load_model={c51_latest}",
+                     "--runner.nr_test_episodes=8", "--runner.run_name=c51_test"])
+    zero_counts()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    c51_test_launches = counts()
+    os.chdir(root)
+    if len(test_returns) != 8 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"C51 test mode returned {test_returns}, expected 8 finite returns")
+    tree = trained.checkpoint_tree()
+    if set(tree) != {"full"} or set(tree["full"]) != {"critic", "nr_updates"}:
+        fail(f"C51 checkpoint tree {sorted(tree)} without the full state")
+    compared = same_tree(tree, tester.model.checkpoint_tree())
+    print(f"train: C51 on CartPole, {trained.prefill_iterations} prefill + {c51_steps} learning steps at 8 envs, "
+          f"batch 128, (512,), 51 atoms over 0..500, through the Runner in {train_s:.2f} s; env-steps/s of the 4 "
+          f"log lines (the first includes the prefill) {c51_sps}, launches {c51_launches}, last log line "
+          + json.dumps({k: v for k, v in trained.metrics_history[-1].items()
+                        if k.startswith(("loss/", "q_value/", "epsilon/"))})
+          + f"; {compared} tensors (parameters, target, Adam moments and steps) and the update count restored "
+          f"bit for bit, test mode {test_s:.2f} s, launches {c51_test_launches}, returns {test_returns}")
+    launches_by_path["c51"] = c51_launches
+    launches_by_path["c51_test"] = c51_test_launches
+
+    # B3 at C51's shapes: the recipe's [128, 51] -> 51 over 0..500 and the
+    # defaults' [32, 51] -> 51 over -10..10, with rows whose every position
+    # is an atom (reward 0, terminated) or clips to one end of the support
+    def c51_targets(n, v_lo, v_hi, reward):
+        support = torch.linspace(v_lo, v_hi, 51, device=dev)
+        r = reward(n)
+        d = (torch.rand(n, 1, device=dev, generator=g) < 0.1).float()
+        quarter = n // 4
+        r[:quarter], d[:quarter] = 0.0, 1.0                      # every position on the atom at 0
+        r[quarter:2 * quarter], d[quarter:2 * quarter] = 10 * v_hi + 1.0, 0.0   # clipped to v_max
+        r[2 * quarter:3 * quarter], d[2 * quarter:3 * quarter] = -10 * v_hi - 1.0, 0.0   # to v_min
+        return r + 0.99 * (1.0 - d) * support[None], softmax_probs(n, 51)
+
+    c51_shapes = {
+        "[128, 51] -> 51": (128, 0.0, 500.0, lambda n: torch.ones(n, 1, device=dev)),
+        "[32, 51] -> 51": (32, -10.0, 10.0, lambda n: 3.0 * torch.randn(n, 1, device=dev, generator=g)),
+    }
+    b3_by_shape = {}
+    for label, (n, v_lo, v_hi, reward) in c51_shapes.items():
+        z, p = c51_targets(n, v_lo, v_hi, reward)
+        out = categorical_projection_cuda(z, p, v_lo, v_hi, 51)
+        ref = categorical_projection_reference(z, p, v_lo, v_hi, 51)
+        torch.cuda.synchronize()
+        err = max_err([out], [ref], 1e-6, 1e-6, f"projection {label}")
+        if not torch.allclose(out[:n // 4], torch.nn.functional.one_hot(
+                torch.full((n // 4,), round(-v_lo / (v_hi - v_lo) * 50), device=dev), 51).float(), atol=1e-6):
+            fail(f"projection {label}: the on-atom rows do not put all their mass on the atom at 0")
+        t = kernel_times(lambda: categorical_projection_cuda(z, p, v_lo, v_hi, 51),
+                         lambda: categorical_projection_reference(z, p, v_lo, v_hi, 51), "projection_kernel")
+        t["bound_ms"], t["bound_by"] = roofline(projection_bytes(n, 51, 51), projection_flops(n, 51))
+        b3_by_shape[label] = {**t, "max_abs_err": err}
+        print(f"B3 projection at {label} (C51, v {v_lo:g}..{v_hi:g}): max|err| {err:.3g} (rtol=atol=1e-6), "
+              f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) "
+              f"plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+              f"{projection_bytes(n, 51, 51)} bytes)")
+    kernels[2]["by_shape"] = b3_by_shape
+
+    # 16. DQN, DDQN and DQN-HL-Gauss on CartPole at their recipes (batch 128,
+    # (512,) relu, lr 1e-3; HL-Gauss 101 bins over 0..500): the 10k-step
+    # prefill, then 64 learning steps in 4 log lines; no kernel on these paths
+    for name in ("dqn", "ddqn", "dqn_hl_gauss"):
+        overrides = {**RUNS[f"cartpole_spot_{name}"]["overrides"], "runner.device": "cuda",
+                     "algorithm.learning_starts": c51_starts,
+                     "algorithm.total_timesteps": c51_starts + 64 * 8, "algorithm.logging_frequency": 16 * 8,
+                     "algorithm.evaluation_active": False}
+        model = create_model(make_config(f"{name}.cuda", "classic.cart_pole.cuda", **overrides))
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        if any(path_launches.values()) or model.nr_updates != 64:
+            fail(f"{name}: launches {path_launches}, {model.nr_updates} learning steps")
+        check_logged(name, model.metrics_history, [16, 32, 48, 64])
+        print(f"train: {name} on CartPole, {model.prefill_iterations} prefill + 64 learning steps at 8 envs, batch "
+              f"128, in {elapsed:.2f} s; env-steps/s of the 4 log lines (the first includes the prefill) "
+              f"{[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}, last losses "
+              + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
+        launches_by_path[name] = path_launches
+
+    # 17. PQN on CartPole through the Runner at its recipe (8 envs x 32
+    # steps, 2 epochs of 4 minibatches, (512,) relu + LayerNorm): 2 learning
+    # iterations with an evaluation and a save after each, then test mode
+    os.chdir(workdir.name)
+    pqn_args = ["--algorithm.name=pqn.cuda", *cartpole, *recipe("cartpole_spot_pqn")]
+    runner = Runner([*pqn_args, "--algorithm.total_timesteps=512", "--algorithm.evaluation_and_save_frequency=256",
+                     "--runner.save_model=True", "--runner.run_name=pqn"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    pqn_launches = counts()
+    if any(pqn_launches.values()) or trained.nr_optimizer_steps != 16:
+        fail(f"PQN launches {pqn_launches}, {trained.nr_optimizer_steps} optimizer steps (expected 16)")
+    check_logged("PQN", trained.metrics_history, [8, 16])
+    if [int(s) for s in trained.eval_history["steps"]] != [256, 512]:
+        fail(f"PQN eval history steps {trained.eval_history['steps']}")
+    pqn_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "pqn", "models", "latest.model")
+    tester = Runner([*pqn_args, "--runner.mode=test", f"--runner.load_model={pqn_latest}",
+                     "--runner.nr_test_episodes=8", "--runner.run_name=pqn_test"])
+    test_returns = tester.run()
+    os.chdir(root)
+    if len(test_returns) != 8 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"PQN test mode returned {test_returns}, expected 8 finite returns")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    print(f"runner pqn: 2 learning iterations at 8x32 on CartPole, 2 evaluations and saves, in {train_s:.2f} s; "
+          f"env-steps/s {[m['time/sps'] for m in trained.metrics_history]}, launches {pqn_launches}, eval returns "
+          f"{[float(r) for r in trained.eval_history['eval/episode_return']]}; test mode: {compared} tensors "
+          f"restored bit for bit, returns {test_returns}")
+    launches_by_path["pqn"] = pqn_launches
+
+    # 18. discrete PPO on CartPole at the flagship rollout and update shape
+    # (4096 envs x 64 steps, minibatch 32768, 4 epochs) with the PPO
+    # defaults' network ((64, 64) tanh, f32): 2 iterations through B1
+    config = make_config("ppo.cuda", "classic.cart_pole.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": nr_steps,
+        "algorithm.total_timesteps": 2 * batch, "algorithm.minibatch_size": batch // 8,
+        "algorithm.nr_epochs": 4, "algorithm.evaluation_active": False,
+    })
+    model = create_model(config)
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    ppo_cartpole_launches = counts()
+    if ppo_cartpole_launches != {"engine_substep": 0, "gae": 2, "categorical_projection": 0}:
+        fail(f"discrete PPO launch counts {ppo_cartpole_launches}, expected 2 GAE")
+    check_logged("discrete PPO", model.metrics_history)
+    # B1 on CartPole-like inputs at this path's shape: rewards of 1, values
+    # near the return, 2 % terminations
+    r = torch.ones(nr_steps, 4096, device=dev)
+    v, nv = (20.0 + 5.0 * torch.randn(nr_steps, 4096, device=dev, generator=g) for _ in range(2))
+    d = torch.rand(nr_steps, 4096, device=dev, generator=g) < 0.02
+    cartpole_gae_err = max_err(gae_advantages_cuda(r, v, nv, d, 0.99, 0.95),
+                               gae_advantages_reference(r, v, nv, d, 0.99, 0.95), 1e-5, 1e-5,
+                               "GAE [64, 4096] CartPole rewards")
+    print(f"train: discrete PPO on CartPole, 2 iterations at 4096x{nr_steps} in {elapsed:.2f} s "
+          f"({2 * batch / elapsed:.0f} env-steps/s overall, {model.metrics_history[-1]['time/sps']} in the last "
+          f"iteration), launches {ppo_cartpole_launches}; B1 on CartPole rewards at [64, 4096] max|err| "
+          f"{cartpole_gae_err:.3g} (rtol=atol=1e-5); last losses "
+          + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
+    launches_by_path["ppo_cartpole"] = ppo_cartpole_launches
+
+    # 19. masked Pendulum through the Runner at the pendulum_masked_* recipes
+    # (8 envs x 256 steps, minibatch 512, 10 epochs, lr 5e-4, gamma 0.9):
+    # PPO, then PPO over the observation window and over memory actions, 2
+    # eval/save iterations of 1 learning iteration each
+    os.chdir(workdir.name)
+    for name, algorithm in (("pendulum_masked_ppo", "ppo.cuda"),
+                            ("pendulum_masked_history_window", "ppo_history_window.cuda"),
+                            ("pendulum_masked_memory_actions", "ppo_memory_actions.cuda")):
+        runner = Runner([f"--algorithm.name={algorithm}", "--environment.name=classic.pendulum.cuda",
+                         "--runner.device=cuda", *recipe(name), "--algorithm.total_timesteps=4096",
+                         "--algorithm.evaluation_and_save_frequency=2048", f"--runner.run_name={name}"])
+        zero_counts()
+        t0 = time.perf_counter()
+        model = runner.run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        if path_launches != {"engine_substep": 0, "gae": 2, "categorical_projection": 0}:
+            fail(f"{algorithm} on the masked Pendulum: launch counts {path_launches}, expected 2 GAE")
+        check_logged(algorithm, model.metrics_history)
+        eval_returns = [float(x) for x in model.eval_history["eval/episode_return"]]
+        if len(eval_returns) != 2 or not all(math.isfinite(x) for x in eval_returns):
+            fail(f"{algorithm} on the masked Pendulum: eval returns {eval_returns}")
+        print(f"runner {algorithm} on the masked Pendulum (observation {model.train_env.single_observation_space.shape}, "
+              f"action {model.train_env.single_action_space.shape}): 2 iterations of 8x256 and 2 evaluations in "
+              f"{elapsed:.2f} s, env-steps/s {[m['time/sps'] for m in model.metrics_history]}, launches "
+              f"{path_launches}, eval returns {eval_returns}")
+        launches_by_path[name.replace("pendulum_masked_", "masked_pendulum_")] = path_launches
+    os.chdir(root)
+    # B1 at the masked-Pendulum path's shape [256, 8]: costs as rewards, no
+    # terminations (Pendulum only truncates)
+    r = -16.0 * torch.rand(256, 8, device=dev, generator=g)
+    v, nv = (-80.0 + 10.0 * torch.randn(256, 8, device=dev, generator=g) for _ in range(2))
+    d = torch.zeros(256, 8, dtype=torch.bool, device=dev)
+    small_gae_err = max_err(gae_advantages_cuda(r, v, nv, d, 0.9, 0.95), gae_advantages_reference(r, v, nv, d, 0.9, 0.95),
+                            1e-5, 1e-5, "GAE [256, 8]")
+    t = kernel_times(lambda: gae_advantages_cuda(r, v, nv, d, 0.9, 0.95),
+                     lambda: gae_advantages_reference(r, v, nv, d, 0.9, 0.95), "gae_kernel")
+    t["bound_ms"], t["bound_by"] = roofline(gae_bytes(256, 8), 0)
+    launch = gae_geometry(256, 8)
+    print(f"B1 gae at [256, 8] (masked Pendulum): max|err| {small_gae_err:.3g} (rtol=atol=1e-5), kernel "
+          f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain "
+          f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {gae_bytes(256, 8)} bytes; "
+          f"{launch.blocks} blocks of {launch.threads} threads)")
+    kernels[0]["by_shape"] = {"[256, 8]": {**t, "max_abs_err": small_gae_err},
+                              "[64, 4096] CartPole rewards": {"max_abs_err": cartpole_gae_err}}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], small_gae_err, cartpole_gae_err)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], *(t["max_abs_err"] for t in b3_by_shape.values()))
     workdir.cleanup()
 
     for k in kernels:

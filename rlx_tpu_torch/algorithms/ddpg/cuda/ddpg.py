@@ -45,7 +45,7 @@ class DDPG(OffPolicyAlgorithm):
         self.critic = TrainState(critic, adam(critic))
 
     @torch.no_grad()
-    def act(self, observation, noise=None):
+    def act(self, observation, step=0, noise=None):
         """Policy action plus ``epsilon`` times ``noise`` (standard normal,
         ``[nr_envs, action_dim]``, drawn from the generator unless given),
         clipped to [-1, 1]."""

@@ -79,7 +79,7 @@ class FastTD3(OffPolicyAlgorithm):
             self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
 
     @torch.no_grad()
-    def act(self, observation, noise=None):
+    def act(self, observation, step=0, noise=None):
         """Policy action plus per-env Gaussian noise, clipped to [-1, 1];
         ``noise`` (standard normal, ``[nr_envs, action_dim]``) is drawn from
         the generator unless given."""

@@ -13,7 +13,10 @@ package's.  Each algorithm implements:
 - ``setup_states()``                              networks, targets, optimizers
 - ``state_names``                                 attributes the checkpoint holds:
                                                   ``TrainState``s and dicts of tensors
-- ``act(observation, noise=None) -> action``       normalized [-1, 1]
+- ``act(observation, step) -> action``             normalized [-1, 1] or
+                                                  discrete; ``step`` is
+                                                  the learning step of this
+                                                  ``train()`` call
 - ``eval_act(observation) -> action``
 - ``update(batch, step, ...) -> metrics``          device scalars
 - ``observe_transition(observation, env_state)``   optional hook
@@ -63,7 +66,7 @@ class OffPolicyAlgorithm:
         self.learning_starts = int(a.learning_starts)
         self.batch_size = a.batch_size
         self.gamma = a.gamma
-        self.tau = a.tau
+        self.tau = a.get("tau", 0.005)   # the DQN family has no Polyak update
         self.logging_frequency = int(a.logging_frequency)
         self.logging_active = a.logging_active
         self.evaluation_active = a.evaluation_active
@@ -86,12 +89,17 @@ class OffPolicyAlgorithm:
 
         self.horizon = train_env.horizon
         self.os_shape = tuple(train_env.single_observation_space.shape)
-        if train_env.general_properties.action_space_type != ActionSpaceType.CONTINUOUS:
-            raise NotImplementedError("only continuous actions are ported for off-policy algorithms")
-        self.action_dim = int(np.prod(train_env.single_action_space.shape))
-        # clip to [-1, 1], then rescale to the env's bounds
-        low, high = train_env.single_action_space.low, train_env.single_action_space.high
-        self.process_action = lambda action: low + 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0) * (high - low)
+        self.discrete = train_env.general_properties.action_space_type == ActionSpaceType.DISCRETE
+        if self.discrete:
+            # int32 actions, stored as they are and neither clipped nor rescaled
+            self.nr_actions = train_env.single_action_space.n
+            self.action_dim = 1
+            self.process_action = lambda action: action
+        else:
+            self.action_dim = int(np.prod(train_env.single_action_space.shape))
+            # clip to [-1, 1], then rescale to the env's bounds
+            low, high = train_env.single_action_space.low, train_env.single_action_space.high
+            self.process_action = lambda action: low + 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0) * (high - low)
 
         self.logger = MetricsLogger(config.runner.track_console)
         rlx_logger.info(f"Using device: {self.device}")
@@ -110,7 +118,7 @@ class OffPolicyAlgorithm:
     def setup_states(self):
         raise NotImplementedError
 
-    def act(self, observation, noise=None):
+    def act(self, observation, step=0):
         raise NotImplementedError
 
     def eval_act(self, observation):
@@ -127,7 +135,7 @@ class OffPolicyAlgorithm:
         return rb.create(self.capacity, self.nr_envs, {
             "observation": (self.os_shape, torch.float32),
             "next_observation": (self.os_shape, torch.float32),
-            "action": ((self.action_dim,), torch.float32),
+            "action": ((), torch.int32) if self.discrete else ((self.action_dim,), torch.float32),
             "reward": ((), torch.float32),
             "terminated": ((), torch.float32),
             "truncated": ((), torch.float32),
@@ -152,7 +160,7 @@ class OffPolicyAlgorithm:
         """act -> env step -> store -> observe -> sample -> update."""
         observation = env_state.observation
         with record_function(f"{self.name}/act"), torch.no_grad():
-            action = self.act(observation)
+            action = self.act(observation, step=step)
         with record_function(f"{self.name}/env_step"), torch.no_grad():
             env_state = self.train_env.step(env_state, self.process_action(action))
         with record_function(f"{self.name}/store"), torch.no_grad():
@@ -164,12 +172,19 @@ class OffPolicyAlgorithm:
             metrics = self.update(batch, step)
         return env_state, metrics
 
+    def _random_action(self):
+        """Uniform in [-1, 1], or in [0, nr_actions) for discrete actions."""
+        if self.discrete:
+            return torch.randint(0, self.nr_actions, (self.nr_envs,), generator=self.generator,
+                                 device=self.device, dtype=torch.int32)
+        return 2.0 * torch.rand((self.nr_envs, self.action_dim), generator=self.generator,
+                                device=self.device) - 1.0
+
     def _prefill(self, buffer, env_state):
-        """Uniform [-1, 1] actions; the normalizers do not see these steps."""
+        """Uniform random actions; the normalizers do not see these steps."""
         with torch.no_grad():
             for _ in range(self.prefill_iterations):
-                action = 2.0 * torch.rand((self.nr_envs, self.action_dim), generator=self.generator,
-                                          device=self.device) - 1.0
+                action = self._random_action()
                 observation = env_state.observation
                 env_state = self.train_env.step(env_state, self.process_action(action))
                 self._store_step(buffer, observation, action, env_state)

@@ -8,7 +8,7 @@ from rlx_tpu_torch.environments.types import (
 
 class GeneralProperties:
     observation_space_types = [ObservationSpaceType.FLAT_VALUES]
-    action_space_types = [ActionSpaceType.CONTINUOUS]
+    action_space_types = [ActionSpaceType.CONTINUOUS, ActionSpaceType.DISCRETE]
     data_interface_types = [DataInterfaceType.TORCH]
 
     deep_learning_framework_type = DeepLearningFrameworkType.TORCH

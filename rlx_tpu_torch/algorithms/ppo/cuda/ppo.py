@@ -8,8 +8,9 @@ Per learning iteration:
   each (critic parameters are constant during the rollout);
 - GAE over ``[T, B]`` (the CUDA kernel on the card);
 - step-major flatten, the five update arrays packed into one ``[T*B, D]``
-  matrix, each epoch's permutation applied as a single row gather, and
-  minibatches taken as contiguous slices;
+  matrix (discrete actions as one f32 column, exact below 2**24), each
+  epoch's permutation applied as a single row gather, and minibatches
+  taken as contiguous slices;
 - per-minibatch advantage normalization, the clipped PPO loss, a global-norm
   gradient clip and Adam, separately for the policy and the critic, with the
   learning rate annealed linearly on the optimizer step count.
@@ -45,6 +46,7 @@ from rlx_tpu_torch.algorithms.train_state import (
     clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
 from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
+from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -91,6 +93,9 @@ class PPO:
         self.nr_eval_save_iterations = max(self.total_timesteps // self.eval_save_frequency, 1)
         self.nr_updates_per_eval_save_iteration = self.eval_save_frequency // self.batch_size
         self.horizon = train_env.horizon
+        self.continuous = train_env.general_properties.action_space_type == ActionSpaceType.CONTINUOUS
+        if not self.continuous and train_env.single_action_space.n > 2**24:
+            raise ValueError("discrete actions travel as one f32 column, exact only below 2**24 actions")
 
         self.logger = MetricsLogger(config.runner.track_console)
         rlx_logger.info(f"Using device: {self.device}")
@@ -177,7 +182,8 @@ class PPO:
         metrics["v_value/explained_variance"] = 1.0 - torch.var(returns - values, unbiased=False) / (
             torch.var(returns, unbiased=False) + 1e-8
         )
-        metrics["policy/std_dev"] = torch.exp(self.policy.module.policy_logstd.detach()).mean()
+        if self.continuous:
+            metrics["policy/std_dev"] = torch.exp(self.policy.module.policy_logstd.detach()).mean()
         return env_state, {**infos, **metrics}
 
     def _loss(self, obs_mb, action_mb, log_prob_mb, return_mb, advantage_mb):
@@ -218,9 +224,10 @@ class PPO:
                 for _ in range(self.nr_epochs)
             ])
         obs_dim = batch_observations.shape[1]
-        action_dim = batch_actions.shape[1]
+        action_2d = batch_actions.reshape(N, -1)
+        action_dim = action_2d.shape[1]
         packed = torch.cat(
-            [batch_observations, batch_actions, batch_log_probs[:, None],
+            [batch_observations, action_2d.to(batch_observations.dtype), batch_log_probs[:, None],
              batch_returns[:, None], batch_advantages[:, None]],
             dim=1,
         )
@@ -233,7 +240,8 @@ class PPO:
             for m in range(self.nr_minibatches):
                 mb = shuffled[m * self.minibatch_size:(m + 1) * self.minibatch_size]
                 obs_mb = mb[:, :obs_dim]
-                action_mb = mb[:, obs_dim:obs_dim + action_dim]
+                action_mb = mb[:, obs_dim:obs_dim + action_dim].to(batch_actions.dtype).reshape(
+                    (-1,) + batch_actions.shape[1:])
                 log_prob_mb = mb[:, obs_dim + action_dim]
                 return_mb = mb[:, obs_dim + action_dim + 1]
                 adv_mb = mb[:, obs_dim + action_dim + 2]
@@ -266,8 +274,8 @@ class PPO:
     def _eval_iteration(self, eval_save_iteration):
         """``horizon`` steps of ``policy.mode`` from a fresh eval reset; every
         ``rollout/*`` info key becomes ``eval/*`` (mean over envs), with
-        ``eval/policy_std``.  The train env state is not touched (the Ant's
-        eval env is its train env)."""
+        ``eval/policy_std`` for continuous actions.  The train env state is
+        not touched (the Ant's eval env is its train env)."""
         seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
         with record_function("ppo/eval"):
             eval_env_state = self.eval_env.reset(seed, eval_mode=True)
@@ -278,7 +286,8 @@ class PPO:
             "eval/" + k.split("rollout/", 1)[1]: float(v.float().mean())
             for k, v in eval_env_state.info.items() if k.startswith("rollout/")
         }
-        eval_metrics["eval/policy_std"] = float(torch.exp(self.policy.module.policy_logstd).mean())
+        if self.continuous:
+            eval_metrics["eval/policy_std"] = float(torch.exp(self.policy.module.policy_logstd).mean())
         if self.logging_active:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics

@@ -70,7 +70,7 @@ class SAC(OffPolicyAlgorithm):
         return self.learning_rate * (1.0 - step / max(self.total_training_timesteps, 1))
 
     @torch.no_grad()
-    def act(self, observation, noise=None):
+    def act(self, observation, step=0, noise=None):
         """``tanh(mean + std * noise)``; ``noise`` (standard normal,
         ``[nr_envs, action_dim]``) is drawn from the generator unless given."""
         mean, log_std = self.policy.module(observation)

@@ -71,6 +71,12 @@ class TrainState:
         torch._foreach_mul_(targets, 1.0 - tau)
         torch._foreach_add_(targets, torch._foreach_mul(list(self.module.parameters()), tau))
 
+    @torch.no_grad()
+    def hard_update(self):
+        """``target = params``, exactly (the DQN family's target copy)."""
+        for target, param in zip(self.target.parameters(), self.module.parameters()):
+            target.copy_(param)
+
     def state_dict(self):
         return module_state_dict(self.module, self.optimizer, self.target)
 

@@ -4,13 +4,16 @@
         --out chiprun_out/pendulum_spot_fasttd3.json
     python -m rlx_tpu_torch.benchmarks.curves pendulum_ppo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_sac --seeds 0
+    python -m rlx_tpu_torch.benchmarks.curves cartpole_spot_c51 --seeds 0 1 2
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_ppo --seeds 1 2 3
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
 interval rounded down to a multiple of its rollout batch, as there), so the
 outcome reads against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
 turn; its final return is the mean of its last three evaluations, and the
-check passes when every seed's final return clears the threshold.  Needs a
+check passes when every seed's final return clears the threshold (or, for a
+negative control marked ``"expect": "below"``, stays below it).  Needs a
 CUDA device and prints the card's name and power limit beside the result.
 """
 
@@ -27,6 +30,12 @@ import torch
 PENDULUM_OFFPOLICY = {
     "algorithm.learning_starts": 1_000, "algorithm.buffer_size": 100_000,
     "algorithm.batch_size": 128, "algorithm.logging_frequency": 2_000, "environment.nr_envs": 8,
+}
+
+# benchmarks/curves.py: _MASKED (observation [cos th, sin th] only)
+MASKED = {
+    "environment.nr_envs": 8, "environment.mask_velocity": True,
+    "algorithm.nr_steps": 256, "algorithm.learning_rate": 5e-4, "algorithm.gamma": 0.9,
 }
 
 RUNS = {
@@ -52,7 +61,43 @@ RUNS = {
         "algorithm": f"{name}.cuda", "environment": "classic.pendulum.cuda",
         "budget": 100_000, "threshold": -500.0, "eval_points": 8, "overrides": dict(PENDULUM_OFFPOLICY),
     } for name in ("sac", "td3", "ddpg")},
+    # benchmarks/curves.py: the cartpole_spot_* family checks
+    **{f"cartpole_spot_{name}": {
+        "algorithm": f"{name}.cuda", "environment": "classic.cart_pole.cuda",
+        "budget": 250_000, "threshold": 250.0, "eval_points": 6, "overrides": {"environment.nr_envs": 8},
+    } for name in ("dqn", "ddqn", "c51", "dqn_hl_gauss", "pqn")},
+    # benchmarks/curves.py: the velocity-masked Pendulum memory suite
+    "pendulum_masked_ppo": {   # feedforward control: must stay BELOW
+        "algorithm": "ppo.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 400_000, "threshold": -700.0, "eval_points": 8, "expect": "below",
+        "overrides": {**MASKED, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10},
+    },
+    "pendulum_masked_history_window": {
+        "algorithm": "ppo_history_window.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 400_000, "threshold": -700.0, "eval_points": 8,
+        "overrides": {**MASKED, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10,
+                      "algorithm.window_length": 4},
+    },
+    "pendulum_masked_memory_actions": {
+        "algorithm": "ppo_memory_actions.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 1_200_000, "threshold": -700.0, "eval_points": 12,
+        "overrides": {**MASKED, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10,
+                      "algorithm.memory_action_dimension": 4},
+    },
 }
+# benchmarks/curves.py: the DQN family's epsilon decay and target refresh
+# recalibrated to the budget, the distributional supports over CartPole's
+# returns, and the 400k budget of dqn, ddqn and dqn_hl_gauss
+for name in ("dqn", "ddqn", "c51", "dqn_hl_gauss"):
+    RUNS[f"cartpole_spot_{name}"]["overrides"].update({
+        "algorithm.epsilon_decay_steps": 125_000, "algorithm.target_update_frequency": 2_000,
+        "algorithm.learning_rate": 1e-3, "algorithm.batch_size": 128,
+    })
+for name in ("c51", "dqn_hl_gauss"):
+    RUNS[f"cartpole_spot_{name}"]["overrides"].update({"algorithm.v_min": 0.0, "algorithm.v_max": 500.0})
+for name in ("dqn", "ddqn", "dqn_hl_gauss"):
+    RUNS[f"cartpole_spot_{name}"]["budget"] = 400_000
+    RUNS[f"cartpole_spot_{name}"]["overrides"]["algorithm.epsilon_decay_steps"] = 200_000
 
 
 def run_seed(spec, seed):
@@ -87,6 +132,12 @@ def run_seed(spec, seed):
     }
 
 
+def passes(spec, final_return):
+    if spec.get("expect", "above") == "below":
+        return final_return < spec["threshold"]
+    return final_return >= spec["threshold"]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("name", choices=sorted(RUNS))
@@ -103,7 +154,8 @@ def main(argv=None):
         "name": args.name, "algorithm": spec["algorithm"], "environment": spec["environment"],
         "budget": spec["budget"], "threshold": spec["threshold"], "card": card,
         "seeds": seeds,
-        "per_seed_passed": [s["final_return"] >= spec["threshold"] for s in seeds],
+        "expect": spec.get("expect", "above"),
+        "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],
     }
     result["passed"] = all(result["per_seed_passed"])
     print(json.dumps(result))

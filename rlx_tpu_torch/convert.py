@@ -33,15 +33,24 @@ def _dense(prefix, p):
     }
 
 
-def _mlp(p):
+def _layer_norm(prefix, p):
+    return {
+        f"{prefix}.weight": torch.as_tensor(np.asarray(p["scale"], np.float32).copy()),
+        f"{prefix}.bias": torch.as_tensor(np.asarray(p["bias"], np.float32).copy()),
+    }
+
+
+def _mlp(p, layer_norm_all=False):
+    """``MLP`` trunk: ``trunk.norm`` for the first Dense's LayerNorm, or with
+    ``layer_norm_all`` ``trunk.norms.<i>`` for every Dense's."""
     out = {}
     n_dense = sum(1 for k in p if k.startswith("Dense_"))
     for i in range(n_dense):
         out.update(_dense(f"trunk.layers.{i}", p[f"Dense_{i}"]))
-    if "LayerNorm_0" in p:
-        ln = p["LayerNorm_0"]
-        out["trunk.norm.weight"] = torch.as_tensor(np.asarray(ln["scale"], np.float32).copy())
-        out["trunk.norm.bias"] = torch.as_tensor(np.asarray(ln["bias"], np.float32).copy())
+        if layer_norm_all:
+            out.update(_layer_norm(f"trunk.norms.{i}", p[f"LayerNorm_{i}"]))
+    if not layer_norm_all and "LayerNorm_0" in p:
+        out.update(_layer_norm("trunk.norm", p["LayerNorm_0"]))
     return out
 
 
@@ -51,6 +60,24 @@ def policy_state_dict(flax_params):
     out = _mlp(p["MLP_0"])
     out.update(_dense("mean", p["Dense_0"]))
     out["policy_logstd"] = torch.as_tensor(np.asarray(p["policy_logstd"], np.float32).copy())
+    return out
+
+
+def categorical_policy_state_dict(flax_params):
+    """``CategoricalPolicy`` state_dict from flax ``CategoricalPolicy`` params."""
+    p = _unwrap(flax_params)
+    out = _mlp(p["MLP_0"])
+    out.update(_dense("logits", p["Dense_0"]))
+    return out
+
+
+def discrete_q_net_state_dict(flax_params, layer_norm_all=False):
+    """``DiscreteQNet`` state_dict from flax ``DiscreteQNet`` params (flat
+    observations; any number of outputs per action; ``layer_norm_all`` as
+    the net was built, PQN's)."""
+    p = _unwrap(flax_params)
+    out = _mlp(p["MLP_0"], layer_norm_all)
+    out.update(_dense("head", p["Dense_0"]))
     return out
 
 
@@ -123,14 +150,23 @@ def q_critic_state_dict(flax_params):
 
 
 def checkpoint_tree_from_jax(algorithm, restored):
-    """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"``,
-    ``"fasttd3"``, ``"sac"``, ``"td3"`` or ``"ddpg"`` from a JAX
-    checkpoint's parameter tree."""
+    """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"``
+    (a ``GaussianPolicy``, or without ``policy_logstd`` a
+    ``CategoricalPolicy``), ``"fasttd3"``,
+    ``"sac"``, ``"td3"``, ``"ddpg"``, ``"dqn"``, ``"ddqn"``, ``"c51"``,
+    ``"dqn_hl_gauss"`` or ``"pqn"`` from a JAX checkpoint's parameter tree."""
     if "full" in restored:
         raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
     if algorithm == "ppo":
-        return {"policy": policy_state_dict(restored["policy"]),
+        continuous = "policy_logstd" in _unwrap(restored["policy"])
+        policy = policy_state_dict if continuous else categorical_policy_state_dict
+        return {"policy": policy(restored["policy"]),
                 "critic": critic_state_dict(restored["critic"])}
+    if algorithm in ("dqn", "ddqn", "c51", "dqn_hl_gauss"):
+        return {"critic": discrete_q_net_state_dict(restored["critic"]),
+                "critic_target": discrete_q_net_state_dict(restored["critic_target"])}
+    if algorithm == "pqn":
+        return {"critic": discrete_q_net_state_dict(restored["critic"], layer_norm_all=True)}
     if algorithm == "fasttd3":
         return {
             "policy": deterministic_policy_state_dict(restored["policy"]),

@@ -9,7 +9,7 @@ def get_config(environment_name):
         seed=1,
         nr_envs=8,
         horizon=200,
-        # POMDP variant (hides the angular velocity): needs the observation
-        # mask wrapper, which is not ported yet
+        # POMDP variant: the observation mask wrapper hides the angular
+        # velocity
         mask_velocity=False,
     )

@@ -1,4 +1,5 @@
-"""Spaces for device-resident environments."""
+"""Spaces for device-resident environments: a continuous box and a discrete
+set of actions."""
 
 import torch
 
@@ -16,3 +17,20 @@ class BoxSpace:
                        else torch.as_tensor(center, dtype=torch.float32, device=device))
         self.scale = (torch.ones(shape, device=device) if scale is None
                       else torch.as_tensor(scale, dtype=torch.float32, device=device))
+
+
+class DiscreteSpace:
+    """Discrete space with ``n`` actions; ``shape`` is ``()`` as in Gymnasium,
+    and actions are int32."""
+
+    def __init__(self, n, device="cpu"):
+        self.n = int(n)
+        self.shape = ()
+        self.dtype = torch.int32
+        self.device = torch.device(device)
+
+    def sample(self, generator, batch_shape=()):
+        """Uniform actions in ``[0, n)`` of shape ``batch_shape``, drawn from
+        ``generator`` (on the space's device)."""
+        return torch.randint(0, self.n, tuple(batch_shape), generator=generator, device=self.device,
+                             dtype=torch.int32)

@@ -1,5 +1,6 @@
-"""Diagonal-Gaussian and tanh-Gaussian helpers for continuous policies (the
-same log-prob and entropy formulations as the JAX package)."""
+"""Diagonal-Gaussian and tanh-Gaussian helpers for continuous policies and
+categorical helpers for discrete ones (the same log-prob and entropy
+formulations as the JAX package)."""
 
 import math
 
@@ -47,3 +48,24 @@ def tanh_gaussian_sample_and_log_prob(mean, logstd, generator=None, noise=None):
 
 def tanh_gaussian_mode(mean):
     return torch.tanh(mean)
+
+
+def categorical_sample(logits, generator=None, noise=None):
+    """One action per row of ``logits`` [..., n] by the Gumbel-max trick, as
+    ``jax.random.categorical`` samples: ``argmax(logits + noise)`` with
+    ``noise`` standard Gumbel, drawn from ``generator`` unless given.
+    Returns int32 actions of shape ``logits.shape[:-1]``."""
+    if noise is None:
+        uniform = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+        noise = -torch.log(-torch.log(uniform.clamp_min(torch.finfo(logits.dtype).tiny)))
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+
+
+def categorical_log_prob(logits, action):
+    log_p = F.log_softmax(logits, dim=-1)
+    return torch.gather(log_p, -1, action.long()[..., None]).squeeze(-1)
+
+
+def categorical_entropy(logits):
+    log_p = F.log_softmax(logits, dim=-1)
+    return -(torch.exp(log_p) * log_p).sum(-1)

@@ -55,27 +55,38 @@ def _lecun_linear(in_features, out_features):
 
 
 class MLP(nn.Module):
-    """Dense -> (LayerNorm after the first Dense) -> activation, per layer."""
+    """Dense -> (LayerNorm after the first Dense, or with ``layer_norm_all``
+    after every Dense) -> activation, per layer."""
 
     def __init__(self, in_features, hidden_sizes, activation="tanh", layer_norm=False,
-                 kernel_gain=math.sqrt(2), compute_dtype=None, orthogonal_init=True):
+                 kernel_gain=math.sqrt(2), compute_dtype=None, orthogonal_init=True,
+                 layer_norm_all=False):
         super().__init__()
         sizes = [in_features] + list(hidden_sizes)
         make = (lambda a, b: _orthogonal_linear(a, b, kernel_gain)) if orthogonal_init else _lecun_linear
         self.layers = nn.ModuleList(make(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
-        self.norm = nn.LayerNorm(hidden_sizes[0], eps=LAYER_NORM_EPS) if layer_norm else None
+        self.norm = (nn.LayerNorm(hidden_sizes[0], eps=LAYER_NORM_EPS)
+                     if layer_norm and not layer_norm_all else None)
+        self.norms = (nn.ModuleList(nn.LayerNorm(size, eps=LAYER_NORM_EPS) for size in hidden_sizes)
+                      if layer_norm_all else None)
         self.activation = ACTIVATIONS[activation]
         self.compute_dtype = compute_dtype
+
+    def _norm_after(self, i):
+        if self.norms is not None:
+            return self.norms[i]
+        return self.norm if i == 0 else None
 
     def forward(self, x):
         dtype = self.compute_dtype or torch.float32
         x = x.to(dtype)
         for i, layer in enumerate(self.layers):
             x = F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
-            if i == 0 and self.norm is not None:
+            norm = self._norm_after(i)
+            if norm is not None:
                 # statistics in float32, output in the compute type
-                x = F.layer_norm(x.float(), self.norm.normalized_shape, self.norm.weight,
-                                 self.norm.bias, self.norm.eps).to(dtype)
+                x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                                 norm.eps).to(dtype)
             x = self.activation(x)
         return x.float()
 
@@ -92,6 +103,21 @@ class GaussianPolicy(nn.Module):
 
     def forward(self, x):
         return self.mean(self.trunk(x)), self.policy_logstd
+
+
+class CategoricalPolicy(nn.Module):
+    """obs -> logits over ``nr_actions`` discrete actions: the same trunk as
+    ``GaussianPolicy`` and an ``orthogonal(0.01)`` head, which runs in f32
+    after a bf16 trunk."""
+
+    def __init__(self, obs_dim, nr_actions, hidden_sizes, activation="tanh", layer_norm=False,
+                 compute_dtype=None):
+        super().__init__()
+        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype=compute_dtype)
+        self.logits = _orthogonal_linear(hidden_sizes[-1], nr_actions, 0.01)
+
+    def forward(self, x):
+        return self.logits(self.trunk(x))
 
 
 class VCritic(nn.Module):
@@ -207,3 +233,29 @@ class QCritic(VectorQCritic):
 
     def forward(self, obs, action):
         return super().forward(obs, action)[0]
+
+
+class DiscreteQNet(nn.Module):
+    """Flat obs -> Q-values per action ``[B, nr_actions]``, or with
+    ``output_dim_per_action`` > 1 a distributional head ``[B, nr_actions,
+    output_dim_per_action]`` (C51 atoms, HL-Gauss bins).  flax's default
+    (lecun) init, f32, LayerNorm after every Dense with ``layer_norm_all``
+    (PQN).  Image observations (the JAX package's NatureCNN branch) wait
+    for the pixel track and raise."""
+
+    def __init__(self, obs_dim, nr_actions, hidden_sizes, activation="relu", output_dim_per_action=1,
+                 layer_norm_all=False):
+        super().__init__()
+        self.nr_actions = nr_actions
+        self.output_dim_per_action = output_dim_per_action
+        self.trunk = MLP(obs_dim, hidden_sizes, activation, orthogonal_init=False,
+                         layer_norm_all=layer_norm_all)
+        self.head = _lecun_linear(hidden_sizes[-1], nr_actions * output_dim_per_action)
+
+    def forward(self, x):
+        if x.ndim >= 4:
+            raise NotImplementedError("image observations (NatureCNN) are not ported yet")
+        out = self.head(self.trunk(x))
+        if self.output_dim_per_action > 1:
+            return out.reshape(out.shape[:-1] + (self.nr_actions, self.output_dim_per_action))
+        return out

@@ -1,6 +1,5 @@
-"""Policy adapter: one actor-critic codepath for continuous actions.
-
-Discrete and image policies are not ported yet."""
+"""Policy adapter: one actor-critic codepath for continuous and discrete
+actions.  Image policies (NatureCNN) are not ported yet."""
 
 import math
 from typing import Callable, NamedTuple
@@ -9,12 +8,14 @@ import torch
 
 from rlx_tpu_torch.environments.types import ActionSpaceType, ObservationSpaceType
 from rlx_tpu_torch.models import distributions as D
-from rlx_tpu_torch.models.mlp import GaussianPolicy, VCritic
+from rlx_tpu_torch.models.mlp import CategoricalPolicy, GaussianPolicy, VCritic
 
 
 def compute_dtype(config):
-    """Trunk compute dtype from ``algorithm.compute_dtype`` (None = f32)."""
-    return torch.bfloat16 if config.algorithm.compute_dtype == "bfloat16" else None
+    """Trunk compute dtype from ``algorithm.compute_dtype`` (None = f32; as
+    in the JAX package, a config without the key, such as the PPO variants',
+    runs in f32)."""
+    return torch.bfloat16 if config.algorithm.get("compute_dtype") == "bfloat16" else None
 
 
 class PolicyAdapter(NamedTuple):
@@ -26,10 +27,7 @@ class PolicyAdapter(NamedTuple):
 
 
 def _check_supported(env):
-    props = env.general_properties
-    if props.action_space_type != ActionSpaceType.CONTINUOUS:
-        raise NotImplementedError("only continuous actions are ported")
-    if props.observation_space_type != ObservationSpaceType.FLAT_VALUES:
+    if env.general_properties.observation_space_type != ObservationSpaceType.FLAT_VALUES:
         raise NotImplementedError("only flat observations are ported")
 
 
@@ -37,6 +35,8 @@ def make_policy(config, env, device):
     _check_supported(env)
     a = config.algorithm
     obs_dim = math.prod(env.single_observation_space.shape)
+    if env.general_properties.action_space_type == ActionSpaceType.DISCRETE:
+        return _categorical_policy(config, env, obs_dim, device)
     action_dim = math.prod(env.single_action_space.shape)
     module = GaussianPolicy(
         obs_dim, action_dim, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
@@ -67,6 +67,30 @@ def make_policy(config, env, device):
         return module(obs)[0]
 
     return PolicyAdapter(module, sample_and_log_prob, log_prob_entropy, mode, process_action)
+
+
+def _categorical_policy(config, env, obs_dim, device):
+    """Logits over the env's discrete actions; actions go to the env as they
+    are and the deterministic action is the argmax."""
+    a = config.algorithm
+    module = CategoricalPolicy(
+        obs_dim, env.single_action_space.n, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
+        compute_dtype(config),
+    ).to(device)
+
+    def sample_and_log_prob(obs, generator=None, noise=None):
+        logits = module(obs)
+        action = D.categorical_sample(logits, generator, noise)
+        return action, D.categorical_log_prob(logits, action)
+
+    def log_prob_entropy(obs, action):
+        logits = module(obs)
+        return D.categorical_log_prob(logits, action), D.categorical_entropy(logits)
+
+    def mode(obs):
+        return torch.argmax(module(obs), dim=-1).to(torch.int32)
+
+    return PolicyAdapter(module, sample_and_log_prob, log_prob_entropy, mode, lambda action: action)
 
 
 def make_critic(config, env, device):

@@ -1,5 +1,6 @@
 """Distributional value-learning ops: the categorical (C51) projection of a
-shifted support onto a fixed atom grid (FastTD3's categorical critics).
+shifted support onto a fixed atom grid (FastTD3's categorical critics and
+C51), and the HL-Gauss histogram targets and expectation (DQN-HL-Gauss).
 
 - ``categorical_projection``: the scatter formulation (each mass split
   between its two neighbouring atoms), kept as the oracle;
@@ -10,6 +11,8 @@ shifted support onto a fixed atom grid (FastTD3's categorical critics).
   hat weights but scatters them, a warp per row, onto the two atoms each
   mass touches; a CPU tensor goes through the plain version.
 """
+
+import math
 
 import torch
 
@@ -61,3 +64,39 @@ def categorical_projection_reference(target_z, probs, v_min, v_max, nr_atoms):
     atoms = torch.arange(nr_atoms, dtype=probs.dtype, device=probs.device)  # [A_out]
     w = torch.clamp(1.0 - torch.abs(b[..., None, :] - atoms[:, None]), 0.0, 1.0)
     return torch.einsum("...ij,...j->...i", w, probs)
+
+
+def normal_cdf(x):
+    """The standard normal CDF in the form of ``jax.scipy.special.ndtr``
+    (and scipy's): ``1 + erf`` near 0, ``erfc`` in the tails.  Its lower
+    tail keeps its relative precision, where ``torch.special.ndtr``'s
+    ``1 + erf`` form cancels (f32: 5 % off at -5.1, 0 below -5.3), and the
+    HL-Gauss mass of a value outside the support lives in that tail."""
+    w = x * (0.5 * math.sqrt(2.0))
+    z = torch.abs(w)
+    tail = torch.where(w > 0, 2.0 - torch.special.erfc(z), torch.special.erfc(z))
+    return 0.5 * torch.where(z < 0.5 * math.sqrt(2.0), 1.0 + torch.special.erf(w), tail)
+
+
+def hl_gauss_targets(values, v_min, v_max, nr_bins, sigma_ratio=0.75):
+    """Histogram-loss-Gaussian targets for scalars ``values`` [...] ->
+    [..., nr_bins]: the mass of a Gaussian centred at each value with
+    ``sigma = sigma_ratio * bin_width`` in each of ``nr_bins`` equal bins of
+    [v_min, v_max], normalised by the mass inside the support (at least
+    1e-8)."""
+    bin_width = (v_max - v_min) / nr_bins
+    sigma = torch.tensor(sigma_ratio * bin_width, dtype=values.dtype, device=values.device)
+    edges = v_min + bin_width * torch.arange(nr_bins + 1, dtype=values.dtype, device=values.device)
+    cdf = normal_cdf((edges[None, :] - values.reshape(-1, 1)) / sigma)
+    mass = cdf[:, -1] - cdf[:, 0]
+    probs = (cdf[:, 1:] - cdf[:, :-1]) / torch.clamp(mass[:, None], min=1e-8)
+    return probs.reshape(values.shape + (nr_bins,))
+
+
+def hl_gauss_expectation(logits, v_min, v_max):
+    """Expected value of a histogram head's softmax over the bin centres
+    ``v_min + bin_width * (i + 0.5)``."""
+    nr_bins = logits.shape[-1]
+    bin_width = (v_max - v_min) / nr_bins
+    centers = v_min + bin_width * (torch.arange(nr_bins, dtype=logits.dtype, device=logits.device) + 0.5)
+    return (torch.softmax(logits, dim=-1) * centers).sum(-1)

@@ -226,9 +226,10 @@ def test_left_out_features_raise():
                        ("learning_starts_per_env", 8), ("buffer_size_per_env", 256)):
         with pytest.raises(KeyError):
             make_config("fasttd3.cuda", "locomotion.ant.cuda", **{f"algorithm.{key}": value})
-    with pytest.raises(NotImplementedError):
-        create_model(make_config("fasttd3.cuda", "classic.pendulum.cuda", **{
-            "runner.device": "cpu", "environment.mask_velocity": True}))
+    # the velocity-masked Pendulum is ported: FastTD3 sees its 2 channels
+    masked = create_model(make_config("fasttd3.cuda", "classic.pendulum.cuda", **{
+        "runner.device": "cpu", "environment.mask_velocity": True}))
+    assert masked.os_shape == (2,)
 
 
 def test_best_model_written_iff_an_eval_improved_and_test_mode(tmp_path):

@@ -39,21 +39,23 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def test_optimize_matches_jax():
-    jmodel = jax_create_model(jax_make_config("ppo.tpu", "locomotion.ant.tpu", **SHARED, **{
+def _optimize_matches_jax(environment, obs_dim, actions, policy_state_dict):
+    """One ``_optimize`` call of the port and of JAX from the same converted
+    parameters, batch and epoch permutations (JAX's own, drawn from its key)."""
+    jmodel = jax_create_model(jax_make_config("ppo.tpu", f"{environment}.tpu", **SHARED, **{
         "runner.mesh_dp": 1, "algorithm.evaluation_active": False,
     }))
-    model = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **SHARED, **{
+    model = create_model(make_config("ppo.cuda", f"{environment}.cuda", **SHARED, **{
         "runner.device": "cpu",
     }))
-    model.policy.module.load_state_dict(convert.policy_state_dict(_np_tree(jmodel.policy_state.params)))
+    model.policy.module.load_state_dict(policy_state_dict(_np_tree(jmodel.policy_state.params)))
     model.critic.load_state_dict(convert.critic_state_dict(_np_tree(jmodel.critic_state.params)))
 
     N = NR_ENVS * NR_STEPS
     rng = np.random.default_rng(0)
     batch = (
-        rng.normal(size=(N, 34)).astype(np.float32),
-        rng.normal(size=(N, 8)).astype(np.float32),
+        rng.normal(size=(N, obs_dim)).astype(np.float32),
+        actions(rng, N),
         rng.normal(size=N).astype(np.float32) - 8.0,
         rng.normal(size=N).astype(np.float32),
         rng.normal(size=N).astype(np.float32),
@@ -72,7 +74,7 @@ def test_optimize_matches_jax():
 
     # f32 on both sides; Adam's first steps move each weight by ~lr, so the
     # parameters are compared at 1e-5 absolute
-    for name, ref in convert.policy_state_dict(_np_tree(policy_state.params)).items():
+    for name, ref in policy_state_dict(_np_tree(policy_state.params)).items():
         torch.testing.assert_close(model.policy.module.state_dict()[name], ref, rtol=1e-5, atol=1e-5,
                                    msg=lambda m: f"policy {name}: {m}")
     for name, ref in convert.critic_state_dict(_np_tree(critic_state.params)).items():
@@ -83,6 +85,33 @@ def test_optimize_matches_jax():
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=1e-4, atol=1e-5,
                                    err_msg=k)
     assert model.nr_optimizer_steps == EPOCHS * N // MINIBATCH
+
+
+def test_optimize_matches_jax():
+    _optimize_matches_jax("locomotion.ant", 34, lambda rng, n: rng.normal(size=(n, 8)).astype(np.float32),
+                          convert.policy_state_dict)
+
+
+def test_discrete_optimize_matches_jax():
+    """CartPole's int32 actions ``[N]`` travel through the packed minibatch
+    as one f32 column and come back as they were."""
+    _optimize_matches_jax("classic.cart_pole", 4, lambda rng, n: rng.integers(0, 2, size=n).astype(np.int32),
+                          convert.categorical_policy_state_dict)
+
+
+def test_discrete_rollout_and_modes():
+    """Discrete PPO on CartPole: int32 actions ``[T, N]`` in the rollout, the
+    deterministic action is the argmax of the logits, the env takes the
+    actions as they are, and a learning iteration ends finite."""
+    model = create_model(make_config("ppo.cuda", "classic.cart_pole.cuda", **SHARED, **{"runner.device": "cpu"}))
+    obs = torch.tensor(np.random.default_rng(1).normal(size=(5, 4)).astype(np.float32))
+    assert torch.equal(model.policy.mode(obs), torch.argmax(model.policy.module(obs), dim=-1).to(torch.int32))
+    action = torch.tensor([0, 1, 1], dtype=torch.int32)
+    assert model.policy.process_action(action) is action
+    _, batch, _ = model._rollout(model.train_env.reset(0))
+    assert batch[2].dtype == torch.int32 and batch[2].shape == (NR_STEPS, NR_ENVS)
+    env_state, metrics = model.learning_iteration(model.train_env.reset(0))
+    assert "policy/std_dev" not in metrics and all(torch.isfinite(v) for v in metrics.values())
 
 
 def test_clip_by_global_norm_matches_optax():

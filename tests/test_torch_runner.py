@@ -32,26 +32,54 @@ ALGORITHMS = {
        for name in ("sac.cuda", "td3.cuda", "ddpg.cuda")},
 }
 MODEL = os.path.join("runs", "rlx_tpu_torch", "default", "run", "models", "latest.model")
+CARTPOLE = ["--environment.name=classic.cart_pole.cuda", "--runner.device=cpu", "--environment.nr_envs=4",
+            "--environment.horizon=20"]
+DISCRETE = ["--algorithm.total_timesteps=64", "--algorithm.learning_starts=32", "--algorithm.batch_size=16",
+            "--algorithm.buffer_size=256", "--algorithm.logging_frequency=16",
+            "--algorithm.evaluation_and_save_frequency=16", "--algorithm.critic_hidden_sizes=(16,)"]
+# case -> (algorithm, environment flags, algorithm flags)
+CASES = {
+    **{name: (name, PENDULUM, args) for name, args in ALGORITHMS.items()},
+    **{f"{name}-cart_pole": (name, CARTPOLE, DISCRETE) for name in ("dqn.cuda", "c51.cuda")},
+    "pqn.cuda-cart_pole": ("pqn.cuda", CARTPOLE, [
+        "--algorithm.total_timesteps=64", "--algorithm.nr_steps=8", "--algorithm.evaluation_and_save_frequency=32",
+        "--algorithm.critic_hidden_sizes=(16,)"]),
+    **{f"{name}-masked_pendulum": (name, [*PENDULUM, "--environment.mask_velocity=True"], ALGORITHMS["ppo.cuda"])
+       for name in ("ppo.cuda", "ppo_history_window.cuda", "ppo_memory_actions.cuda")},
+    "ppo.cuda-cart_pole": ("ppo.cuda", CARTPOLE, ALGORITHMS["ppo.cuda"]),
+}
 
 
-@pytest.mark.parametrize("algorithm", sorted(ALGORITHMS))
-def test_train_save_then_test_mode(tmp_path, monkeypatch, algorithm):
+def _equal_trees(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], dict):
+            _equal_trees(a[k], b[k])
+        else:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_train_save_then_test_mode(tmp_path, monkeypatch, case):
+    algorithm, environment, algorithm_args = CASES[case]
     monkeypatch.chdir(tmp_path)
-    args = [f"--algorithm.name={algorithm}", *PENDULUM, *ALGORITHMS[algorithm]]
+    args = [f"--algorithm.name={algorithm}", *environment, *algorithm_args]
     trained = Runner([*args, "--runner.save_model=True"]).run()
     run_dir = tmp_path / "runs" / "rlx_tpu_torch" / "default" / "run"
     assert (run_dir / "provenance.json").exists()
-    assert sorted(os.listdir(run_dir / "models")) == ["best.model", "latest.model"]
+    # PQN keeps latest.model only, as the JAX package's
+    models = ["latest.model"] if algorithm == "pqn.cuda" else ["best.model", "latest.model"]
+    assert sorted(os.listdir(run_dir / "models")) == models
     assert len(trained.eval_history["steps"]) == 2
 
-    runner = Runner([f"--algorithm.name={algorithm}", *PENDULUM, "--runner.mode=test",
+    runner = Runner([f"--algorithm.name={algorithm}", *environment, "--runner.mode=test",
                      f"--runner.load_model={MODEL}", "--runner.nr_test_episodes=6"])
     returns = runner.run()
     assert len(returns) == 6 and all(np.isfinite(returns))
     # the stored algorithm config came back with the model
-    assert runner.model.config.algorithm.policy_hidden_sizes == (16, 16)
-    for a, b in zip(trained.policy.module.parameters(), runner.model.policy.module.parameters()):
-        assert torch.equal(a, b)
+    hidden = runner.model.config.algorithm.critic_hidden_sizes
+    assert hidden == trained.config.algorithm.critic_hidden_sizes in ((16, 16), (16,))
+    _equal_trees(trained.checkpoint_tree(), runner.model.checkpoint_tree())
 
 
 def test_explicit_algorithm_flags_win_over_the_checkpoint(tmp_path, monkeypatch):
