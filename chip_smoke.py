@@ -80,14 +80,37 @@ Phases (each prints one line; any failure exits nonzero):
     velocity-masked Pendulum through the Runner at the
     ``pendulum_masked_*`` recipes (8 envs x 256 steps): 2 eval/save
     iterations each, B1 launched exactly twice each; B1 against its plain
-    version at [256, 8], with its times and bound.
+    version at [256, 8], with its times and bound;
+20. kernel B3 against its plain version at the SAC family's shapes:
+    FlashSAC's [512, 101] -> 101 over -5..5 and the Pendulum recipes'
+    [128, 101] -> 101 over -800..100 (FastSAC) and -300..0 (FlashSAC), each
+    with rows whose entropy-shifted positions all lie beyond v_max or below
+    v_min; two launches must give the same bits; times and bound at each;
+21. FastSAC on the Ant through the Runner (1024 envs, batch 8192, its
+    default widths, learning_starts = nr_envs, evaluation off) with its
+    optimizer state: 1 prefill + 32 learning steps, B3 exactly 32 and B2
+    exactly 33 launches, then test mode from ``latest.model`` with every
+    parameter, target, normalizer entry, Adam moment and the update count
+    equal bit for bit and at most 200 B2 launches;
+22. FlashSAC the same way at its defaults (policy 128 x 2 blocks, critic
+    256 x 2 blocks, expansion 4, batch 512, reward normalization on): B3
+    exactly 32 and B2 33, the policy's Adam count 16 (delay 2), every
+    projected kernel of unit norm per output unit and every BatchNorm
+    (scale, bias) and RMSNorm scale of norm sqrt(d) within 1e-5 after the
+    last step, the three BatchNorm streams restored bit for bit in test
+    mode; then 16 more steps under torch.profiler, as phase 6;
+23. REDQ, DroQ, AQE, TQC, SimBa, XQC, SimbaV2 and CrossQ on the Ant at
+    their defaults (1024 envs, learning_starts = nr_envs): 16 learning
+    steps each, B2 exactly 17 launches and B3 none, finite losses,
+    env-steps/s; REDQ's next 16 steps (20 critic updates each) under
+    torch.profiler, as phase 6.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15 and 19), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
+shapes of phases 15, 19 and 20), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
@@ -1086,7 +1109,182 @@ def main():
     kernels[0]["by_shape"] = {"[256, 8]": {**t, "max_abs_err": small_gae_err},
                               "[64, 4096] CartPole rewards": {"max_abs_err": cartpole_gae_err}}
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], small_gae_err, cartpole_gae_err)
+
+    # 20. B3 at the SAC family's shapes: FlashSAC's [512, 101] over -5..5,
+    # and the Pendulum recipes' [128, 101] over -800..100 (FastSAC) and
+    # -300..0 (FlashSAC); the entropy term sends whole rows past v_max
+    # (alpha log pi very negative) or below v_min
+    def entropy_shifted_targets(n, v_lo, v_hi, gamma):
+        support = torch.linspace(v_lo, v_hi, 101, device=dev)
+        span = v_hi - v_lo
+        r = 0.05 * span * torch.randn(n, 1, device=dev, generator=g)
+        d = (torch.rand(n, 1, device=dev, generator=g) < 0.05).float()
+        alpha_log_pi = 0.1 * span * torch.randn(n, 1, device=dev, generator=g)
+        quarter = n // 4
+        d[:2 * quarter] = 0.0
+        alpha_log_pi[:quarter] = -3.0 * span                 # every position beyond v_max
+        alpha_log_pi[quarter:2 * quarter] = 3.0 * span       # every position below v_min
+        r[:2 * quarter] = 0.0
+        return r + gamma * (1.0 - d) * (support[None] - alpha_log_pi), softmax_probs(n, 101)
+
+    sac_shapes = {
+        "[512, 101] -> 101 (FlashSAC, -5..5)": (512, -5.0, 5.0, 0.99),
+        "[128, 101] -> 101 (FastSAC Pendulum, -800..100)": (128, -800.0, 100.0, 0.97),
+        "[128, 101] -> 101 (FlashSAC Pendulum, -300..0)": (128, -300.0, 0.0, 0.9),
+    }
+    for label, (n, v_lo, v_hi, gamma) in sac_shapes.items():
+        z, p = entropy_shifted_targets(n, v_lo, v_hi, gamma)
+        project = lambda: categorical_projection_cuda(z, p, v_lo, v_hi, 101)
+        out = project()
+        ref = categorical_projection_reference(z, p, v_lo, v_hi, 101)
+        torch.cuda.synchronize()
+        err = max_err([out], [ref], 1e-6, 1e-6, f"projection {label}")
+        if not torch.equal(out, project()):
+            fail(f"projection {label}: two launches on the same input differ")
+        quarter = n // 4
+        if not (torch.allclose(out[:quarter, -1], torch.ones(quarter, device=dev), atol=1e-6)
+                and torch.allclose(out[quarter:2 * quarter, 0], torch.ones(quarter, device=dev), atol=1e-6)):
+            fail(f"projection {label}: rows beyond v_max / below v_min do not land on the end atoms")
+        t = kernel_times(project, lambda: categorical_projection_reference(z, p, v_lo, v_hi, 101), "projection_kernel")
+        t["bound_ms"], t["bound_by"] = roofline(projection_bytes(n, 101, 101), projection_flops(n, 101))
+        b3_by_shape[label] = {**t, "max_abs_err": err}
+        print(f"B3 projection at {label}: max|err| {err:.3g} (rtol=atol=1e-6), the same bits over two launches, "
+              f"rows past either end on the end atoms; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host "
+              f"{t['host_us']:.1f} us a call) plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}: {projection_bytes(n, 101, 101)} bytes)")
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], *(t["max_abs_err"] for t in b3_by_shape.values()))
+
+    # 21. FastSAC on the Ant through the Runner at 1024 envs, batch 8192, its
+    # default widths, learning_starts = nr_envs: 1 prefill + 32 learning
+    # steps, B3 once an update and B2 once an env step; then test mode from
+    # its latest.model with every tensor equal bit for bit
+    def sac_family_runner(name, extra, learning_steps, log_steps, expected):
+        """Train ``name`` on the Ant through ``Runner(argv).run()`` with its
+        optimizer state and ``save_model``, fail unless the launch counts are
+        ``expected`` and every logged value is finite, then load its
+        ``latest.model`` in test mode and fail unless every tensor of the
+        full state is equal bit for bit.  Returns the trained model."""
+        args = [f"--algorithm.name={name}.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
+                "--environment.nr_envs=1024", "--algorithm.learning_starts=1024",
+                "--algorithm.evaluation_active=False", "--runner.save_optimizer_state=True", *extra]
+        os.chdir(workdir.name)
+        runner = Runner([*args, f"--algorithm.total_timesteps={1024 + learning_steps * 1024}",
+                         f"--algorithm.logging_frequency={log_steps * 1024}", "--runner.save_model=True",
+                         f"--runner.run_name={name}"])
+        zero_counts()
+        t0 = time.perf_counter()
+        trained = runner.run()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        path_launches = counts()
+        if path_launches != expected or trained.nr_updates != learning_steps:
+            fail(f"{name}: launches {path_launches} != {expected}, {trained.nr_updates} learning steps")
+        check_logged(name, trained.metrics_history, list(range(log_steps, learning_steps + 1, log_steps)))
+        latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", name, "models", "latest.model")
+        tester = Runner([*args, f"--environment.horizon={horizon}", "--runner.mode=test",
+                         f"--runner.load_model={latest}", "--runner.nr_test_episodes=4",
+                         f"--runner.run_name={name}_test"])
+        zero_counts()
+        t0 = time.perf_counter()
+        test_returns = tester.run()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = counts()
+        os.chdir(root)
+        if len(test_returns) != 4 or not all(math.isfinite(r) for r in test_returns):
+            fail(f"{name} test mode returned {test_returns}, expected 4 finite returns")
+        if not 0 < test_launches["engine_substep"] <= horizon or test_launches["categorical_projection"]:
+            fail(f"{name} test mode launches {test_launches}, expected 1 to {horizon} B2 and no B3")
+        tree = trained.checkpoint_tree()
+        if set(tree) != {"full"} or tree["full"]["nr_updates"] != learning_steps:
+            fail(f"{name} checkpoint tree {sorted(tree)} without the full state")
+        compared = same_tree(tree, tester.model.checkpoint_tree())
+        print(f"runner {name}: 1 prefill + {learning_steps} learning steps at 1024 envs in {train_s:.2f} s; env-steps/s "
+              f"of the log lines (the first includes the prefill) {[m['time/sps'] for m in trained.metrics_history]}, "
+              f"launches {path_launches}, last log line "
+              + json.dumps({k: v for k, v in trained.metrics_history[-1].items()
+                            if k.startswith(("loss/", "q_value/", "entropy/"))})
+              + f"; {compared} tensors of the full state and the update count restored bit for bit, checkpoint "
+              f"{os.path.getsize(latest) / 2**20:.2f} MiB; test mode at horizon {horizon}: {test_s:.2f} s, launches "
+              f"{test_launches}, returns {[round(r, 2) for r in test_returns]}")
+        launches_by_path[name] = path_launches
+        launches_by_path[f"{name}_test"] = test_launches
+        return trained
+
+    sac_family_runner("fastsac", ["--algorithm.batch_size=8192"], 32, 16,
+                      {"engine_substep": 33, "gae": 0, "categorical_projection": 32})
+
+    # 22. FlashSAC on the Ant at its defaults (policy 128 x 2 blocks, critic
+    # 256 x 2 blocks, expansion 4, batch 512, reward normalization on): 32
+    # learning steps, the policy stepping on every second one, the projection
+    # holding after the last; test mode from latest.model; then 16 more steps
+    # under the profiler
+    from rlx_tpu_torch.algorithms.flashsac.cuda.layers import BatchNorm, RMSNorm
+
+    flash = sac_family_runner("flashsac", [], 32, 16, {"engine_substep": 33, "gae": 0, "categorical_projection": 32})
+    if flash.policy.step_count() != 16 or flash.critic.step_count() != 32:
+        fail(f"FlashSAC: policy Adam count {flash.policy.step_count()} (expected 16), critic "
+             f"{flash.critic.step_count()} (expected 32)")
+    worst = 0.0
+    for module in (flash.policy.module, flash.critic.module):
+        for name, param in module.named_parameters():
+            if name.endswith(("linear1.weight", "linear2.weight", "linear.weight", "head.weight",
+                              "mean_weight", "std_weight")):
+                worst = max(worst, (torch.linalg.vector_norm(param, dim=-1) - 1.0).abs().max().item())
+        for m in module.modules():
+            if isinstance(m, (BatchNorm, RMSNorm)):
+                d = m.weight.shape[-1]
+                sq = (m.weight ** 2).sum(-1) + ((m.bias ** 2).sum(-1) if isinstance(m, BatchNorm) else 0.0)
+                worst = max(worst, (torch.sqrt(sq) / math.sqrt(d) - 1.0).abs().max().item())
+    if worst > 1e-5:
+        fail(f"FlashSAC: a projected norm is off by {worst:.3g} relative after the last step")
+    stats_moved = all(not torch.equal(m.var, torch.ones_like(m.var)) for net in (flash.policy.module, flash.critic.module,
+                      flash.critic.target) for m in net.modules() if isinstance(m, BatchNorm))
+    if not stats_moved:
+        fail("FlashSAC: a BatchNorm's running variance never moved")
+    print(f"flashsac projection after 32 steps: unit kernels and sqrt(d) norm scales within {worst:.3g} (limit 1e-5); "
+          f"policy Adam count {flash.policy.step_count()}, critic {flash.critic.step_count()}; the three BatchNorm "
+          f"streams moved")
+
+    def flash_logging_iteration():
+        flash.env_state = flash._logging_iteration(flash.buffer, flash.env_state, 32)
+
+    print("profile flashsac: " + json.dumps(profile_spans(flash_logging_iteration, "flashsac/")))
+    del flash
+
+    # 23. REDQ, DroQ, AQE, TQC, SimBa, XQC, SimbaV2 and CrossQ on the Ant at
+    # their defaults, learning_starts = nr_envs: 16 learning steps each, B2
+    # once an env step, no B3; REDQ's 16 steps profiled (20 critic updates
+    # each)
+    for name in ("redq", "droq", "aqe", "tqc", "simba", "xqc", "simbav2", "crossq"):
+        config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
+            "runner.device": "cuda", "environment.nr_envs": 1024, "algorithm.learning_starts": 1024,
+            "algorithm.total_timesteps": 1024 + 16 * 1024, "algorithm.logging_frequency": 8 * 1024,
+            "algorithm.evaluation_active": False,
+        })
+        model = create_model(config)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        if path_launches != {"engine_substep": 17, "gae": 0, "categorical_projection": 0} or model.nr_updates != 16:
+            fail(f"{name}: launches {path_launches}, {model.nr_updates} learning steps")
+        check_logged(name, model.metrics_history, [8, 16])
+        a = config.algorithm
+        print(f"train: {name} 1 prefill + 16 learning steps at 1024 envs, batch {a.batch_size}, "
+              f"{a.get('q_update_steps', 1)} critic updates a step, in {elapsed:.2f} s; env-steps/s of the 2 log lines "
+              f"(the first includes the prefill) {[m['time/sps'] for m in model.metrics_history]}, launches "
+              f"{path_launches}, last log line "
+              + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith(("loss/", "q_value/"))}))
+        launches_by_path[name] = path_launches
+        if name == "redq":
+            def redq_logging_iteration():
+                model.env_state = model._logging_iteration(model.buffer, model.env_state, 16)
+
+            print("profile redq: " + json.dumps(profile_spans(redq_logging_iteration, "redq/")))
+        del model
     workdir.cleanup()
 
     for k in kernels:

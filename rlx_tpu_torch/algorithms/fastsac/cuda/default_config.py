@@ -1,0 +1,36 @@
+"""FastSAC defaults (the JAX package's ``fastsac.tpu`` values; its
+``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
+the mesh and parallel seeds, so setting one raises ``KeyError``)."""
+
+from rlx_tpu_torch.utils.config_dict import ConfigDict
+
+
+def get_config(algorithm_name):
+    return ConfigDict(
+        name=algorithm_name,
+        total_timesteps=1_000_000,
+        learning_rate=3e-4,
+        anneal_learning_rate=False,
+        buffer_size=1_000_000,
+        learning_starts=5_000,
+        batch_size=256,
+        tau=0.1,
+        gamma=0.97,
+        v_min=-10.0,
+        v_max=10.0,
+        nr_atoms=101,
+        n_step=1,
+        enable_observation_normalization=True,
+        target_entropy="auto",
+        log_std_min=-20.0,
+        log_std_max=2.0,
+        policy_hidden_sizes=(256, 256),
+        critic_hidden_sizes=(256, 256),
+        nr_critics=2,
+        activation="relu",
+        layer_norm=False,
+        logging_frequency=5_000,
+        evaluation_and_save_frequency=-1,
+        evaluation_active=True,
+        logging_active=True,
+    )

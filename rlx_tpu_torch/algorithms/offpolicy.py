@@ -20,15 +20,24 @@ package's.  Each algorithm implements:
 - ``eval_act(observation) -> action``
 - ``update(batch, step, ...) -> metrics``          device scalars
 - ``observe_transition(observation, env_state)``   optional hook
+- ``pre_act(step)``                                optional hook before
+                                                  ``act`` (FlashSAC's
+                                                  repeated noise)
+- ``extra_buffer_fields()``                        optional extra replay
+                                                  fields ``{name: (shape, dtype)}``
+- ``update_with_buffer(buffer, step) -> metrics``  optional: replaces the
+                                                  sample and ``update`` of a
+                                                  learning step (the
+                                                  high-UTD ensembles draw
+                                                  their own batches)
 
 The phases of a learning step run under ``torch.profiler.record_function``
 spans ``<algorithm>/act``, ``/env_step``, ``/store``, ``/sample`` and
 ``/update``; they cost nothing measurable without an active profiler.
 
 Not ported yet (a config that asks for them has no such key, so it raises):
-the device mesh, parallel seeds, ``update_with_buffer`` (REDQ/DroQ/AQE)
-and the per-env sizing keys ``learning_starts_per_env`` /
-``buffer_size_per_env`` of FastMPO.
+the device mesh, parallel seeds and the per-env sizing keys
+``learning_starts_per_env`` / ``buffer_size_per_env`` of FastMPO.
 """
 
 import math
@@ -130,6 +139,13 @@ class OffPolicyAlgorithm:
     def observe_transition(self, observation, env_state):
         """Hook after each learning env step (running normalizers)."""
 
+    def pre_act(self, step):
+        """Hook before each learning step's ``act``."""
+
+    def extra_buffer_fields(self):
+        """Extra per-transition replay fields, ``{name: (shape, dtype)}``."""
+        return {}
+
     # --- scaffolding -------------------------------------------------------
     def _make_buffer(self):
         return rb.create(self.capacity, self.nr_envs, {
@@ -139,6 +155,7 @@ class OffPolicyAlgorithm:
             "reward": ((), torch.float32),
             "terminated": ((), torch.float32),
             "truncated": ((), torch.float32),
+            **self.extra_buffer_fields(),
         }, device=self.device)
 
     def _store_step(self, buffer, observation, action, env_state):
@@ -151,23 +168,32 @@ class OffPolicyAlgorithm:
             "truncated": env_state.truncated.to(torch.float32),
         })
 
+    def sample_batch(self, buffer):
+        """One batch under the ``<name>/sample`` span."""
+        with record_function(f"{self.name}/sample"), torch.no_grad():
+            return self._sample(buffer)
+
     def _sample(self, buffer):
         if self.n_step > 1:
             return rb.sample_nstep(buffer, self.generator, self.batch_size, self.n_step, self.gamma)
         return rb.sample(buffer, self.generator, self.batch_size)
 
     def _learning_step(self, buffer, env_state, step):
-        """act -> env step -> store -> observe -> sample -> update."""
+        """pre_act -> act -> env step -> store -> observe -> sample -> update
+        (or ``update_with_buffer``, which samples under its own spans)."""
         observation = env_state.observation
         with record_function(f"{self.name}/act"), torch.no_grad():
+            self.pre_act(step)
             action = self.act(observation, step=step)
         with record_function(f"{self.name}/env_step"), torch.no_grad():
             env_state = self.train_env.step(env_state, self.process_action(action))
         with record_function(f"{self.name}/store"), torch.no_grad():
             self._store_step(buffer, observation, action, env_state)
             self.observe_transition(observation, env_state)
-        with record_function(f"{self.name}/sample"), torch.no_grad():
-            batch = self._sample(buffer)
+        if hasattr(self, "update_with_buffer"):
+            with record_function(f"{self.name}/update"):
+                return env_state, self.update_with_buffer(buffer, step)
+        batch = self.sample_batch(buffer)
         with record_function(f"{self.name}/update"):
             metrics = self.update(batch, step)
         return env_state, metrics

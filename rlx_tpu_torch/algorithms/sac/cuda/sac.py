@@ -37,27 +37,36 @@ class SAC(OffPolicyAlgorithm):
     # critic, critic_target and alpha
     state_names = ("policy", "critic", "alpha")
 
+    def _build_policy(self, a):
+        """The policy network; the SAC variants with other trunks override it."""
+        return SquashedGaussianPolicy(self.obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+                                      a.activation, a.layer_norm, a.log_std_min, a.log_std_max)
+
+    def _build_critic(self, a):
+        """The critic ensemble; the SAC variants with other heads override it."""
+        return VectorQCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+                             a.activation, a.layer_norm, dropout_rate=a.get("dropout_rate", 0.0))
+
     def setup_states(self):
         a = self.config.algorithm
         self.anneal_learning_rate = a.anneal_learning_rate
         self.target_entropy = (-float(self.action_dim) if a.target_entropy == "auto"
                                else float(a.target_entropy))
-        obs_dim = math.prod(self.os_shape)
+        self.obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = SquashedGaussianPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
-                                            a.activation, a.layer_norm, a.log_std_min, a.log_std_max)
-            critic = VectorQCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
-                                   a.activation, a.layer_norm)
+            policy = self._build_policy(a)
+            critic = self._build_critic(a)
         alpha = EntropyCoefficient(1.0)
         for module in (policy, critic, alpha):
             module.to(self.device)
-        adam = lambda module: torch.optim.Adam(module.parameters(), lr=self.learning_rate,
-                                               betas=(0.9, 0.999), eps=1e-8)
-        self.policy = TrainState(policy, adam(policy), target=False)
-        self.critic = TrainState(critic, adam(critic))
-        self.alpha = TrainState(alpha, adam(alpha), target=False)
+        self.policy = TrainState(policy, self._adam(policy), target=False)
+        self.critic = TrainState(critic, self._adam(critic))
+        self.alpha = TrainState(alpha, self._adam(alpha), target=False)
+
+    def _adam(self, module, beta1=0.9):
+        return torch.optim.Adam(module.parameters(), lr=self.learning_rate, betas=(beta1, 0.999), eps=1e-8)
 
     def learning_rate_at(self, count):
         """The rate of the optimizer step that follows ``count`` steps: with

@@ -4,6 +4,7 @@
         --out chiprun_out/pendulum_spot_fasttd3.json
     python -m rlx_tpu_torch.benchmarks.curves pendulum_ppo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_sac --seeds 0
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_flashsac --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves cartpole_spot_c51 --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_ppo --seeds 1 2 3
 
@@ -60,7 +61,8 @@ RUNS = {
     **{f"pendulum_spot_{name}": {
         "algorithm": f"{name}.cuda", "environment": "classic.pendulum.cuda",
         "budget": 100_000, "threshold": -500.0, "eval_points": 8, "overrides": dict(PENDULUM_OFFPOLICY),
-    } for name in ("sac", "td3", "ddpg")},
+    } for name in ("sac", "td3", "ddpg", "redq", "tqc", "droq", "crossq", "fastsac", "aqe", "xqc", "simba",
+                   "simbav2", "flashsac")},
     # benchmarks/curves.py: the cartpole_spot_* family checks
     **{f"cartpole_spot_{name}": {
         "algorithm": f"{name}.cuda", "environment": "classic.cart_pole.cuda",
@@ -85,6 +87,19 @@ RUNS = {
                       "algorithm.memory_action_dimension": 4},
     },
 }
+# benchmarks/curves.py: the categorical and HL-Gauss supports over Pendulum's
+# raw returns; SimbaV2 and FlashSAC with gamma 0.9, a [-300, 0] support,
+# 150k steps and the reward normalizer off (SimbaV2's observation
+# normalizer too)
+for name in ("fastsac", "xqc"):
+    RUNS[f"pendulum_spot_{name}"]["overrides"].update({"algorithm.v_min": -800.0, "algorithm.v_max": 100.0})
+for name in ("simbav2", "flashsac"):
+    RUNS[f"pendulum_spot_{name}"]["budget"] = 150_000
+    RUNS[f"pendulum_spot_{name}"]["overrides"].update({
+        "algorithm.gamma": 0.9, "algorithm.v_min": -300.0, "algorithm.v_max": 0.0,
+        "algorithm.enable_reward_normalization": False,
+    })
+RUNS["pendulum_spot_simbav2"]["overrides"]["algorithm.enable_observation_normalization"] = False
 # benchmarks/curves.py: the DQN family's epsilon decay and target refresh
 # recalibrated to the budget, the distributional supports over CartPole's
 # returns, and the 400k budget of dqn, ddqn and dqn_hl_gauss

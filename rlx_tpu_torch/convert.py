@@ -7,7 +7,10 @@ outer ``"params"`` key).  Dense kernels are stored ``[in, out]`` by flax and
 ``scale``/``bias`` become ``weight``/``bias``.  The ``nn.vmap``-ed critic
 ensemble keeps every leaf stacked on a leading critic axis, which the
 port's ``VectorQCritic`` keeps too; the single ``QCritic`` of DDPG is not
-vmapped in flax, and its leaves gain a leading axis of 1 here.
+vmapped in flax, and its leaves gain a leading axis of 1 here.  The nets
+with running statistics (FlashSAC's BatchNorm, CrossQ's BatchRenorm) take
+flax's ``batch_stats`` beside the params: ``mean``, ``var`` (and
+``steps``) become buffers of the same names.
 
 ``checkpoint_tree_from_jax`` turns the parameter tree of a JAX
 ``latest.model`` / ``best.model`` (as the JAX package's
@@ -24,6 +27,15 @@ import torch
 
 def _unwrap(params):
     return params["params"] if "params" in params else params
+
+
+def _f32(a):
+    return torch.as_tensor(np.asarray(a, np.float32).copy())
+
+
+def _weight(kernel):
+    """A flax kernel ``[..., in, out]`` as a weight ``[..., out, in]``."""
+    return _f32(np.swapaxes(np.asarray(kernel, np.float32), -1, -2))
 
 
 def _dense(prefix, p):
@@ -120,6 +132,8 @@ def _batched_dense(prefix, p):
 
 
 def _q_critic_ensemble(p):
+    if "MLP_0" not in p:
+        return _dropout_q_critic_ensemble(p)
     mlp = p["MLP_0"]
     out = {}
     for i in range(sum(1 for k in mlp if k.startswith("Dense_"))):
@@ -128,6 +142,19 @@ def _q_critic_ensemble(p):
         out["norm_weight"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["scale"], np.float32).copy())
         out["norm_bias"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["bias"], np.float32).copy())
     out.update(_batched_dense("head", p["Dense_0"]))
+    return out
+
+
+def _dropout_q_critic_ensemble(p):
+    """DroQ's branch of flax's ``QCritic``: ``Dense_i`` and ``LayerNorm_i``
+    per hidden layer, the head the last ``Dense``."""
+    n_hidden = sum(1 for k in p if k.startswith("LayerNorm_"))
+    out = {}
+    for i in range(n_hidden):
+        out.update(_batched_dense(f"layers.{i}", p[f"Dense_{i}"]))
+        out[f"norm_weights.{i}"] = _f32(p[f"LayerNorm_{i}"]["scale"])
+        out[f"norm_biases.{i}"] = _f32(p[f"LayerNorm_{i}"]["bias"])
+    out.update(_batched_dense("head", p[f"Dense_{n_hidden}"]))
     return out
 
 
@@ -149,12 +176,160 @@ def q_critic_state_dict(flax_params):
     return _q_critic_ensemble(_add_leading_axis(_unwrap(flax_params)))
 
 
+def _norm_with_stats(prefix, p, stats=None):
+    """A BatchNorm / BatchRenorm: ``scale``/``bias`` as ``weight``/``bias``
+    and, given its ``batch_stats``, ``mean``, ``var`` (and ``steps``)."""
+    out = {f"{prefix}.weight": _f32(p["scale"]), f"{prefix}.bias": _f32(p["bias"])}
+    for name, value in (stats or {}).items():
+        out[f"{prefix}.{name}"] = torch.as_tensor(np.asarray(value).copy())
+    return out
+
+
+def _flashsac_trunk(prefix, p, stats):
+    embedder = p["FlashSACEmbedder_0"]
+    out = _norm_with_stats(f"{prefix}.embedder.norm", embedder["BatchNorm_0"],
+                           stats["FlashSACEmbedder_0"]["BatchNorm_0"])
+    out[f"{prefix}.embedder.linear.weight"] = _weight(embedder["UnitLinear_0"]["kernel"])
+    for i in range(sum(1 for k in p if k.startswith("FlashSACBlock_"))):
+        block, block_stats = p[f"FlashSACBlock_{i}"], stats[f"FlashSACBlock_{i}"]
+        for j in (0, 1):
+            out[f"{prefix}.blocks.{i}.linear{j + 1}.weight"] = _weight(block[f"UnitLinear_{j}"]["kernel"])
+            out.update(_norm_with_stats(f"{prefix}.blocks.{i}.norm{j + 1}", block[f"BatchNorm_{j}"],
+                                        block_stats[f"BatchNorm_{j}"]))
+    out[f"{prefix}.norm.weight"] = _f32(p["RMSNorm_0"]["scale"])
+    return out
+
+
+def flashsac_policy_state_dict(flax_params, batch_stats):
+    """``FlashSACPolicy`` state_dict (parameters and running statistics)
+    from flax ``FlashSACPolicy`` params and ``batch_stats``."""
+    p, stats = _unwrap(flax_params), _unwrap_stats(batch_stats)
+    out = _flashsac_trunk("trunk", p["FlashSACTrunk_0"], stats["FlashSACTrunk_0"])
+    head = p["NormalTanhPolicy_0"]
+    for name in ("mean", "std"):
+        out[f"head.{name}_weight"] = _weight(head[f"{name}_kernel"])
+        out[f"head.{name}_bias"] = _f32(head[f"{name}_bias"])
+    return out
+
+
+def flashsac_critic_state_dict(flax_params, batch_stats):
+    """``FlashSACDoubleCritic`` state_dict from flax ``FlashSACDoubleCritic``
+    params and ``batch_stats`` (``VmapFlashSACCritic_0``, leaves stacked on
+    the critic axis)."""
+    p = _unwrap(flax_params)["VmapFlashSACCritic_0"]
+    stats = _unwrap_stats(batch_stats)["VmapFlashSACCritic_0"]
+    out = _flashsac_trunk("trunk", p["FlashSACTrunk_0"], stats["FlashSACTrunk_0"])
+    out["head.weight"] = _weight(p["CategoricalValueHead_0"]["kernel"])
+    out["head.bias"] = _f32(p["CategoricalValueHead_0"]["bias"])
+    return out
+
+
+def _linear(prefix, p):
+    """A flax ``Dense`` (one, or stacked on a critic axis) as the port's
+    ``models.layers.Linear``."""
+    return {f"{prefix}.weight": _weight(p["kernel"]), f"{prefix}.bias": _f32(p["bias"])}
+
+
+def _simba_encoder(prefix, p):
+    out = _linear(f"{prefix}.embed", p["Dense_0"])
+    for i in range(sum(1 for k in p if k.startswith("PreLNResidualBlock_"))):
+        block = p[f"PreLNResidualBlock_{i}"]
+        out.update(_layer_norm(f"{prefix}.blocks.{i}.norm", block["LayerNorm_0"]))
+        out.update(_linear(f"{prefix}.blocks.{i}.fc1", block["Dense_0"]))
+        out.update(_linear(f"{prefix}.blocks.{i}.fc2", block["Dense_1"]))
+    out.update(_layer_norm(f"{prefix}.norm", p["LayerNorm_0"]))
+    return out
+
+
+def simba_policy_state_dict(flax_params):
+    """``SimbaPolicy`` (``Dense_0`` the mean head, ``Dense_1`` the log-std
+    head) or, with heads named ``mean`` / ``log_std``, ``XQCPolicy``."""
+    p = _unwrap(flax_params)
+    out = _simba_encoder("encoder", p["SimbaEncoder_0"])
+    named = "mean" in p
+    out.update(_linear("mean", p["mean" if named else "Dense_0"]))
+    out.update(_linear("log_std", p["log_std" if named else "Dense_1"]))
+    return out
+
+
+def simba_critic_state_dict(flax_params):
+    """``SimbaVectorCritic`` from ``VmapSimbaCritic_0``, or
+    ``XQCVectorCritic`` from ``VmapXQCCritic_0`` (its head ``value``)."""
+    p = _unwrap(flax_params)
+    if "VmapXQCCritic_0" in p:
+        p = p["VmapXQCCritic_0"]
+        return {**_simba_encoder("encoder", p["SimbaEncoder_0"]), **_linear("value", p["value"])}
+    p = p["VmapSimbaCritic_0"]
+    return {**_simba_encoder("encoder", p["SimbaEncoder_0"]), **_linear("head", p["Dense_0"])}
+
+
+def _hyper(prefix, p, dense, scalers):
+    out = {f"{prefix}.{name}.weight": _weight(p[key]["kernel"]) for name, key in dense.items()}
+    out.update({f"{prefix}.{name}.scaler": _f32(p[key]["scaler"]) for name, key in scalers.items()})
+    return out
+
+
+def _simbav2_encoder(prefix, p):
+    out = _hyper(f"{prefix}.embedder", p["HyperEmbedder_0"], {"dense": "HyperDense_0"}, {"scaler": "Scaler_0"})
+    for i in range(sum(1 for k in p if k.startswith("HyperLERPBlock_"))):
+        out.update(_hyper(f"{prefix}.blocks.{i}", p[f"HyperLERPBlock_{i}"],
+                          {"fc1": "HyperDense_0", "fc2": "HyperDense_1"}, {"scaler": "Scaler_0", "alpha": "Scaler_1"}))
+    return out
+
+
+def _hyper_head(prefix, p):
+    out = _hyper(prefix, p, {"fc1": "HyperDense_0", "fc2": "HyperDense_1"}, {"scaler": "Scaler_0"})
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+    return out
+
+
+def simbav2_policy_state_dict(flax_params):
+    """``SimbaV2Policy`` (``HyperHead_0`` the mean, ``HyperHead_1`` the
+    log-std) from flax ``SimbaV2Policy`` params."""
+    p = _unwrap(flax_params)
+    return {**_simbav2_encoder("encoder", p["SimbaV2Encoder_0"]), **_hyper_head("mean", p["HyperHead_0"]),
+            **_hyper_head("log_std", p["HyperHead_1"])}
+
+
+def simbav2_critic_state_dict(flax_params):
+    p = _unwrap(flax_params)["VmapSimbaV2Critic_0"]
+    return {**_simbav2_encoder("encoder", p["SimbaV2Encoder_0"]), **_hyper_head("head", p["HyperHead_0"])}
+
+
+def crossq_critic_state_dict(flax_params, batch_stats):
+    """``CrossQVectorCritic`` (parameters, running statistics and renorm
+    step counts) from flax ``CrossQVectorCritic`` params and ``batch_stats``."""
+    p = _unwrap(flax_params)["VmapCrossQCritic_0"]
+    stats = _unwrap_stats(batch_stats)["VmapCrossQCritic_0"]
+    n_dense = sum(1 for k in p if k.startswith("Dense_"))
+    out = {}
+    for i in range(n_dense):
+        out.update(_norm_with_stats(f"norms.{i}", p[f"BatchRenorm_{i}"], stats[f"BatchRenorm_{i}"]))
+    for i in range(n_dense - 1):
+        out.update(_linear(f"layers.{i}", p[f"Dense_{i}"]))
+    out.update(_linear("head", p[f"Dense_{n_dense - 1}"]))
+    return out
+
+
+def _unwrap_stats(stats):
+    return stats["batch_stats"] if "batch_stats" in stats else stats
+
+
+def _tensors(tree):
+    """A flat dict of arrays (a normalizer's or the noise state) as tensors
+    of the arrays' own types."""
+    return {k: torch.as_tensor(np.asarray(v).copy()) for k, v in tree.items()}
+
+
 def checkpoint_tree_from_jax(algorithm, restored):
     """The port's checkpoint tree (``utils/checkpoint.py``) for ``"ppo"``
     (a ``GaussianPolicy``, or without ``policy_logstd`` a
-    ``CategoricalPolicy``), ``"fasttd3"``,
-    ``"sac"``, ``"td3"``, ``"ddpg"``, ``"dqn"``, ``"ddqn"``, ``"c51"``,
-    ``"dqn_hl_gauss"`` or ``"pqn"`` from a JAX checkpoint's parameter tree."""
+    ``CategoricalPolicy``), ``"fasttd3"``, ``"sac"``, ``"td3"``,
+    ``"ddpg"``, ``"dqn"``, ``"ddqn"``, ``"c51"``, ``"dqn_hl_gauss"``,
+    ``"pqn"``, ``"fastsac"``, ``"flashsac"``, ``"redq"``, ``"droq"``,
+    ``"aqe"``, ``"tqc"``, ``"simba"``, ``"xqc"``, ``"simbav2"`` or
+    ``"crossq"`` from a JAX checkpoint's parameter tree.  The JAX
+    checkpoint's ``*_batch_stats`` entries go into the nets' state dicts."""
     if "full" in restored:
         raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
     if algorithm == "ppo":
@@ -173,16 +348,44 @@ def checkpoint_tree_from_jax(algorithm, restored):
             "policy_target": deterministic_policy_state_dict(restored["policy_target"]),
             "critic": vector_q_critic_state_dict(restored["critic"]),
             "critic_target": vector_q_critic_state_dict(restored["critic_target"]),
-            "obs_normalizer": {k: torch.as_tensor(np.asarray(v, np.float32).copy())
-                               for k, v in restored["obs_normalizer"].items()},
+            "obs_normalizer": _tensors(restored["obs_normalizer"]),
         }
-    if algorithm == "sac":
-        return {
+    if algorithm in ("sac", "fastsac", "redq", "droq", "aqe", "tqc"):
+        tree = {
             "policy": squashed_gaussian_policy_state_dict(restored["policy"]),
             "critic": vector_q_critic_state_dict(restored["critic"]),
             "critic_target": vector_q_critic_state_dict(restored["critic_target"]),
             "alpha": entropy_coefficient_state_dict(restored["alpha"]),
         }
+        if algorithm == "fastsac":
+            tree["obs_normalizer"] = _tensors(restored["obs_normalizer"])
+        return tree
+    if algorithm == "flashsac":
+        tree = {
+            "policy": flashsac_policy_state_dict(restored["policy"], restored["policy_batch_stats"]),
+            "critic": flashsac_critic_state_dict(restored["critic"], restored["critic_batch_stats"]),
+            "critic_target": flashsac_critic_state_dict(restored["critic_target"],
+                                                        restored["critic_target_batch_stats"]),
+            "alpha": entropy_coefficient_state_dict(restored["alpha"]),
+            "noise": _tensors(restored["noise"]),
+        }
+        if "reward_normalizer" in restored:
+            tree["reward_normalizer"] = _tensors(restored["reward_normalizer"])
+        return tree
+    if algorithm in ("simba", "xqc", "simbav2"):
+        policy, critic = ((simbav2_policy_state_dict, simbav2_critic_state_dict) if algorithm == "simbav2"
+                          else (simba_policy_state_dict, simba_critic_state_dict))
+        tree = {"policy": policy(restored["policy"]), "critic": critic(restored["critic"]),
+                "critic_target": critic(restored["critic_target"]),
+                "alpha": entropy_coefficient_state_dict(restored["alpha"])}
+        for name in ("obs_normalizer", "reward_normalizer"):
+            if name in restored:
+                tree[name] = _tensors(restored[name])
+        return tree
+    if algorithm == "crossq":
+        return {"policy": squashed_gaussian_policy_state_dict(restored["policy"]),
+                "critic": crossq_critic_state_dict(restored["critic"], restored["critic_batch_stats"]),
+                "alpha": entropy_coefficient_state_dict(restored["alpha"])}
     if algorithm in ("td3", "ddpg"):
         critic = vector_q_critic_state_dict if algorithm == "td3" else q_critic_state_dict
         return {

@@ -8,8 +8,9 @@ flax's default Dense init, lecun normal kernels and zero biases.
 
 ``compute_dtype`` is the trunk's compute type (parameters stay float32):
 with bfloat16 the trunk's products run in bfloat16, while the heads, the
-distribution math and Adam stay float32.  LayerNorm uses eps=1e-6 (flax's
-default; torch's is 1e-5).
+distribution math and Adam stay float32.  Without it the trunk computes in
+its input's type.  LayerNorm uses eps=1e-6 (flax's default; torch's is
+1e-5).
 """
 
 import math
@@ -78,7 +79,7 @@ class MLP(nn.Module):
         return self.norm if i == 0 else None
 
     def forward(self, x):
-        dtype = self.compute_dtype or torch.float32
+        dtype = self.compute_dtype or x.dtype
         x = x.to(dtype)
         for i, layer in enumerate(self.layers):
             x = F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
@@ -88,7 +89,7 @@ class MLP(nn.Module):
                 x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
                                  norm.eps).to(dtype)
             x = self.activation(x)
-        return x.float()
+        return x.float() if self.compute_dtype else x
 
 
 class GaussianPolicy(nn.Module):
@@ -197,27 +198,47 @@ class VectorQCritic(nn.Module):
     B, output_dim]``, with flax's default init and each member's weights
     stacked on a leading axis (the JAX package's ``nn.vmap``-ed ``QCritic``):
     Dense -> (LayerNorm after the first Dense) -> activation per layer, then
-    a Dense head."""
+    a Dense head.  With ``dropout_rate`` > 0 (DroQ) every hidden layer is
+    Dense -> Dropout -> LayerNorm -> activation instead; each member drops
+    its own units, ``dropout_masks`` (one boolean ``[nr_critics, B, size]``
+    keep-mask per hidden layer) are drawn from ``generator`` unless given,
+    and a kept unit is scaled by ``1 / (1 - dropout_rate)`` as flax's
+    ``nn.Dropout``."""
 
     def __init__(self, obs_dim, action_dim, hidden_sizes, nr_critics=2, activation="relu",
-                 layer_norm=False, output_dim=1):
+                 layer_norm=False, output_dim=1, dropout_rate=0.0):
         super().__init__()
         sizes = [obs_dim + action_dim] + list(hidden_sizes)
         self.layers = nn.ModuleList(
             BatchedLinear(nr_critics, a, b) for a, b in zip(sizes[:-1], sizes[1:])
         )
-        if layer_norm:
+        self.dropout_rate = dropout_rate
+        if dropout_rate > 0.0:
+            self.norm_weights = nn.ParameterList(torch.ones(nr_critics, size) for size in hidden_sizes)
+            self.norm_biases = nn.ParameterList(torch.zeros(nr_critics, size) for size in hidden_sizes)
+        elif layer_norm:
             self.norm_weight = nn.Parameter(torch.ones(nr_critics, hidden_sizes[0]))
             self.norm_bias = nn.Parameter(torch.zeros(nr_critics, hidden_sizes[0]))
         self.layer_norm = layer_norm
         self.activation = ACTIVATIONS[activation]
         self.head = BatchedLinear(nr_critics, hidden_sizes[-1], output_dim)
 
-    def forward(self, obs, action):
+    def forward(self, obs, action, dropout_masks=None, generator=None):
         x = torch.cat([obs, action], dim=-1)
         for i, layer in enumerate(self.layers):
             x = layer(x)
-            if i == 0 and self.layer_norm:
+            if self.dropout_rate > 0.0:
+                keep = 1.0 - self.dropout_rate
+                if dropout_masks is not None:
+                    mask = dropout_masks[i]
+                elif generator is not None:
+                    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                else:
+                    raise ValueError("a dropout critic needs dropout_masks or a generator")
+                x = torch.where(mask, x / keep, 0.0)
+                x = F.layer_norm(x, x.shape[-1:], eps=LAYER_NORM_EPS)
+                x = x * self.norm_weights[i][:, None, :] + self.norm_biases[i][:, None, :]
+            elif i == 0 and self.layer_norm:
                 x = F.layer_norm(x, x.shape[-1:], eps=LAYER_NORM_EPS)
                 x = x * self.norm_weight[:, None, :] + self.norm_bias[:, None, :]
             x = self.activation(x)
