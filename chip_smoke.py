@@ -103,7 +103,25 @@ Phases (each prints one line; any failure exits nonzero):
     their defaults (1024 envs, learning_starts = nr_envs): 16 learning
     steps each, B2 exactly 17 launches and B3 none, finite losses,
     env-steps/s; REDQ's next 16 steps (20 critic updates each) under
-    torch.profiler, as phase 6.
+    torch.profiler, as phase 6;
+24. ESPO and PPO-DTRL on the Ant at the flagship shape (4096 envs x 64
+    steps, 512/256/128 ELU+LayerNorm, bf16 trunk; ESPO's 10 full-batch
+    epochs, PPO-DTRL minibatch 32768 and 4 epochs): 2 iterations each, B1
+    exactly 2 and B2 exactly 128 launches, ESPO's active epochs in [1, 10],
+    PPO-DTRL's projected KL parts within 1e-3 of their bounds; one
+    PPO-DTRL iteration under torch.profiler, as phase 6;
+25. BRO through the Runner at its defaults (1024 envs, learning_starts =
+    nr_envs, 16 learning steps of 10 critic updates, a reset at step 14)
+    with its optimizer state and init_copy, then test mode with every
+    tensor equal bit for bit; its next 8 steps under torch.profiler; MPO
+    (learning_starts = nr_envs) and FastMPO (its 10 per-env prefill steps)
+    at their defaults, 16 learning steps each: B2 exactly 17, 17 and 26
+    launches, no B1 or B3;
+26. REPPO on the Ant at its defaults (4096 envs x 128 steps): 2 iterations,
+    B2 exactly 256 and no B1; one more iteration under torch.profiler; then
+    through the Runner: 1 iteration, an evaluation and a save at horizon
+    200 (B2 exactly 328), then test mode from latest.model with both nets
+    and the normalizer equal bit for bit.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -1285,6 +1303,176 @@ def main():
 
             print("profile redq: " + json.dumps(profile_spans(redq_logging_iteration, "redq/")))
         del model
+
+    # 24. ESPO and PPO-DTRL on the Ant at the flagship shape (4096 envs x 64
+    # steps, 512/256/128 ELU+LayerNorm, bf16 trunk): 2 iterations each, one
+    # GAE launch an iteration and one substep launch an env step.  Their
+    # configs have no compute_dtype key, so the trunks are set to bf16 on
+    # the nets, as the key does for PPO.  ESPO takes its full-batch epochs
+    # at its default nr_epochs (10); PPO-DTRL minibatch batch / 8, 4 epochs
+    variants = {"espo": {}, "ppo_dtrl": {"algorithm.minibatch_size": batch // 8, "algorithm.nr_epochs": 4}}
+    for name, extra in variants.items():
+        config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
+            "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": nr_steps,
+            "algorithm.total_timesteps": 2 * batch, "algorithm.policy_hidden_sizes": (512, 256, 128),
+            "algorithm.critic_hidden_sizes": (512, 256, 128), "algorithm.activation": "elu",
+            "algorithm.layer_norm": True, "algorithm.evaluation_active": False, **extra,
+        })
+        model = create_model(config)
+        model.policy.module.trunk.compute_dtype = model.critic.trunk.compute_dtype = torch.bfloat16
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        expected = {"engine_substep": 2 * nr_steps, "gae": 2, "categorical_projection": 0}
+        if path_launches != expected:
+            fail(f"{name}: launch counts {path_launches} != {expected}")
+        check_logged(name, model.metrics_history)
+        last = model.metrics_history[-1]
+        if name == "espo":
+            active = [m["policy_ratio/nr_active_epochs"] for m in model.metrics_history]
+            if not all(1.0 <= a <= config.algorithm.nr_epochs for a in active):
+                fail(f"ESPO active epochs {active} outside [1, {config.algorithm.nr_epochs}]")
+            detail = f"active epochs {active} of {config.algorithm.nr_epochs}"
+        else:
+            # the projection puts every state on its bound or inside it; the
+            # Newton solve for eta stops at 15 steps: 1e-3 relative
+            a = config.algorithm
+            for m in model.metrics_history:
+                if (m["projection/projected_kl_mean"] > a.mean_bound * (1 + 1e-3)
+                        or m["projection/projected_kl_cov"] > a.cov_bound * (1 + 1e-3)):
+                    fail(f"PPO-DTRL projected KL {m['projection/projected_kl_mean']}, "
+                         f"{m['projection/projected_kl_cov']} beyond the bounds {a.mean_bound}, {a.cov_bound}")
+            detail = ("projected KL mean/cov " + json.dumps({k.split("/")[1]: v for k, v in last.items()
+                                                            if k.startswith("projection/")}))
+        print(f"train: {name} on the Ant, 2 iterations at 4096x{nr_steps} (bf16 trunk) in {elapsed:.2f} s "
+              f"({2 * batch / elapsed:.0f} env-steps/s overall, {last['time/sps']} in the last iteration), launches "
+              f"{path_launches}, {detail}, last losses "
+              + json.dumps({k: v for k, v in last.items() if k.startswith("loss/")}))
+        launches_by_path[name] = path_launches
+        if name == "ppo_dtrl":
+            def dtrl_iteration():
+                model.env_state, _ = model.learning_iteration(model.env_state)
+
+            print("profile ppo_dtrl: " + json.dumps(profile_spans(dtrl_iteration, "ppo/")))
+        del model
+
+    # 25. BRO, MPO and FastMPO on the Ant at 1024 envs at their defaults,
+    # evaluation off, 16 learning steps each.  BRO (learning_starts =
+    # nr_envs: 1 prefill step) through the Runner with its optimizer state
+    # and init_copy, reloaded bit for bit in test mode; its reset falls on
+    # learning step 15000 // 1024 = 14.  MPO with learning_starts = nr_envs
+    # (1 prefill step); FastMPO's prefill is learning_starts_per_env = 10
+    # steps.  B2 once an env step: 17, 17, 26; no B1, no B3
+    bro = sac_family_runner("bro", [], 16, 8,
+                            {"engine_substep": 17, "gae": 0, "categorical_projection": 0})
+    if [m["bro/reset"] for m in bro.metrics_history] != [0.0, 1.0 / 8]:
+        fail(f"BRO resets {[m['bro/reset'] for m in bro.metrics_history]}: expected one, at learning step 14")
+
+    def bro_logging_iteration():
+        bro.env_state = bro._logging_iteration(bro.buffer, bro.env_state, 16)
+
+    print("profile bro: " + json.dumps(profile_spans(bro_logging_iteration, "bro/")))
+    del bro
+    for name, overrides, prefill in (("mpo", {"algorithm.learning_starts": 1024}, 1), ("fastmpo", {}, 10)):
+        config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
+            "runner.device": "cuda", "environment.nr_envs": 1024, "algorithm.total_timesteps": (prefill + 16) * 1024,
+            "algorithm.logging_frequency": 8 * 1024, "algorithm.evaluation_active": False, **overrides,
+        })
+        model = create_model(config)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        expected = {"engine_substep": prefill + 16, "gae": 0, "categorical_projection": 0}
+        if path_launches != expected or model.nr_updates != 16 or model.prefill_iterations != prefill:
+            fail(f"{name}: launches {path_launches} != {expected}, {model.nr_updates} learning steps, "
+                 f"{model.prefill_iterations} prefill steps")
+        check_logged(name, model.metrics_history, [8, 16])
+        print(f"train: {name} {prefill} prefill + 16 learning steps at 1024 envs, batch {config.algorithm.batch_size}, "
+              f"in {elapsed:.2f} s; env-steps/s of the 2 log lines (the first includes the prefill) "
+              f"{[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}, last log line "
+              + json.dumps({k: v for k, v in model.metrics_history[-1].items()
+                            if k.startswith(("loss/", "q_value/", "dual/"))}))
+        launches_by_path[name] = path_launches
+        del model
+
+    # 26. REPPO on the Ant at its defaults (4096 envs x 128 steps, 512-wide
+    # nets, 4 epochs of 8 minibatches): 2 iterations, one substep launch an
+    # env step and no GAE (its TD(lambda) loop is plain torch); then through
+    # the Runner: 1 iteration, an evaluation and a save at horizon 200, and
+    # test mode from latest.model with every tensor equal bit for bit
+    reppo_steps = 128
+    config = make_config("reppo.cuda", "locomotion.ant.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.total_timesteps": 2 * 4096 * reppo_steps,
+        "algorithm.evaluation_active": False,
+    })
+    model = create_model(config)
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    reppo_launches = counts()
+    if reppo_launches != {"engine_substep": 2 * reppo_steps, "gae": 0, "categorical_projection": 0}:
+        fail(f"REPPO launch counts {reppo_launches}, expected {2 * reppo_steps} substep launches only")
+    check_logged("reppo", model.metrics_history)
+    print(f"train: reppo on the Ant, 2 iterations at 4096x{reppo_steps} in {elapsed:.2f} s "
+          f"({2 * 4096 * reppo_steps / elapsed:.0f} env-steps/s overall, {model.metrics_history[-1]['time/sps']} in "
+          f"the last iteration), launches {reppo_launches}, last log line "
+          + json.dumps({k: v for k, v in model.metrics_history[-1].items()
+                        if k.startswith(("loss/", "kl/", "q_value/"))}))
+    launches_by_path["reppo"] = reppo_launches
+
+    def reppo_iteration():
+        model.env_state, _ = model.learning_iteration(model.env_state)
+
+    print("profile reppo: " + json.dumps(profile_spans(reppo_iteration, "reppo/")))
+    del model
+    reppo_args = ["--algorithm.name=reppo.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
+                  f"--environment.horizon={horizon}"]
+    os.chdir(workdir.name)
+    runner = Runner([*reppo_args, f"--algorithm.total_timesteps={4096 * reppo_steps}", "--runner.save_model=True",
+                     "--runner.run_name=reppo"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = counts()
+    expected = {"engine_substep": reppo_steps + horizon, "gae": 0, "categorical_projection": 0}
+    if runner_launches != expected:
+        fail(f"REPPO runner launch counts {runner_launches} != {expected}")
+    eval_returns = [float(r) for r in trained.eval_history["eval/episode_return"]]
+    if len(eval_returns) != 1 or not math.isfinite(eval_returns[0]):
+        fail(f"REPPO eval returns {eval_returns}")
+    reppo_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "reppo", "models", "latest.model")
+    tester = Runner([*reppo_args, "--runner.mode=test", f"--runner.load_model={reppo_latest}",
+                     "--runner.nr_test_episodes=10", "--runner.run_name=reppo_test"])
+    zero_counts()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = counts()
+    os.chdir(root)
+    if len(test_returns) != 10 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"REPPO test mode returned {test_returns}, expected 10 finite returns")
+    if not 0 < test_launches["engine_substep"] <= horizon or test_launches["gae"]:
+        fail(f"REPPO test mode launches {test_launches}, expected 1 to {horizon} B2 and no B1")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    print(f"runner reppo: 1 learning iteration at 4096x{reppo_steps}, an evaluation at horizon {horizon} and a save "
+          f"in {train_s:.2f} s, launches {runner_launches}, eval return {eval_returns[0]:.2f}, checkpoint "
+          f"{os.path.getsize(reppo_latest) / 2**20:.2f} MiB; test mode {test_s:.2f} s (load included), launches "
+          f"{test_launches}, {compared} tensors (both nets and the normalizer) restored bit for bit, returns "
+          f"{[round(r, 2) for r in test_returns]}")
+    launches_by_path["reppo_runner"] = runner_launches
+    launches_by_path["reppo_test"] = test_launches
+    del trained, tester
     workdir.cleanup()
 
     for k in kernels:

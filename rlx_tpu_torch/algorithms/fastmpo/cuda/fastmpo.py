@@ -1,0 +1,125 @@
+"""FastMPO: MPO's E/M machinery on the FastSAC/FastTD3 recipe (the JAX
+package's ``fastmpo.tpu``).
+
+- Data is collected with the target policy unless
+  ``collect_data_with_online_policy``, as raw Gaussian actions: the
+  defaults ``action_clipping=False`` and ``action_rescaling="none"`` hand
+  them to the env unclipped (the off-policy core's action pipeline).
+- Per env step, one sample of ``nr_critic_updates_per_step * batch_size``
+  transitions is cut into one slice per critic update.  The running
+  observation normalizer is updated from the sample's states and next
+  states together, then normalizes both.  Then ``nr_policy_updates_per_step``
+  times: ``nr_critic_updates_per_policy_update`` critic steps, each on its
+  slice and each followed by the critic target's Polyak update
+  (``critic_tau``), then one policy and dual step on the last critic
+  step's slice and the policy target's Polyak update (``policy_tau``).
+  The metrics are the last critic step's and the last policy step's.
+- FastSAC-scale networks: policy 512-256-128 and critic 768-384-192 with
+  SiLU and a LayerNorm after every Dense (``"fastsac"``; ``"fasttd3"``:
+  1024-512-256 critic, relu, no LayerNorm), zero-init heads and the scaled
+  softplus std head; ``"mpo"`` builds MPO's nets from the config's sizes.
+- The buffer holds ``buffer_size_per_env`` rows per env, and learning
+  starts after ``learning_starts_per_env`` env steps.
+
+Every draw is an argument that defaults to the generator: the acting
+noise, the sample, and per update the critic's and the E-step's normals.
+"""
+
+import torch
+
+from rlx_tpu_torch.algorithms.fastmpo.cuda.general_properties import GeneralProperties
+from rlx_tpu_torch.algorithms.mpo.cuda.mpo import MPO, MPOGaussianPolicy
+from rlx_tpu_torch.models.mlp import VectorQCritic
+from rlx_tpu_torch.ops import normalizers
+from rlx_tpu_torch.ops import replay_buffer as rb
+
+NETWORK_SHAPES = {
+    # network type -> (policy hidden sizes, critic hidden sizes, activation, LayerNorm after every Dense)
+    "fastsac": ((512, 256, 128), (768, 384, 192), "silu", True),
+    "fasttd3": ((512, 256, 128), (1024, 512, 256), "relu", False),
+}
+
+
+class FastMPO(MPO):
+    def setup_states(self):
+        a = self.config.algorithm
+        self.critic_tau = a.critic_tau
+        self.policy_tau = a.policy_tau
+        self.collect_online = a.collect_data_with_online_policy
+        self.nr_critic_updates_per_policy_update = a.nr_critic_updates_per_policy_update
+        self.nr_policy_updates_per_step = a.nr_policy_updates_per_step
+        self.nr_critic_updates_per_step = self.nr_policy_updates_per_step * self.nr_critic_updates_per_policy_update
+        super().setup_states()
+
+    def _build_policy(self, a):
+        if a.policy_network_type not in NETWORK_SHAPES:
+            return super()._build_policy(a)
+        hidden, _, activation, ln_all = NETWORK_SHAPES[a.policy_network_type]
+        return MPOGaussianPolicy(self.obs_dim, self.action_dim, hidden, activation, layer_norm=False,
+                                 init_scale=a.policy_init_scale, min_scale=a.policy_min_scale, layer_norm_all=ln_all,
+                                 zero_init_heads=True, scaled_std_head=True, orthogonal_init=False)
+
+    def _build_critic(self, a):
+        if a.critic_network_type not in NETWORK_SHAPES:
+            return super()._build_critic(a)
+        _, hidden, activation, ln_all = NETWORK_SHAPES[a.critic_network_type]
+        return VectorQCritic(self.obs_dim, self.action_dim, hidden, self.nr_critics, activation, layer_norm=False,
+                             output_dim=self.nr_atoms, layer_norm_all=ln_all)
+
+    def observe_transition(self, observation, env_state):
+        """The normalizer learns from the sampled batches, not the rollout."""
+
+    @torch.no_grad()
+    def act(self, observation, step=0, noise=None):
+        """``mean + std * noise`` of the target policy (of the online one
+        with ``collect_data_with_online_policy``), unclipped; ``noise`` is
+        drawn from the generator unless given."""
+        module = self.policy.module if self.collect_online else self.policy.target
+        mean, std = module(self._norm(observation))
+        if noise is None:
+            noise = self._noise(mean.shape)
+        return mean + std * noise
+
+    @torch.no_grad()
+    def eval_act(self, observation):
+        return self.policy.module(self._norm(observation))[0]
+
+    def _sample(self, buffer):
+        """One sample for every critic update of the env step."""
+        total = self.nr_critic_updates_per_step * self.batch_size
+        if self.n_step > 1:
+            return rb.sample_nstep(buffer, self.generator, total, self.n_step, self.gamma)
+        return rb.sample(buffer, self.generator, total)
+
+    def update_with_buffer(self, buffer, step, batch=None, critic_noises=None, policy_noises=None):
+        """The env step's updates on one sample (``batch``, drawn unless
+        given); ``critic_noises[i]`` ``[S, B, A]`` and ``policy_noises[i]``
+        ``[S, 2B, A]`` are update i's normals, drawn unless given."""
+        if batch is None:
+            batch = self.sample_batch(buffer)
+        next_obs_all, reward_all, terminated_all, discount_all = self._targets(batch)
+        obs_all, action_all = batch["observation"], batch["action"]
+        if self.normalize_obs:
+            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer,
+                                                                    torch.cat([obs_all, next_obs_all], dim=0))
+            obs_all, next_obs_all = self._norm(obs_all), self._norm(next_obs_all)
+        n_up = self.nr_critic_updates_per_step
+        slices = [x.reshape((n_up, self.batch_size) + x.shape[1:])
+                  for x in (obs_all, next_obs_all, action_all, reward_all, terminated_all, discount_all)]
+        critic_noises = critic_noises if critic_noises is not None else [None] * n_up
+        policy_noises = policy_noises if policy_noises is not None else [None] * n_up
+
+        idx = 0
+        for _ in range(self.nr_policy_updates_per_step):
+            for _ in range(self.nr_critic_updates_per_policy_update):
+                obs, next_obs, action, reward, terminated, discount = (x[idx] for x in slices)
+                critic_metrics = self._critic_step(obs, next_obs, action, reward, terminated, discount,
+                                                   critic_noises[idx])
+                self.critic.polyak_update(self.critic_tau)
+                idx += 1
+            policy_metrics = self._policy_dual_step(slices[0][idx - 1], slices[1][idx - 1], policy_noises[idx - 1])
+            self.policy.polyak_update(self.policy_tau)
+        return {**critic_metrics, **policy_metrics}
+
+    def general_properties():
+        return GeneralProperties

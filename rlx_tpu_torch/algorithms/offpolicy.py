@@ -35,9 +35,16 @@ The phases of a learning step run under ``torch.profiler.record_function``
 spans ``<algorithm>/act``, ``/env_step``, ``/store``, ``/sample`` and
 ``/update``; they cost nothing measurable without an active profiler.
 
+FastMPO's per-env sizing keys (``learning_starts_per_env``,
+``buffer_size_per_env``: when positive, learning starts at that many env
+steps per env and the buffer holds that many rows per env) and its action
+pipeline (``action_clipping``, then ``action_rescaling`` of ``"none"``,
+``"normal"`` or ``"fastsac"``) apply where the config has the keys; every
+other continuous algorithm clips to [-1, 1] and rescales to the env's
+bounds, as the JAX package's ``else`` branch.
+
 Not ported yet (a config that asks for them has no such key, so it raises):
-the device mesh, parallel seeds and the per-env sizing keys
-``learning_starts_per_env`` / ``buffer_size_per_env`` of FastMPO.
+the device mesh and parallel seeds.
 """
 
 import math
@@ -56,6 +63,28 @@ from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
+def action_pipeline(space, clip=True, rescaling="normal"):
+    """The env action of a policy action: clipped to [-1, 1] with ``clip``,
+    then rescaled by ``rescaling``: ``"normal"`` maps [-1, 1] onto
+    [low, high], ``"fastsac"`` multiplies by ``max(|low - center|, |high -
+    center|) / scale``, ``"none"`` leaves it as it is."""
+    if rescaling not in ("none", "normal", "fastsac"):
+        raise ValueError(f"unknown action_rescaling {rescaling!r}")
+    low, high = space.low, space.high
+    action_scale = torch.maximum(torch.abs(low - space.center), torch.abs(high - space.center)) / space.scale
+
+    def process(action):
+        if clip:
+            action = torch.clamp(action, -1.0, 1.0)
+        if rescaling == "normal":
+            action = low + 0.5 * (action + 1.0) * (high - low)
+        elif rescaling == "fastsac":
+            action = action * action_scale
+        return action
+
+    return process
+
+
 class OffPolicyAlgorithm:
     def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
         self.config = config
@@ -71,7 +100,7 @@ class OffPolicyAlgorithm:
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
         self.learning_rate = a.learning_rate
-        self.buffer_size = int(a.buffer_size)
+        self.buffer_size = int(a.get("buffer_size", 0))   # FastMPO sizes its buffer per env
         self.learning_starts = int(a.learning_starts)
         self.batch_size = a.batch_size
         self.gamma = a.gamma
@@ -80,6 +109,8 @@ class OffPolicyAlgorithm:
         self.logging_active = a.logging_active
         self.evaluation_active = a.evaluation_active
         self.n_step = int(getattr(a, "n_step", 1))
+        if a.get("learning_starts_per_env", 0) > 0:
+            self.learning_starts = int(a.learning_starts_per_env) * self.nr_envs
 
         self.total_training_timesteps = self.total_timesteps - self.learning_starts
         self.eval_save_frequency = a.evaluation_and_save_frequency
@@ -91,7 +122,10 @@ class OffPolicyAlgorithm:
         )
         self.nr_loggings_per_eval_save_iteration = max(self.eval_save_frequency // self.logging_frequency, 1)
         self.nr_updates_per_logging_iteration = max(self.logging_frequency // self.nr_envs, 1)
-        self.capacity = max(self.buffer_size // self.nr_envs, 1)
+        if a.get("buffer_size_per_env", 0) > 0:
+            self.capacity = int(a.buffer_size_per_env)
+        else:
+            self.capacity = max(self.buffer_size // self.nr_envs, 1)
         self.prefill_iterations = (
             int(math.ceil(self.learning_starts / self.nr_envs)) if self.learning_starts > 0 else 0
         )
@@ -106,9 +140,8 @@ class OffPolicyAlgorithm:
             self.process_action = lambda action: action
         else:
             self.action_dim = int(np.prod(train_env.single_action_space.shape))
-            # clip to [-1, 1], then rescale to the env's bounds
-            low, high = train_env.single_action_space.low, train_env.single_action_space.high
-            self.process_action = lambda action: low + 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0) * (high - low)
+            self.process_action = action_pipeline(train_env.single_action_space, a.get("action_clipping", True),
+                                                  a.get("action_rescaling", "normal"))
 
         self.logger = MetricsLogger(config.runner.track_console)
         rlx_logger.info(f"Using device: {self.device}")

@@ -26,8 +26,11 @@ from rlx_tpu_torch.models import distributions as D
 
 
 class EnsembleSAC(SAC):
+    # the config key of the critic updates per env step (BRO: updates_per_step)
+    q_update_steps_key = "q_update_steps"
+
     def setup_states(self):
-        self.q_update_steps = int(self.config.algorithm.q_update_steps)
+        self.q_update_steps = int(self.config.algorithm[self.q_update_steps_key])
         super().setup_states()
 
     def target_q_aggregate(self, next_q, subset=None):

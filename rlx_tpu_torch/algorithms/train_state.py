@@ -9,8 +9,9 @@ import torch
 
 
 def global_norm(tensors):
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    """sqrt of the sum of squares of every element (``optax.global_norm``),
+    in float32 or the tensors' wider type."""
+    return torch.sqrt(sum(torch.sum(t.to(torch.promote_types(t.dtype, torch.float32)) ** 2) for t in tensors))
 
 
 def clip_by_global_norm_(grads, max_norm):

@@ -7,6 +7,8 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_flashsac --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves cartpole_spot_c51 --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_ppo --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_mpo --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_reppo --seeds 0
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
@@ -62,7 +64,37 @@ RUNS = {
         "algorithm": f"{name}.cuda", "environment": "classic.pendulum.cuda",
         "budget": 100_000, "threshold": -500.0, "eval_points": 8, "overrides": dict(PENDULUM_OFFPOLICY),
     } for name in ("sac", "td3", "ddpg", "redq", "tqc", "droq", "crossq", "fastsac", "aqe", "xqc", "simba",
-                   "simbav2", "flashsac")},
+                   "simbav2", "flashsac", "bro", "mpo", "fastmpo")},
+    # benchmarks/curves.py: ESPO's full-batch epochs need small rollouts and
+    # more epochs; Pendulum's torque is [-2, 2]
+    "pendulum_spot_espo": {
+        "algorithm": "espo.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 400_000, "threshold": -700.0, "eval_points": 4,
+        "overrides": {
+            "algorithm.nr_steps": 128, "algorithm.nr_epochs": 20, "algorithm.learning_rate": 1e-3,
+            "algorithm.gamma": 0.9, "algorithm.action_clipping_and_rescaling": True, "environment.nr_envs": 8,
+        },
+    },
+    # benchmarks/curves.py: the on-policy variants at the PPO Pendulum recipe
+    "pendulum_spot_ppo_dtrl": {
+        "algorithm": "ppo_dtrl.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 300_000, "threshold": -700.0, "eval_points": 6,
+        "overrides": {
+            "algorithm.nr_steps": 256, "algorithm.learning_rate": 1e-3, "algorithm.gamma": 0.9,
+            "environment.nr_envs": 8, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10,
+        },
+    },
+    # benchmarks/curves.py: REPPO at a scaled-down version of its own regime
+    # (256 envs x 128 steps, 8 minibatches of 4096), gamma and the HL-Gauss
+    # support adapted to Pendulum's returns
+    "pendulum_spot_reppo": {
+        "algorithm": "reppo.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 4_000_000, "threshold": -700.0, "eval_points": 6,
+        "overrides": {
+            "algorithm.nr_steps": 128, "algorithm.nr_minibatches": 8, "algorithm.gamma": 0.9,
+            "algorithm.v_min": -400.0, "algorithm.v_max": 50.0, "environment.nr_envs": 256,
+        },
+    },
     # benchmarks/curves.py: the cartpole_spot_* family checks
     **{f"cartpole_spot_{name}": {
         "algorithm": f"{name}.cuda", "environment": "classic.cart_pole.cuda",
@@ -91,8 +123,17 @@ RUNS = {
 # raw returns; SimbaV2 and FlashSAC with gamma 0.9, a [-300, 0] support,
 # 150k steps and the reward normalizer off (SimbaV2's observation
 # normalizer too)
-for name in ("fastsac", "xqc"):
+for name in ("fastsac", "xqc", "fastmpo"):
     RUNS[f"pendulum_spot_{name}"]["overrides"].update({"algorithm.v_min": -800.0, "algorithm.v_max": 100.0})
+# benchmarks/curves.py: MPO at 4 envs (a reference-like update:data
+# ratio) with the observation normalizer, 150k steps and a -800 bar; BRO
+# without its periodic resets
+RUNS["pendulum_spot_mpo"]["budget"] = 150_000
+RUNS["pendulum_spot_mpo"]["threshold"] = -800.0
+RUNS["pendulum_spot_mpo"]["overrides"].update({
+    "algorithm.batch_size": 256, "algorithm.enable_observation_normalization": True, "environment.nr_envs": 4,
+})
+RUNS["pendulum_spot_bro"]["overrides"]["algorithm.reset_interval"] = 10**9
 for name in ("simbav2", "flashsac"):
     RUNS[f"pendulum_spot_{name}"]["budget"] = 150_000
     RUNS[f"pendulum_spot_{name}"]["overrides"].update({
@@ -119,6 +160,12 @@ def run_seed(spec, seed):
     from rlx_tpu_torch.config import create_model, make_config
 
     budget, overrides = spec["budget"], spec["overrides"]
+    # an algorithm key the config lacks (FastMPO's buffer_size: it sizes its
+    # buffer per env) is added unread by the JAX package's make_config; the
+    # port's raises, so it is left out here
+    defaults = make_config(spec["algorithm"], spec["environment"], **{"runner.device": "cuda"}).algorithm
+    overrides = {k: v for k, v in overrides.items()
+                 if not k.startswith("algorithm.") or k.split(".", 1)[1] in defaults}
     eval_frequency = max(budget // spec["eval_points"], 1)
     if "algorithm.nr_steps" in overrides:
         batch = overrides["algorithm.nr_steps"] * overrides["environment.nr_envs"]

@@ -131,14 +131,17 @@ def _batched_dense(prefix, p):
     }
 
 
-def _q_critic_ensemble(p):
+def _q_critic_ensemble(p, layer_norm_all=False):
     if "MLP_0" not in p:
         return _dropout_q_critic_ensemble(p)
     mlp = p["MLP_0"]
     out = {}
     for i in range(sum(1 for k in mlp if k.startswith("Dense_"))):
         out.update(_batched_dense(f"layers.{i}", mlp[f"Dense_{i}"]))
-    if "LayerNorm_0" in mlp:
+        if layer_norm_all:
+            out[f"norm_weights.{i}"] = _f32(mlp[f"LayerNorm_{i}"]["scale"])
+            out[f"norm_biases.{i}"] = _f32(mlp[f"LayerNorm_{i}"]["bias"])
+    if not layer_norm_all and "LayerNorm_0" in mlp:
         out["norm_weight"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["scale"], np.float32).copy())
         out["norm_bias"] = torch.as_tensor(np.asarray(mlp["LayerNorm_0"]["bias"], np.float32).copy())
     out.update(_batched_dense("head", p["Dense_0"]))
@@ -158,10 +161,11 @@ def _dropout_q_critic_ensemble(p):
     return out
 
 
-def vector_q_critic_state_dict(flax_params):
+def vector_q_critic_state_dict(flax_params, layer_norm_all=False):
     """``VectorQCritic`` state_dict from flax ``VectorQCritic`` params
-    (``VmapQCritic_0`` with leaves ``[nr_critics, ...]``)."""
-    return _q_critic_ensemble(_unwrap(flax_params)["VmapQCritic_0"])
+    (``VmapQCritic_0`` with leaves ``[nr_critics, ...]``); ``layer_norm_all``
+    as the net was built (FastMPO's)."""
+    return _q_critic_ensemble(_unwrap(flax_params)["VmapQCritic_0"], layer_norm_all)
 
 
 def _add_leading_axis(tree):
@@ -311,6 +315,85 @@ def crossq_critic_state_dict(flax_params, batch_stats):
     return out
 
 
+def _bronet(prefix, p):
+    """A flax ``BroNetEncoder`` (one, or stacked on a critic axis) as the
+    port's ``models.layers.BroNetEncoder``."""
+    out = {**_linear(f"{prefix}.embed", p["Dense_0"]), **_layer_norm(f"{prefix}.norm", p["LayerNorm_0"])}
+    for i in range(sum(1 for k in p if k.startswith("BroNetBlock_"))):
+        block = p[f"BroNetBlock_{i}"]
+        for j in (0, 1):
+            out.update(_linear(f"{prefix}.blocks.{i}.fc{j + 1}", block[f"Dense_{j}"]))
+            out.update(_layer_norm(f"{prefix}.blocks.{i}.norm{j + 1}", block[f"LayerNorm_{j}"]))
+    return out
+
+
+def bro_policy_state_dict(flax_params):
+    """``BroPolicy`` (``Dense_0`` the mean head, ``Dense_1`` the log-std
+    head) from flax ``BroPolicy`` params."""
+    p = _unwrap(flax_params)
+    return {**_bronet("encoder", p["BroNetEncoder_0"]), **_linear("mean", p["Dense_0"]),
+            **_linear("log_std", p["Dense_1"])}
+
+
+def bro_dual_policy_state_dict(flax_params):
+    """``BroDualPolicy`` (the bias-free shift ``Dense_0``) from flax
+    ``BroDualPolicy`` params."""
+    p = _unwrap(flax_params)
+    return {**_bronet("encoder", p["BroNetEncoder_0"]), "shift.weight": _weight(p["Dense_0"]["kernel"])}
+
+
+def bro_critic_state_dict(flax_params):
+    """``BroVectorCritic`` from flax ``BroVectorCritic`` params
+    (``VmapBroQuantileCritic_0``, leaves stacked on the critic axis)."""
+    p = _unwrap(flax_params)["VmapBroQuantileCritic_0"]
+    return {**_bronet("encoder", p["BroNetEncoder_0"]), **_linear("head", p["Dense_0"])}
+
+
+def adjustment_state_dict(flax_params):
+    """BRO's ``Adjustment`` (``raw``) from flax ``Adjustment`` params."""
+    return {"raw": _f32(_unwrap(flax_params)["raw"])}
+
+
+def mpo_policy_state_dict(flax_params, layer_norm_all=False):
+    """``MPOGaussianPolicy`` (``Dense_0`` the mean head, ``Dense_1`` the
+    std head) from flax ``MPOGaussianPolicy`` params; ``layer_norm_all`` as
+    the trunk was built (FastMPO's)."""
+    p = _unwrap(flax_params)
+    return {**_mlp(p["MLP_0"], layer_norm_all), **_dense("mean", p["Dense_0"]), **_dense("std", p["Dense_1"])}
+
+
+def dual_variables_state_dict(flax_params):
+    """MPO's ``DualVariables`` from flax ``DualVariables`` params."""
+    p = _unwrap(flax_params)
+    return {name: _f32(p[name]) for name in ("log_eta", "log_alpha_mean", "log_alpha_stddev",
+                                             "log_penalty_temperature")}
+
+
+def reppo_policy_state_dict(flax_params):
+    """``ReppoPolicy`` (``Dense_0`` the loc head, ``Dense_1`` the log-std
+    head, the two log coefficients) from flax ``ReppoPolicy`` params."""
+    p = _unwrap(flax_params)
+    return {**_mlp(p["MLP_0"]), **_dense("loc", p["Dense_0"]), **_dense("log_std", p["Dense_1"]),
+            "log_entropy_coefficient": _f32(p["log_entropy_coefficient"]),
+            "log_kl_coefficient": _f32(p["log_kl_coefficient"])}
+
+
+def reppo_critic_state_dict(flax_params):
+    """``ReppoCritic`` (``Dense_0`` the HL-Gauss logits, ``Dense_1`` the
+    next-feature head) from flax ``ReppoCritic`` params."""
+    p = _unwrap(flax_params)
+    return {**_mlp(p["MLP_0"]), **_dense("logits", p["Dense_0"]), **_dense("predicted_next", p["Dense_1"])}
+
+
+def _layer_norm_all(flax_params, mlp_path):
+    """Whether a flax ``MLP`` has a LayerNorm after more than its first
+    Dense (FastMPO's trunks)."""
+    p = _unwrap(flax_params)
+    for key in mlp_path:
+        p = p[key]
+    return sum(1 for k in p if k.startswith("LayerNorm_")) > 1
+
+
 def _unwrap_stats(stats):
     return stats["batch_stats"] if "batch_stats" in stats else stats
 
@@ -327,9 +410,13 @@ def checkpoint_tree_from_jax(algorithm, restored):
     ``CategoricalPolicy``), ``"fasttd3"``, ``"sac"``, ``"td3"``,
     ``"ddpg"``, ``"dqn"``, ``"ddqn"``, ``"c51"``, ``"dqn_hl_gauss"``,
     ``"pqn"``, ``"fastsac"``, ``"flashsac"``, ``"redq"``, ``"droq"``,
-    ``"aqe"``, ``"tqc"``, ``"simba"``, ``"xqc"``, ``"simbav2"`` or
-    ``"crossq"`` from a JAX checkpoint's parameter tree.  The JAX
-    checkpoint's ``*_batch_stats`` entries go into the nets' state dicts."""
+    ``"aqe"``, ``"tqc"``, ``"simba"``, ``"xqc"``, ``"simbav2"``,
+    ``"crossq"``, ``"bro"``, ``"mpo"``, ``"fastmpo"`` or ``"reppo"`` from a
+    JAX checkpoint's parameter tree.  The JAX checkpoint's
+    ``*_batch_stats`` entries go into the nets' state dicts; BRO's
+    ``init_copy`` becomes one flat dict ``<net>.<parameter>``; MPO's and
+    FastMPO's trunks count as LayerNorm-after-every-Dense when their
+    flax ``MLP`` has more than one LayerNorm."""
     if "full" in restored:
         raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
     if algorithm == "ppo":
@@ -386,6 +473,37 @@ def checkpoint_tree_from_jax(algorithm, restored):
         return {"policy": squashed_gaussian_policy_state_dict(restored["policy"]),
                 "critic": crossq_critic_state_dict(restored["critic"], restored["critic_batch_stats"]),
                 "alpha": entropy_coefficient_state_dict(restored["alpha"])}
+    if algorithm == "bro":
+        converters = {"policy": bro_policy_state_dict, "critic": bro_critic_state_dict,
+                      "optimistic_policy": bro_dual_policy_state_dict}
+        return {
+            "policy": bro_policy_state_dict(restored["policy"]),
+            "critic": bro_critic_state_dict(restored["critic"]),
+            "critic_target": bro_critic_state_dict(restored["critic_target"]),
+            "alpha": entropy_coefficient_state_dict(restored["alpha"]),
+            "optimistic_policy": bro_dual_policy_state_dict(restored["optimistic_policy"]),
+            "optimism": adjustment_state_dict(restored["optimism"]),
+            "regularizer": adjustment_state_dict(restored["regularizer"]),
+            "init_copy": {f"{net}.{k}": v for net, convert in converters.items()
+                          for k, v in convert(restored["init_copy"][net]).items()},
+        }
+    if algorithm in ("mpo", "fastmpo"):
+        policy_ln_all = _layer_norm_all(restored["policy"], ("MLP_0",))
+        critic_ln_all = _layer_norm_all(restored["critic"], ("VmapQCritic_0", "MLP_0"))
+        tree = {
+            "policy": mpo_policy_state_dict(restored["policy"], policy_ln_all),
+            "policy_target": mpo_policy_state_dict(restored["policy_target"], policy_ln_all),
+            "critic": vector_q_critic_state_dict(restored["critic"], critic_ln_all),
+            "critic_target": vector_q_critic_state_dict(restored["critic_target"], critic_ln_all),
+            "duals": dual_variables_state_dict(restored["duals"]),
+        }
+        if "obs_normalizer" in restored:
+            tree["obs_normalizer"] = _tensors(restored["obs_normalizer"])
+        return tree
+    if algorithm == "reppo":
+        return {"policy": reppo_policy_state_dict(restored["policy"]),
+                "critic": reppo_critic_state_dict(restored["critic"]),
+                "obs_normalizer": _tensors(restored["obs_normalizer"])}
     if algorithm in ("td3", "ddpg"):
         critic = vector_q_critic_state_dict if algorithm == "td3" else q_critic_state_dict
         return {

@@ -85,9 +85,10 @@ class MLP(nn.Module):
             x = F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
             norm = self._norm_after(i)
             if norm is not None:
-                # statistics in float32, output in the compute type
-                x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
-                                 norm.eps).to(dtype)
+                # statistics in float32 (or the input's wider type), output
+                # in the compute type
+                x = F.layer_norm(x.to(torch.promote_types(dtype, torch.float32)), norm.normalized_shape,
+                                 norm.weight, norm.bias, norm.eps).to(dtype)
             x = self.activation(x)
         return x.float() if self.compute_dtype else x
 
@@ -203,17 +204,20 @@ class VectorQCritic(nn.Module):
     its own units, ``dropout_masks`` (one boolean ``[nr_critics, B, size]``
     keep-mask per hidden layer) are drawn from ``generator`` unless given,
     and a kept unit is scaled by ``1 / (1 - dropout_rate)`` as flax's
-    ``nn.Dropout``."""
+    ``nn.Dropout``.  With ``layer_norm_all`` (FastMPO's critic) every hidden
+    layer is Dense -> LayerNorm -> activation, the norms' parameters in
+    ``norm_weights`` / ``norm_biases`` as the dropout critic's."""
 
     def __init__(self, obs_dim, action_dim, hidden_sizes, nr_critics=2, activation="relu",
-                 layer_norm=False, output_dim=1, dropout_rate=0.0):
+                 layer_norm=False, output_dim=1, dropout_rate=0.0, layer_norm_all=False):
         super().__init__()
         sizes = [obs_dim + action_dim] + list(hidden_sizes)
         self.layers = nn.ModuleList(
             BatchedLinear(nr_critics, a, b) for a, b in zip(sizes[:-1], sizes[1:])
         )
         self.dropout_rate = dropout_rate
-        if dropout_rate > 0.0:
+        self.layer_norm_all = layer_norm_all
+        if dropout_rate > 0.0 or layer_norm_all:
             self.norm_weights = nn.ParameterList(torch.ones(nr_critics, size) for size in hidden_sizes)
             self.norm_biases = nn.ParameterList(torch.zeros(nr_critics, size) for size in hidden_sizes)
         elif layer_norm:
@@ -236,6 +240,7 @@ class VectorQCritic(nn.Module):
                 else:
                     raise ValueError("a dropout critic needs dropout_masks or a generator")
                 x = torch.where(mask, x / keep, 0.0)
+            if self.dropout_rate > 0.0 or self.layer_norm_all:
                 x = F.layer_norm(x, x.shape[-1:], eps=LAYER_NORM_EPS)
                 x = x * self.norm_weights[i][:, None, :] + self.norm_biases[i][:, None, :]
             elif i == 0 and self.layer_norm:

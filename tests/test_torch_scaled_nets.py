@@ -37,16 +37,6 @@ def _init(module, *args, **kwargs):
     return np_tree(module.init(jax.random.PRNGKey(0), *args, **kwargs))
 
 
-def _bronet(prefix, p):
-    out = {**convert._linear(f"{prefix}.embed", p["Dense_0"]), **convert._layer_norm(f"{prefix}.norm", p["LayerNorm_0"])}
-    for i in range(sum(1 for k in p if k.startswith("BroNetBlock_"))):
-        block = p[f"BroNetBlock_{i}"]
-        for j in (0, 1):
-            out.update(convert._linear(f"{prefix}.blocks.{i}.fc{j + 1}", block[f"Dense_{j}"]))
-            out.update(convert._layer_norm(f"{prefix}.blocks.{i}.norm{j + 1}", block[f"LayerNorm_{j}"]))
-    return out
-
-
 def _strip(tree, prefix):
     return {k[len(prefix) + 1:]: v for k, v in tree.items()}
 
@@ -65,7 +55,7 @@ def test_layers_match_flax():
     perturb = lambda tree: jax.tree.map(lambda a: a * rng.uniform(0.5, 1.5, size=a.shape).astype(np.float32), tree)
     cases = [
         (jl.SimbaEncoder(12, 2), layers.SimbaEncoder(7, 12, 2), x, lambda p: convert._simba_encoder("m", p)),
-        (jl.BroNetEncoder(12, 2), layers.BroNetEncoder(7, 12, 2), x, lambda p: _bronet("m", p)),
+        (jl.BroNetEncoder(12, 2), layers.BroNetEncoder(7, 12, 2), x, lambda p: convert._bronet("m", p)),
         (jl.SimbaV2Encoder(12, 2), layers.SimbaV2Encoder(7, 12, 2), x, lambda p: convert._simbav2_encoder("m", p)),
         (jl.HyperHead(12, 5), layers.HyperHead(12, 5), h, lambda p: convert._hyper_head("m", p)),
     ]

@@ -3,6 +3,7 @@ the port's model built from the same overrides, numpy copies of JAX trees,
 state-dict comparison and seeded batches."""
 
 import numpy as np
+import pytest
 import torch
 
 from rlx_tpu_torch.config import create_model, make_config
@@ -77,3 +78,41 @@ def same_tree(a, b):
         return 1
     assert a == b
     return 0
+
+
+def assert_tree_close(ours, ref, tol, what):
+    """Two nested dicts of tensors with the same keys, every tensor within
+    ``tol`` (rtol and atol)."""
+    assert set(ours) == set(ref), (what, sorted(set(ours) ^ set(ref)))
+    for key in ref:
+        if isinstance(ref[key], dict):
+            assert_tree_close(ours[key], ref[key], tol, f"{what} {key}")
+        else:
+            torch.testing.assert_close(ours[key], ref[key].to(ours[key].dtype), rtol=tol, atol=tol,
+                                       msg=lambda m: f"{what} {key}: {m}")
+
+
+def adam_moments(optimizer, module):
+    """``{parameter name: Adam's first moment}`` of ``module``'s parameters."""
+    return {name: optimizer.state[p]["exp_avg"] for name, p in module.named_parameters()}
+
+
+def jax_adam_mu(opt_state):
+    """The first moment (``mu``) of the Adam state inside an optax state."""
+    import jax
+
+    for node in jax.tree.leaves(opt_state, is_leaf=lambda x: hasattr(x, "mu")):
+        if hasattr(node, "mu"):
+            return np_tree(node.mu)
+    raise ValueError("no Adam state")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Runs a test with one torch CPU thread: the suite's workers share the
+    machine's cores, and torch's thread pools spin against each other there
+    (a FastMPO CPU train took 121 s among six workers, 1.5 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
