@@ -121,14 +121,25 @@ Phases (each prints one line; any failure exits nonzero):
     B2 exactly 256 and no B1; one more iteration under torch.profiler; then
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 328), then test mode from latest.model with both nets
-    and the normalizer equal bit for bit.
+    and the normalizer equal bit for bit;
+27. PPO with an LSTM, GRU, Mamba-2 and transformer memory on the Ant at
+    the JAX package's recurrent shape (4096 envs x 32 steps, 4 minibatches
+    of 1024 envs, 4 epochs, LSTM/GRU 128 wide; horizon 20, so every env
+    resets inside each window): 2 iterations each, B1 exactly 2 and B2
+    exactly 64 launches, finite losses, env-steps/s a iteration; the
+    policy's sequence re-run over a fresh window from its start carry
+    gives the rollout's log-probabilities within 1e-4; one LSTM and one
+    transformer iteration under torch.profiler, as phase 6; PPO-LSTM
+    through the Runner: 1 iteration, an evaluation and a save at horizon
+    200 (B2 exactly 232, B1 exactly 1), then test mode from latest.model
+    with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097].
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19 and 20), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
+shapes of phases 15, 19, 20 and 27), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
@@ -1473,6 +1484,132 @@ def main():
     launches_by_path["reppo_runner"] = runner_launches
     launches_by_path["reppo_test"] = test_launches
     del trained, tester
+
+    # 27. the recurrent PPO family on the Ant at the JAX package's recurrent
+    # shape (benchmarks/curves.py locomotion_lstm: 4096 envs x 32 steps, 4
+    # minibatches of 1024 envs with the time axis intact, 4 epochs; LSTM
+    # and GRU 128 wide, obs encoding 128, Mamba-2 state 16 and conv 4, the
+    # transformer 16 tokens, 4 heads, 2 blocks; critic 512/256/128
+    # ELU+LayerNorm, f32): 2 iterations each, one GAE launch an iteration
+    # and one substep launch an env step.  The horizon is cut to 20 so that
+    # every env resets inside each 32-step window; then the policy's
+    # sequence re-run over a fresh window (1024 envs, the resets inside)
+    # from its start carry must give the rollout's own log-probabilities
+    from rlx_tpu_torch.models import distributions as D
+    from rlx_tpu_torch.models.recurrent import map_carry
+
+    rec_steps = 32
+    rec_batch = 4096 * rec_steps
+    recurrent_shape = {"environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps, "algorithm.nr_minibatches": 4,
+                       "algorithm.nr_epochs": 4}
+    for name in ("ppo_lstm", "ppo_gru", "ppo_mamba2", "ppo_transformer"):
+        width = {"algorithm.rnn_hidden_dim": 128} if name in ("ppo_lstm", "ppo_gru") else {}
+        config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
+            "runner.device": "cuda", **recurrent_shape, **width, "environment.horizon": 20,
+            "algorithm.total_timesteps": 2 * rec_batch, "algorithm.evaluation_active": False,
+        })
+        model = create_model(config)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        expected = {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0}
+        if path_launches != expected:
+            fail(f"{name}: launch counts {path_launches} != {expected}")
+        check_logged(name, model.metrics_history, [16, 32])
+        launches_by_path[name] = path_launches
+        # the carry check, after the counts were read
+        with torch.no_grad():
+            init_carry = model.policy_carry
+            model.env_state, model.policy_carry, batch, _ = model._rollout(model.env_state, init_carry)
+            observations, _, actions, _, _, dones, log_probs = batch
+            mb = slice(0, 1024)
+            mean_seq, logstd_seq = model.policy.sequence(observations[:, mb], dones[:, mb],
+                                                         map_carry(lambda c: c[mb], init_carry))
+            rerun = D.gaussian_log_prob(mean_seq, logstd_seq, actions[:, mb])
+        carry_err = max_err([rerun], [log_probs[:, mb]], 1e-4, 1e-4, f"{name}: sequence re-run log-probs")
+        nr_dones = int(dones[:, mb].sum())
+        if nr_dones < 1024:
+            fail(f"{name}: {nr_dones} dones in the checked window, expected every env to reset")
+        print(f"train: {name} on the Ant, 2 iterations at 4096x{rec_steps} in {elapsed:.2f} s "
+              f"({2 * rec_batch / elapsed:.0f} env-steps/s overall), env-steps/s a iteration "
+              f"{[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}, sequence re-run of "
+              f"{rec_steps}x1024 with {nr_dones} resets inside: log-prob max|err| {carry_err:.3g} (rtol=atol=1e-4), "
+              "last losses " + json.dumps({k: v for k, v in model.metrics_history[-1].items()
+                                           if k.startswith("loss/")}))
+        if name in ("ppo_lstm", "ppo_transformer"):
+            def recurrent_iteration():
+                model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
+
+            print(f"profile {name}: " + json.dumps(profile_spans(recurrent_iteration, "recurrent_ppo/")))
+        del model, batch, init_carry
+
+    # PPO-LSTM through the Runner: 1 iteration, an evaluation and a save at
+    # horizon 200, then test mode from latest.model, every tensor equal bit
+    # for bit
+    lstm_args = ["--algorithm.name=ppo_lstm.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
+                 f"--environment.horizon={horizon}", "--environment.nr_envs=4096", f"--algorithm.nr_steps={rec_steps}",
+                 "--algorithm.nr_minibatches=4", "--algorithm.nr_epochs=4", "--algorithm.rnn_hidden_dim=128"]
+    os.chdir(workdir.name)
+    runner = Runner([*lstm_args, f"--algorithm.total_timesteps={rec_batch}", "--runner.save_model=True",
+                     "--runner.run_name=ppo_lstm"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = counts()
+    expected = {"engine_substep": rec_steps + horizon, "gae": 1, "categorical_projection": 0}
+    if runner_launches != expected:
+        fail(f"PPO-LSTM runner launch counts {runner_launches} != {expected}")
+    eval_returns = [float(r) for r in trained.eval_history["eval/episode_return"]]
+    if len(eval_returns) != 1 or not math.isfinite(eval_returns[0]):
+        fail(f"PPO-LSTM eval returns {eval_returns}")
+    lstm_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "ppo_lstm", "models", "latest.model")
+    tester = Runner([*lstm_args, "--runner.mode=test", f"--runner.load_model={lstm_latest}",
+                     "--runner.nr_test_episodes=10", "--runner.run_name=ppo_lstm_test"])
+    zero_counts()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = counts()
+    os.chdir(root)
+    if len(test_returns) != 10 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"PPO-LSTM test mode returned {test_returns}, expected 10 finite returns")
+    if not 0 < test_launches["engine_substep"] <= horizon or test_launches["gae"]:
+        fail(f"PPO-LSTM test mode launches {test_launches}, expected 1 to {horizon} B2 and no B1")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    print(f"runner ppo_lstm: 1 learning iteration at 4096x{rec_steps}, an evaluation at horizon {horizon} and a save "
+          f"in {train_s:.2f} s, launches {runner_launches}, eval return {eval_returns[0]:.3g}, checkpoint "
+          f"{os.path.getsize(lstm_latest) / 2**20:.2f} MiB; test mode {test_s:.2f} s (load included), launches "
+          f"{test_launches}, {compared} tensors restored bit for bit, returns {[f'{r:.3g}' for r in test_returns]}")
+    launches_by_path["ppo_lstm_runner"] = runner_launches
+    launches_by_path["ppo_lstm_test"] = test_launches
+    del trained, tester
+
+    # B1 at the recurrent path's shape [32, 4096] and a ragged [32, 4097]:
+    # Ant-like rewards in [0, 1], values near their return, 2 % terminations
+    rec_gae = {}
+    for B in (4096, 4097):
+        r = torch.rand(rec_steps, B, device=dev, generator=g)
+        v, nv = (10.0 + 2.0 * torch.randn(rec_steps, B, device=dev, generator=g) for _ in range(2))
+        d = torch.rand(rec_steps, B, device=dev, generator=g) < 0.02
+        rec_gae[B] = (r, v, nv, d)
+    rec_gae_err = max(max_err(gae_advantages_cuda(*a, 0.99, 0.95), gae_advantages_reference(*a, 0.99, 0.95),
+                              1e-5, 1e-5, f"GAE [{rec_steps}, {B}]") for B, a in rec_gae.items())
+    a = rec_gae[4096]
+    t = kernel_times(lambda: gae_advantages_cuda(*a, 0.99, 0.95), lambda: gae_advantages_reference(*a, 0.99, 0.95),
+                     "gae_kernel")
+    t["bound_ms"], t["bound_by"] = roofline(gae_bytes(rec_steps, 4096), 0)
+    print(f"B1 gae at [{rec_steps}, 4096] and [{rec_steps}, 4097] (recurrent PPO): max|err| {rec_gae_err:.3g} "
+          f"(rtol=atol=1e-5), kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a "
+          f"call) plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+          f"{gae_bytes(rec_steps, 4096)} bytes)")
+    kernels[0]["by_shape"][f"[{rec_steps}, 4096]"] = {**t, "max_abs_err": rec_gae_err}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], rec_gae_err)
     workdir.cleanup()
 
     for k in kernels:

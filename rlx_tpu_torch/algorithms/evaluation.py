@@ -8,10 +8,12 @@ import torch
 from rlx_tpu_torch.utils.logging import rlx_logger
 
 
-def collect_test_returns(step_fn, state, episodes, horizon):
+def collect_test_returns(step_fn, carry, episodes, horizon, extract=lambda c: c):
     """Collect ``episodes`` completed-episode returns.
 
-    ``step_fn(state) -> state`` advances the eval env state by one step.  A
+    ``step_fn(carry) -> carry`` advances the eval rollout by one env step;
+    ``extract(carry) -> env_state`` exposes its env state (a recurrent
+    policy's carry also holds the policy's recurrent state).  A
     cap of ``max(2 * episodes * horizon, horizon)`` steps guards against
     envs that never finish.  The done mask and the returns go to the host
     in one copy a step, the loop's only sync.
@@ -20,8 +22,9 @@ def collect_test_returns(step_fn, state, episodes, horizon):
     max_steps = max(2 * episodes * horizon, horizon)
     steps = 0
     while len(returns) < episodes and steps < max_steps:
-        state = step_fn(state)
+        carry = step_fn(carry)
         steps += 1
+        state = extract(carry)
         episode_return = state.info["rollout/episode_return"]
         done = (state.terminated | state.truncated).to(episode_return.dtype)
         done, episode_return = torch.stack([done, episode_return]).cpu().numpy()

@@ -1,0 +1,14 @@
+from rlx_tpu_torch.environments.types import (
+    ActionSpaceType,
+    DataInterfaceType,
+    DeepLearningFrameworkType,
+    ObservationSpaceType,
+)
+
+
+class GeneralProperties:
+    observation_space_types = [ObservationSpaceType.FLAT_VALUES]
+    action_space_types = [ActionSpaceType.CONTINUOUS]
+    data_interface_types = [DataInterfaceType.TORCH]
+
+    deep_learning_framework_type = DeepLearningFrameworkType.TORCH

@@ -7,6 +7,7 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_flashsac --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves cartpole_spot_c51 --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_ppo --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_lstm --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_mpo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_reppo --seeds 0
 
@@ -112,6 +113,14 @@ RUNS = {
         "overrides": {**MASKED, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10,
                       "algorithm.window_length": 4},
     },
+    # benchmarks/curves.py: the recurrent memory variants (4 minibatches of
+    # 2 envs with the time axis intact, 10 epochs; the transformer at twice
+    # the budget)
+    **{f"pendulum_masked_{name}": {
+        "algorithm": f"ppo_{name}.cuda", "environment": "classic.pendulum.cuda",
+        "budget": 400_000, "threshold": -700.0, "eval_points": 8,
+        "overrides": {**MASKED, "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 10},
+    } for name in ("lstm", "gru", "mamba2", "transformer")},
     "pendulum_masked_memory_actions": {
         "algorithm": "ppo_memory_actions.cuda", "environment": "classic.pendulum.cuda",
         "budget": 1_200_000, "threshold": -700.0, "eval_points": 12,
@@ -119,6 +128,7 @@ RUNS = {
                       "algorithm.memory_action_dimension": 4},
     },
 }
+RUNS["pendulum_masked_transformer"].update(budget=800_000, eval_points=10)
 # benchmarks/curves.py: the categorical and HL-Gauss supports over Pendulum's
 # raw returns; SimbaV2 and FlashSAC with gamma 0.9, a [-300, 0] support,
 # 150k steps and the reward normalizer off (SimbaV2's observation

@@ -385,6 +385,51 @@ def reppo_critic_state_dict(flax_params):
     return {**_mlp(p["MLP_0"]), **_dense("logits", p["Dense_0"]), **_dense("predicted_next", p["Dense_1"])}
 
 
+def _recurrent_cell(p):
+    """A flax LSTM (``ii``.. ``ho``), GRU (``ir``.. ``hn``), ``Mamba2Cell``
+    or ``TransformerCell`` as the port's cell of ``models/recurrent.py``:
+    the per-gate kernels stacked in gate order."""
+    gates = lambda names: torch.cat([_weight(p[n]["kernel"]) for n in names])
+    if "ii" in p:
+        return {"cell.weight_ih": gates(("ii", "if", "ig", "io")), "cell.weight_hh": gates(("hi", "hf", "hg", "ho")),
+                "cell.bias_hh": torch.cat([_f32(p[n]["bias"]) for n in ("hi", "hf", "hg", "ho")])}
+    if "ir" in p:
+        return {"cell.weight_ih": gates(("ir", "iz", "in")),
+                "cell.bias_ih": torch.cat([_f32(p[n]["bias"]) for n in ("ir", "iz", "in")]),
+                "cell.weight_hh": gates(("hr", "hz", "hn")), "cell.bias_hn": _f32(p["hn"]["bias"])}
+    if "A_log" in p:
+        out = {**_layer_norm("cell.norm", p["LayerNorm_0"]), **_dense("cell.in_proj", p["Dense_0"]),
+               **_dense("cell.x_proj", p["Dense_1"]), **_dense("cell.out_proj", p["Dense_2"])}
+        out.update({f"cell.{k}": _f32(p[k]) for k in ("conv_kernel", "conv_bias", "dt_bias", "A_log", "D")})
+        return out
+    out = {}
+    for b in range(len(p)):
+        block = p[f"block{b}"]
+        for name in ("wq", "wk", "wv", "wo", "mlp1", "mlp2"):
+            out.update(_dense(f"cell.blocks.{b}.{name}", block[name]))
+        for name in ("ln1", "ln2"):
+            out.update(_layer_norm(f"cell.blocks.{b}.{name}", block[name]))
+        out[f"cell.blocks.{b}.age_bias"] = _f32(block["age_bias"])
+    return out
+
+
+def recurrent_policy_state_dict(flax_params):
+    """``RecurrentPolicy`` state_dict from flax ``RecurrentPolicy`` params
+    (any cell, ``concat`` or ``film``, with or without a separate obs
+    encoder)."""
+    p = _unwrap(flax_params)
+    out = _recurrent_cell(p["cell"])
+    for name in ("cell_obs_encoder", "obs_encoder", "film_gamma", "film_beta", "torso_dense1", "torso_dense2",
+                 "torso_dense3", "mean_head"):
+        if name in p:
+            out.update(_dense(name, p[name]))
+    for name in ("cell_obs_ln", "obs_ln", "cell_ln", "torso_ln1"):
+        if name in p:
+            out.update(_layer_norm(name, p[name]))
+    out["policy_logstd"] = _f32(p["policy_logstd"])
+    return out
+
+
 def _layer_norm_all(flax_params, mlp_path):
     """Whether a flax ``MLP`` has a LayerNorm after more than its first
     Dense (FastMPO's trunks)."""
@@ -411,14 +456,18 @@ def checkpoint_tree_from_jax(algorithm, restored):
     ``"ddpg"``, ``"dqn"``, ``"ddqn"``, ``"c51"``, ``"dqn_hl_gauss"``,
     ``"pqn"``, ``"fastsac"``, ``"flashsac"``, ``"redq"``, ``"droq"``,
     ``"aqe"``, ``"tqc"``, ``"simba"``, ``"xqc"``, ``"simbav2"``,
-    ``"crossq"``, ``"bro"``, ``"mpo"``, ``"fastmpo"`` or ``"reppo"`` from a
-    JAX checkpoint's parameter tree.  The JAX checkpoint's
+    ``"crossq"``, ``"bro"``, ``"mpo"``, ``"fastmpo"``, ``"reppo"`` or the
+    recurrent family (``"ppo_lstm"``, ``"ppo_gru"``, ``"ppo_mamba2"``,
+    ``"ppo_transformer"``) from a JAX checkpoint's parameter tree.  The JAX checkpoint's
     ``*_batch_stats`` entries go into the nets' state dicts; BRO's
     ``init_copy`` becomes one flat dict ``<net>.<parameter>``; MPO's and
     FastMPO's trunks count as LayerNorm-after-every-Dense when their
     flax ``MLP`` has more than one LayerNorm."""
     if "full" in restored:
         raise ValueError("a JAX checkpoint with optimizer state: only parameters are carried across")
+    if algorithm in ("ppo_lstm", "ppo_gru", "ppo_mamba2", "ppo_transformer"):
+        return {"policy": recurrent_policy_state_dict(restored["policy"]),
+                "critic": critic_state_dict(restored["critic"])}
     if algorithm == "ppo":
         continuous = "policy_logstd" in _unwrap(restored["policy"])
         policy = policy_state_dict if continuous else categorical_policy_state_dict

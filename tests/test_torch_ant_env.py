@@ -1,7 +1,9 @@
 """The port's Ant (locomotion.ant.cuda on CPU tensors) against the JAX Ant
 from identical physics states and actions: observation, reward,
 termination, truncation, info, and the masked auto-reset with
-final_observation.  f32: rtol=atol=1e-5."""
+final_observation.  f32: rtol=atol=1e-5.  Then the eval-mode episode
+return of an Ant that stands for the 200 steps of an episode, in both
+packages."""
 
 import jax
 import jax.numpy as jnp
@@ -106,3 +108,31 @@ def test_noise_and_perturbation_options_run():
     assert torch.isfinite(physics.qvel).all()
     eval_state = env.reset(5, eval_mode=True)
     torch.testing.assert_close(eval_state.physics.qpos[0], eval_state.physics.qpos[1])
+
+
+def test_ant_eval_return_of_a_standing_ant_matches_jax():
+    """An Ant that holds zero action for the 200 steps of an eval episode
+    stands far from its target velocity and earns exp(-|v_target - v|^2 /
+    0.25) ~ 1e-7 a step on the tracking reward: ~2.25e-05 over the
+    episode in both packages (a return printed as 0.00 is this value)."""
+    from rlx_tpu.config import create_env as jax_create_env
+    from rlx_tpu.config import make_config as jax_make_config
+    from rlx_tpu_torch.config import create_env, make_config
+
+    nr_envs, horizon = 4, 200
+    _, jenv = jax_create_env(jax_make_config("ppo.tpu", "locomotion.ant.tpu", **{
+        "environment.nr_envs": nr_envs, "environment.horizon": horizon}))
+    _, env = create_env(make_config("ppo.cuda", "locomotion.ant.cuda", **{
+        "runner.device": "cpu", "environment.nr_envs": nr_envs, "environment.horizon": horizon}))
+    jstate = jenv.reset(jax.random.PRNGKey(0), eval_mode=True)
+    state = env.reset(0, eval_mode=True)
+    jstep = jax.jit(jenv.step)
+    zeros = jnp.zeros((nr_envs, 8))
+    for _ in range(horizon):
+        jstate = jstep(jstate, zeros)
+        state = env.step(state, torch.zeros(nr_envs, 8))
+    assert bool(state.truncated.all()) and bool(np.asarray(jstate.truncated).all())
+    ours = state.info["rollout/episode_return"].numpy()
+    ref = np.asarray(jstate.info["rollout/episode_return"])
+    np.testing.assert_allclose(ours, ref, rtol=1e-5)
+    assert np.all((ours > 1e-5) & (ours < 1e-4)), ours

@@ -190,3 +190,31 @@ def test_projection_kernel_edge_cases(cuda, name):
     torch.testing.assert_close(out, categorical_projection_reference(z, p, -10.0, 10.0, out_atoms),
                                rtol=1e-6, atol=1e-6)
     assert torch.equal(out, categorical_projection_cuda(z, p, -10.0, 10.0, out_atoms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru", "mamba2", "transformer"])
+def test_recurrent_policy_on_the_card_matches_the_cpu(cuda, cell):
+    """The recurrent policy's sequence re-run on the card (torch's fused
+    LSTM / GRU cells there) gives the CPU's means and gradients, and every
+    parameter gets a gradient (the fused LSTM cell drops the recurrent
+    bias's gradient unless an input bias is passed too)."""
+    from rlx_tpu_torch.models.recurrent import RecurrentPolicy
+
+    torch.manual_seed(0)
+    policy = RecurrentPolicy(3, 2, cell_type=cell, obs_encoding_dim=16, hidden_dim=8, cell_context_len=4,
+                             cell_nr_heads=2, cell_state_dim=4, cell_conv_kernel=3)
+    obs = torch.randn(12, 5, 3)
+    dones = torch.rand(12, 5) < 0.2
+    outs = {}
+    for device in ("cpu", cuda):
+        # gradients dropped before the move and copied after: Module.to
+        # moves a parameter's gradient in place
+        policy.zero_grad(set_to_none=True)
+        policy.to(device)
+        mean, logstd = policy.sequence(obs.to(device), dones.to(device), policy.initialize_carry(5))
+        (mean.square().sum() + logstd.sum()).backward()
+        assert all(p.grad is not None for p in policy.parameters())
+        outs[str(device)] = [t.detach().cpu().clone() for t in (mean, *(p.grad for p in policy.parameters()))]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)

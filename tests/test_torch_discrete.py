@@ -390,7 +390,8 @@ def test_curve_recipes_match_jax():
         assert run["environment"] == ref["environment"].replace(".tpu", ".cuda"), name
         assert fields(run) == fields(ref), name
     assert {f"cartpole_spot_{n}" for n in (*FAMILY, "pqn")} <= set(RUNS)
-    assert {f"pendulum_masked_{n}" for n in ("ppo", "history_window", "memory_actions")} <= set(RUNS)
+    assert {f"pendulum_masked_{n}" for n in ("ppo", "history_window", "memory_actions", "lstm", "gru", "mamba2",
+                                             "transformer")} <= set(RUNS)
     assert {f"pendulum_spot_{n}" for n in ("fastsac", "flashsac", "redq", "droq", "aqe", "tqc", "simba", "xqc",
                                            "simbav2", "crossq", "bro", "mpo", "fastmpo", "espo", "ppo_dtrl",
                                            "reppo")} <= set(RUNS)

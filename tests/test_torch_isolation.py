@@ -1,5 +1,6 @@
 """The port stands alone: no module of rlx_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax or the JAX package."""
+chip_smoke.py imports, loads jax or the JAX package.  Every algorithm's
+module is among the modules imported."""
 
 import os
 import subprocess
@@ -8,8 +9,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHECK = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import rlx_tpu_torch
+import rlx_tpu_torch.algorithms
 names = [m.name for m in pkgutil.walk_packages(rlx_tpu_torch.__path__, "rlx_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
@@ -18,8 +20,13 @@ import chip_smoke
 # above, and main() refuses to run without a card
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "rlx_tpu" or m.startswith("rlx_tpu."))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 30 else 0)
+# every algorithm's module (each algorithm directory is a package)
+root = os.path.dirname(rlx_tpu_torch.algorithms.__file__)
+algorithms = [d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d, "cuda"))]
+missing = sorted(({f"rlx_tpu_torch.algorithms.{a}.cuda.{a}" for a in algorithms}
+                  | {"rlx_tpu_torch.models.recurrent", "rlx_tpu_torch.algorithms.recurrent_ppo"}) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 30 else 0)
 """
 
 
