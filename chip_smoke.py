@@ -132,14 +132,37 @@ Phases (each prints one line; any failure exits nonzero):
     transformer iteration under torch.profiler, as phase 6; PPO-LSTM
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 232, B1 exactly 1), then test mode from latest.model
-    with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097].
+    with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097];
+28. PPO-LSTM on ``locomotion.robot.cuda`` (the quadruped, its default
+    randomization and curriculum) at the JAX package's ``locomotion_lstm``
+    shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 2
+    iterations on the default heightfield, whose physics runs the eager
+    engine on the card (B1 exactly 2, B2 none), then on the plane (B1 2,
+    B2 exactly 64); one more iteration of each profiled from the device's
+    events (wall, busy, idle share); the heightfield physics alone a
+    control step; the projected wall time of one 50M-step
+    ``locomotion_lstm`` seed;
+29. B2 against ``engine.step_reference`` at the quadruped's and the
+    Booster T1's shapes (B=4096, evaluation mode, two env steps after the
+    reset): the env's own DomainParams with a per-dof damping scale and
+    its delayed PD targets as a ctrl_sequence, within 1e-4 on the envs the
+    last step did not reset; times and bound at both;
+30. feedforward PPO at the ``locomotion_ppo`` shape (minibatch 32768) on
+    the heightfield: 1 iteration, B1 exactly 1, B2 none;
+31. PPO-LSTM on ``locomotion.soccer.cuda`` (the Booster T1 on the plane)
+    at the ``soccer_lstm`` shape: 2 iterations (B1 2, B2 exactly 64), one
+    profiled as in 28; then through the Runner: 1 iteration, an evaluation
+    and a save with the episode cut to 1 s (B2 exactly 82, B1 1), then
+    test mode from latest.model with every tensor equal bit for bit and at
+    most 50 B2 launches.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20 and 27), the last line the device record.  Needs a CUDA device; never falls back to the CPU.
+shapes of phases 15, 19, 20 and 27, B2's at the robots' of phase 29), the
+last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
@@ -271,6 +294,29 @@ def profile_spans(fn, span_prefix):
         "device_idle_share": 1.0 - busy_ms / wall_ms, "host_spans_ms": host_spans_ms,
         "device_spans_ms": device_spans_ms, "top_kernels_ms": {k[:60]: v for k, v in top},
     }
+
+
+def device_idle(fn, span_prefix):
+    """Run ``fn`` once under torch.profiler with the device's activity only,
+    reading the raw events: wall ms, device busy ms (every kernel and copy;
+    not the ``span_prefix`` annotations) and idle share.  For programs of
+    10^5-10^6 small kernels, where ``profile_spans``' host events and their
+    parsing take minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and not e.name().startswith(span_prefix)]
+    busy_ms = sum(e.duration_ns() for e in events) / 1e6
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_events": len(events), "read_s": time.perf_counter() - t0}
 
 
 def kernel_times(fn, plain, kernel_name, reps=200):
@@ -1610,6 +1656,222 @@ def main():
           f"{gae_bytes(rec_steps, 4096)} bytes)")
     kernels[0]["by_shape"][f"[{rec_steps}, 4096]"] = {**t, "max_abs_err": rec_gae_err}
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], rec_gae_err)
+
+    # 28. robot locomotion (locomotion.robot.cuda, the quadruped) at the
+    # JAX package's locomotion_lstm shape (4096 envs x 32 steps, 4
+    # minibatches, 4 epochs, LSTM 128; its default randomization and
+    # curriculum): 2 PPO-LSTM iterations on the default heightfield, where
+    # the physics runs the engine's eager path on the card (as the JAX
+    # package sends terrain to XLA), so B1 is launched twice and B2 never;
+    # the same on the plane, B2 once an env step; one profiled iteration of
+    # each, read from the device's events alone (~7 x 10^5 on the
+    # heightfield: the host spans' parsing took minutes); the eager
+    # heightfield physics alone a control step; the
+    # projected wall time of one 50M-step locomotion_lstm seed
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
+    from rlx_tpu_torch.environments.locomotion.soccer.cuda.environment import SoccerEnv
+
+    loco_shape = {"environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps, "algorithm.nr_minibatches": 4,
+                  "algorithm.nr_epochs": 4, "algorithm.rnn_hidden_dim": 128, "algorithm.learning_rate": 3e-4,
+                  "algorithm.evaluation_active": False}
+    robot_rates = {}
+
+    def recurrent_path(path, env_name, expected, overrides=()):
+        config = make_config("ppo_lstm.cuda", env_name, **{
+            "runner.device": "cuda", **loco_shape, **dict(overrides), "algorithm.total_timesteps": 2 * rec_batch,
+        })
+        model = create_model(config)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        if path_launches != expected:
+            fail(f"{path}: launch counts {path_launches} != {expected}")
+        check_logged(path, model.metrics_history, [16, 32])
+        launches_by_path[path] = path_launches
+        sps = [m["time/sps"] for m in model.metrics_history]
+        robot_rates[path] = sps[-1]
+
+        def iteration():
+            model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
+
+        t0 = time.perf_counter()
+        profile = device_idle(iteration, "recurrent_ppo/")
+        profile["profiled_s"] = time.perf_counter() - t0
+        tracking = model.env_state.info["rollout/episode_tracking"]
+        print(f"train: {path}, 2 PPO-LSTM iterations at 4096x{rec_steps} in {elapsed:.2f} s, env-steps/s a "
+              f"iteration {sps}, launches {path_launches}, observation {tuple(model.env_state.observation.shape)} "
+              f"(policy reads {len(model.train_env.policy_observation_indices)}, critic "
+              f"{len(model.train_env.critic_observation_indices)}), rollout/episode_tracking mean "
+              f"{float(tracking.mean()):.4f}, last losses "
+              + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
+        print(f"profile {path}: " + json.dumps(profile))
+        return model
+
+    model = recurrent_path("robot_lstm_heightfield", "locomotion.robot.cuda",
+                           {"engine_substep": 0, "gae": 2, "categorical_projection": 0})
+    env = model.train_env
+    internal = model.env_state.physics["internal"]
+    qpos, qvel = model.env_state.physics["qpos"], model.env_state.physics["qvel"]
+    targets = env.control_function.process_action(
+        torch.zeros(env.nr_substeps, 4096, env.nr_actuator_joints, device=dev), internal)
+    terrain_step = lambda: engine.step(
+        env.model, qpos, qvel, targets[0], nr_substeps=env.nr_substeps, dr=env._domain_params(internal),
+        terrain=env.terrain_function.engine_terrain(internal), ctrl_sequence=targets,
+        contact_state=model.env_state.physics["contact_anchor"])
+    zero_counts()
+    eager_ms = time_ms(terrain_step, 3)
+    if counts()["engine_substep"]:
+        fail("a heightfield step launched the substep kernel")
+    print(f"heightfield physics: engine.step over the heightfield at B=4096 ({env.nr_substeps} substeps, the "
+          f"eager path on the card) {eager_ms:.1f} ms a control step")
+    del model, internal, qpos, qvel, targets
+    recurrent_path("robot_lstm_plane", "locomotion.robot.cuda",
+                   {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0},
+                   {"environment.terrain.type": "plane"})
+    seed_s = 50_000_000 / robot_rates["robot_lstm_heightfield"]
+    print(f"learning check projection: one 50M-step locomotion_lstm seed at "
+          f"{robot_rates['robot_lstm_heightfield']} env-steps/s takes {seed_s / 3600:.2f} h alone; three seeds at "
+          f"once on this card take at least {3 * seed_s / 3600:.2f} h if they share it evenly")
+
+    # 29. B2 against engine.step_reference at the robots' shapes: the
+    # quadruped (plane) and the Booster T1 (soccer) at B=4096 in evaluation
+    # mode (the curriculum at 1: every randomization axis drawn), two env
+    # steps after the reset, with the env's own DomainParams and its delayed
+    # PD targets as a ctrl_sequence, compared on the envs that the last
+    # step did not reset (a reset leaves a foot exactly on the ground, where
+    # the first contact's damper turns on the last bit of the kinematics).
+    # The damping scale is per dof, [nv, B]: the env's times a factor in
+    # [0.5, 1.5) for each dof and env (the joint locks' 1000x damping make
+    # the explicit integrator diverge within a step in both packages, so
+    # the envs the reset locked have terminated by then)
+    def robot_case(env_class, env_name, overrides):
+        config = make_config("ppo_lstm.cuda", env_name, **{"runner.device": "cuda", "environment.nr_envs": 4096,
+                                                            **overrides})
+        env = env_class(config.environment, 4096, device="cuda")
+        state = env.reset(1, eval_mode=True)
+        for _ in range(2):
+            state = env.step(state, 2.0 * torch.rand(4096, env.nr_actuator_joints, device=dev, generator=g) - 1.0)
+        internal = state.physics["internal"]
+        action = 2.0 * torch.rand(4096, env.nr_actuator_joints, device=dev, generator=g) - 1.0
+        delayed, _ = env.action_delay.delay_action(action, internal)
+        targets = env.control_function.process_action(delayed, internal).contiguous()
+        dr = env._domain_params(internal)
+        dr = dr._replace(damping_scale=dr.damping_scale * (0.5 + torch.rand(dr.damping_scale.shape, device=dev,
+                                                                             generator=g)))
+        args = (env.model, state.physics["qpos"], state.physics["qvel"], targets[0])
+        kw = dict(nr_substeps=env.nr_substeps, dr=dr, ctrl_sequence=targets,
+                  contact_state=state.physics["contact_anchor"])
+        return env, args, kw, internal["joint_dropout_lock"], ~(state.terminated | state.truncated)
+
+    robot_cases = {
+        "quadruped": robot_case(LocomotionEnv, "locomotion.robot.cuda", {"environment.terrain.type": "plane"}),
+        "booster_t1": robot_case(SoccerEnv, "locomotion.soccer.cuda", {}),
+    }
+    for robot, (env, args, kw, movable, kept) in robot_cases.items():
+        locks = int((~movable).sum())
+        changing = bool((kw["ctrl_sequence"][1:] != kw["ctrl_sequence"][:1]).any())
+        out = step_cuda(*args, **kw)
+        ref = engine.step_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_err([o[kept] for o in out], [r[kept] for r in ref], 1e-4, 1e-4,
+                      f"substep ({robot}, B=4096, the env's DomainParams)")
+        substep = lambda: step_cuda(*args, **kw)
+        model = env.model
+        flops = substep_flops(model, dr=True) * 4096 * env.nr_substeps
+        # the state and anchors in and out, the whole ctrl_sequence and every
+        # DomainParams field read once
+        nbytes = (substep_bytes(model, 4096, with_anchors=True)
+                  + 4 * (kw["ctrl_sequence"].numel() - 4096 * len(model.act_dof))
+                  + 4 * sum(f.numel() for f in kw["dr"] if f is not None))
+        t = kernel_times(substep, lambda: engine.step_reference(*args, **kw), "engine_substep_kernel", reps=50)
+        t["bound_ms"], t["bound_by"] = roofline(nbytes, flops)
+        print(f"B2 engine_substep on the {robot} (nq {model.nq}, nv {model.nv}, nbody {model.nbody}, ncon "
+              f"{len(model.con_body)}) at B=4096, {env.nr_substeps} substeps, against engine.step_reference: "
+              f"max|err| {err:.3g} (rtol=atol=1e-4) over the {int(kept.sum())} envs not just reset, {locks} "
+              f"locked joints left, the targets "
+              f"{'change' if changing else 'hold'} between substeps; kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.2f} ms bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        kernels[1]["by_shape"] = {**kernels[1].get("by_shape", {}), f"{robot} B=4096": {**t, "max_abs_err": err}}
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+    del robot_cases, env, args, kw, movable, kept, out, ref
+
+    # 30. feedforward PPO at the JAX package's locomotion_ppo shape (4096 x
+    # 32, minibatch 32768, 4 epochs, lr 3e-4) on the default heightfield: 1
+    # iteration, B1 once, B2 never
+    config = make_config("ppo.cuda", "locomotion.robot.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps,
+        "algorithm.minibatch_size": 32768, "algorithm.nr_epochs": 4, "algorithm.learning_rate": 3e-4,
+        "algorithm.total_timesteps": rec_batch, "algorithm.evaluation_active": False,
+    })
+    model = create_model(config)
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    path_launches = counts()
+    if path_launches != {"engine_substep": 0, "gae": 1, "categorical_projection": 0}:
+        fail(f"robot_ppo: launch counts {path_launches}")
+    check_logged("robot_ppo", model.metrics_history)
+    launches_by_path["robot_ppo"] = path_launches
+    print(f"train: robot_ppo, 1 PPO iteration at 4096x{rec_steps} on the heightfield in {elapsed:.2f} s, "
+          f"env-steps/s {[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}")
+    del model
+
+    # 31. soccer (locomotion.soccer.cuda: the Booster T1 on the plane) at the
+    # JAX package's soccer_lstm shape: 2 PPO-LSTM iterations, B2 once an env
+    # step, one profiled as in phase 28; then through the Runner: 1 iteration, an
+    # evaluation and a save with the episode cut to 1 s (50 steps), then
+    # test mode from latest.model, every tensor equal bit for bit
+    recurrent_path("soccer_lstm", "locomotion.soccer.cuda",
+                   {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0})
+    soccer_horizon = 50
+    soccer_args = ["--algorithm.name=ppo_lstm.cuda", "--environment.name=locomotion.soccer.cuda",
+                   "--runner.device=cuda", "--environment.episode_length_in_seconds=1", "--environment.nr_envs=4096",
+                   f"--algorithm.nr_steps={rec_steps}", "--algorithm.nr_minibatches=4", "--algorithm.nr_epochs=4",
+                   "--algorithm.rnn_hidden_dim=128"]
+    os.chdir(workdir.name)
+    runner = Runner([*soccer_args, f"--algorithm.total_timesteps={rec_batch}", "--runner.save_model=True",
+                     "--runner.run_name=soccer_lstm"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = counts()
+    expected = {"engine_substep": rec_steps + soccer_horizon, "gae": 1, "categorical_projection": 0}
+    if runner_launches != expected:
+        fail(f"soccer runner launch counts {runner_launches} != {expected}")
+    tracking = [float(r) for r in trained.eval_history["eval/episode_tracking"]]
+    if len(tracking) != 1 or not 0.0 <= tracking[0] <= 1.0:
+        fail(f"soccer eval tracking {tracking}")
+    soccer_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "soccer_lstm", "models",
+                                 "latest.model")
+    tester = Runner([*soccer_args, "--runner.mode=test", f"--runner.load_model={soccer_latest}",
+                     "--runner.nr_test_episodes=10", "--runner.run_name=soccer_lstm_test"])
+    zero_counts()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = counts()
+    os.chdir(root)
+    if len(test_returns) != 10 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"soccer test mode returned {test_returns}, expected 10 finite returns")
+    if not 0 < test_launches["engine_substep"] <= soccer_horizon or test_launches["gae"]:
+        fail(f"soccer test mode launches {test_launches}, expected 1 to {soccer_horizon} B2 and no B1")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    print(f"runner soccer_lstm: 1 learning iteration at 4096x{rec_steps}, an evaluation at horizon {soccer_horizon} "
+          f"and a save in {train_s:.2f} s, launches {runner_launches}, eval episode tracking {tracking[0]:.4f}; "
+          f"test mode {test_s:.2f} s (load included), launches {test_launches}, {compared} tensors restored bit for "
+          f"bit, returns {[f'{r:.3g}' for r in test_returns]}")
+    launches_by_path["soccer_runner"] = runner_launches
+    launches_by_path["soccer_test"] = test_launches
+    del trained, tester
     workdir.cleanup()
 
     for k in kernels:

@@ -39,6 +39,7 @@ from rlx_tpu_torch.algorithms.tqc.cuda.tqc import quantile_huber_loss
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.layers import BroNetEncoder, Linear, orthogonal_
+from rlx_tpu_torch.models.mlp import select_observations
 
 
 class BroPolicy(nn.Module):
@@ -113,10 +114,10 @@ class BRO(EnsembleSAC):
     q_update_steps_key = "updates_per_step"
 
     def _build_policy(self, a):
-        return BroPolicy(self.obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
+        return BroPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
 
     def _build_critic(self, a):
-        return BroVectorCritic(self.obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
+        return BroVectorCritic(self.critic_obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
                                a.nr_quantiles, a.nr_critics)
 
     def setup_states(self):
@@ -131,7 +132,10 @@ class BRO(EnsembleSAC):
         super().setup_states()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed + 1)
-            optimistic_policy = BroDualPolicy(self.obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
+            optimistic_policy = select_observations(
+                BroDualPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks),
+                self.policy_observation_indices,
+            )
         optimism, regularizer = Adjustment(a.init_optimism), Adjustment(a.init_regularizer)
         for module in (optimistic_policy, optimism, regularizer):
             module.to(self.device)

@@ -42,10 +42,10 @@ class CrossQVectorCritic(nn.Module):
 
 class CrossQ(SAC):
     def _build_critic(self, a):
-        critic = CrossQVectorCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+        critic = CrossQVectorCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
                                     a.batch_renorm_momentum)
         with torch.no_grad():
-            critic(torch.zeros(2, self.obs_dim), torch.zeros(2, self.action_dim), True)
+            critic(torch.zeros(2, self.critic_obs_dim), torch.zeros(2, self.action_dim), True)
         commit_batch_stats(critic)
         return critic
 

@@ -12,14 +12,12 @@ The same algorithm as the JAX package's ``ddpg.tpu``:
   critic, then moves both targets by Polyak averaging.
 """
 
-import math
-
 import torch
 
 from rlx_tpu_torch.algorithms.ddpg.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
-from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, QCritic
+from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, QCritic, select_observations
 
 
 class DDPG(OffPolicyAlgorithm):
@@ -29,16 +27,15 @@ class DDPG(OffPolicyAlgorithm):
     def setup_states(self):
         a = self.config.algorithm
         self.epsilon = a.epsilon
-        obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = DeterministicTanhPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+            policy = DeterministicTanhPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
                                              a.activation, a.layer_norm)
-            critic = QCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.activation,
+            critic = QCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.activation,
                              a.layer_norm)
-        policy.to(self.device)
-        critic.to(self.device)
+        policy = select_observations(policy, self.policy_observation_indices).to(self.device)
+        critic = select_observations(critic, self.critic_observation_indices).to(self.device)
         adam = lambda module: torch.optim.Adam(module.parameters(), lr=self.learning_rate,
                                                betas=(0.9, 0.999), eps=1e-8)
         self.policy = TrainState(policy, adam(policy))

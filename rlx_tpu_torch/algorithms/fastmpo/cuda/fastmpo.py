@@ -55,7 +55,7 @@ class FastMPO(MPO):
         if a.policy_network_type not in NETWORK_SHAPES:
             return super()._build_policy(a)
         hidden, _, activation, ln_all = NETWORK_SHAPES[a.policy_network_type]
-        return MPOGaussianPolicy(self.obs_dim, self.action_dim, hidden, activation, layer_norm=False,
+        return MPOGaussianPolicy(self.policy_obs_dim, self.action_dim, hidden, activation, layer_norm=False,
                                  init_scale=a.policy_init_scale, min_scale=a.policy_min_scale, layer_norm_all=ln_all,
                                  zero_init_heads=True, scaled_std_head=True, orthogonal_init=False)
 
@@ -63,8 +63,8 @@ class FastMPO(MPO):
         if a.critic_network_type not in NETWORK_SHAPES:
             return super()._build_critic(a)
         _, hidden, activation, ln_all = NETWORK_SHAPES[a.critic_network_type]
-        return VectorQCritic(self.obs_dim, self.action_dim, hidden, self.nr_critics, activation, layer_norm=False,
-                             output_dim=self.nr_atoms, layer_norm_all=ln_all)
+        return VectorQCritic(self.critic_obs_dim, self.action_dim, hidden, self.nr_critics, activation,
+                             layer_norm=False, output_dim=self.nr_atoms, layer_norm_all=ln_all)
 
     def observe_transition(self, observation, env_state):
         """The normalizer learns from the sampled batches, not the rollout."""

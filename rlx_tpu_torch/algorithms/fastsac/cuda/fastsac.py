@@ -33,7 +33,7 @@ class FastSAC(SAC):
     state_names = ("policy", "critic", "alpha", "obs_normalizer")
 
     def _build_critic(self, a):
-        return VectorQCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+        return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
                              a.activation, a.layer_norm, output_dim=a.nr_atoms)
 
     def setup_states(self):

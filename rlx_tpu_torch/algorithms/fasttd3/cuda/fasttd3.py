@@ -20,15 +20,13 @@ The same algorithm as the JAX package's ``fasttd3.tpu``:
   targets stay as they were.
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 from rlx_tpu_torch.algorithms.fasttd3.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
-from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic
+from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic, select_observations
 from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops.distributional import categorical_projection_dense
 
@@ -51,20 +49,19 @@ class FastTD3(OffPolicyAlgorithm):
         self.noise_scales = torch.linspace(a.noise_std_min, a.noise_std_max, self.nr_envs, device=self.device)
 
         self.learning_rate_tensor = torch.tensor(self.learning_rate, device=self.device)
-        obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = DeterministicTanhPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+            policy = DeterministicTanhPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
                                              a.activation, a.layer_norm)
-            critic = VectorQCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), 2,
+            critic = VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), 2,
                                    a.activation, a.layer_norm, self.nr_atoms)
         adamw = lambda module: torch.optim.AdamW(
             module.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=a.weight_decay,
         )
-        policy.to(self.device)
-        critic.to(self.device)
+        policy = select_observations(policy, self.policy_observation_indices).to(self.device)
+        critic = select_observations(critic, self.critic_observation_indices).to(self.device)
         self.policy = TrainState(policy, adamw(policy))
         self.critic = TrainState(critic, adamw(critic))
         self.obs_normalizer = normalizers.obs_normalizer_init(self.os_shape, self.device)

@@ -43,7 +43,7 @@ from rlx_tpu_torch.algorithms.flashsac.cuda.layers import FlashSACDoubleCritic, 
 from rlx_tpu_torch.algorithms.sac.cuda.sac import SAC
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
 from rlx_tpu_torch.models.layers import commit_batch_stats, discard_batch_stats
-from rlx_tpu_torch.models.mlp import EntropyCoefficient
+from rlx_tpu_torch.models.mlp import EntropyCoefficient, select_observations
 from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops.distributional import categorical_projection_dense
 
@@ -84,13 +84,18 @@ class FlashSAC(SAC):
         self.state_names = ("policy", "critic", "alpha", "noise") + (
             ("reward_normalizer",) if self.normalize_rewards else ())
 
-        obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, moved, then projected
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = FlashSACPolicy(obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
-            critic = FlashSACDoubleCritic(obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
-                                          a.nr_atoms, a.v_min, a.v_max, a.nr_critics)
+            policy = select_observations(
+                FlashSACPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks),
+                self.policy_observation_indices,
+            )
+            critic = select_observations(
+                FlashSACDoubleCritic(self.critic_obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
+                                     a.nr_atoms, a.v_min, a.v_max, a.nr_critics),
+                self.critic_observation_indices,
+            )
         alpha = EntropyCoefficient(a.init_entropy_coefficient)
         for module in (policy, critic, alpha):
             module.to(self.device)

@@ -39,7 +39,7 @@ from torch import nn
 from rlx_tpu_torch.algorithms.mpo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.train_state import TrainState, clip_by_global_norm_
-from rlx_tpu_torch.models.mlp import MLP, VectorQCritic, _lecun_linear
+from rlx_tpu_torch.models.mlp import MLP, VectorQCritic, _lecun_linear, select_observations
 from rlx_tpu_torch.ops import normalizers
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -95,11 +95,11 @@ class MPO(OffPolicyAlgorithm):
     EPS = 1e-8
 
     def _build_policy(self, a):
-        return MPOGaussianPolicy(self.obs_dim, self.action_dim, tuple(a.policy_hidden_sizes), a.activation,
+        return MPOGaussianPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes), a.activation,
                                  a.layer_norm, a.policy_init_scale, a.policy_min_scale)
 
     def _build_critic(self, a):
-        return VectorQCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), self.nr_critics,
+        return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), self.nr_critics,
                              a.activation, a.layer_norm, output_dim=self.nr_atoms)
 
     def _optimizer(self, module, learning_rate, weight_decay, betas):
@@ -126,13 +126,12 @@ class MPO(OffPolicyAlgorithm):
         self.clipped_double_q = a.get("clipped_double_q_learning", False)
         self.min_log_temperature = a.get("min_log_temperature", -18.0)
         self.min_log_alpha = a.get("min_log_alpha", -18.0)
-        self.obs_dim = math.prod(self.os_shape)
 
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = self._build_policy(a)
-            critic = self._build_critic(a)
+            policy = select_observations(self._build_policy(a), self.policy_observation_indices)
+            critic = select_observations(self._build_critic(a), self.critic_observation_indices)
         duals = DualVariables(self.action_dim, a.init_log_eta, a.init_log_alpha_mean, a.init_log_alpha_stddev,
                               a.init_log_penalty_temperature)
         betas = (a.get("adam_beta1", 0.9), a.get("adam_beta2", 0.999))

@@ -58,6 +58,7 @@ from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
 from rlx_tpu_torch.algorithms.train_state import TrainState
 from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.environments.types import ActionSpaceType
+from rlx_tpu_torch.models.mlp import observation_width
 from rlx_tpu_torch.ops import replay_buffer as rb
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
@@ -132,6 +133,12 @@ class OffPolicyAlgorithm:
 
         self.horizon = train_env.horizon
         self.os_shape = tuple(train_env.single_observation_space.shape)
+        # the observation columns each net reads (the env's asymmetric
+        # policy / critic index sets; None: all of them)
+        self.policy_observation_indices = getattr(train_env, "policy_observation_indices", None)
+        self.critic_observation_indices = getattr(train_env, "critic_observation_indices", None)
+        self.policy_obs_dim = observation_width(self.os_shape, self.policy_observation_indices)
+        self.critic_obs_dim = observation_width(self.os_shape, self.critic_observation_indices)
         self.discrete = train_env.general_properties.action_space_type == ActionSpaceType.DISCRETE
         if self.discrete:
             # int32 actions, stored as they are and neither clipped nor rescaled

@@ -48,7 +48,7 @@ from rlx_tpu_torch.algorithms.reppo.cuda.general_properties import GeneralProper
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.models import distributions as D
-from rlx_tpu_torch.models.mlp import MLP, _lecun_linear
+from rlx_tpu_torch.models.mlp import MLP, _lecun_linear, observation_width, select_observations
 from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops.distributional import hl_gauss_expectation, hl_gauss_targets
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -155,7 +155,8 @@ class REPPO:
 
         self.horizon = train_env.horizon
         self.os_shape = tuple(train_env.single_observation_space.shape)
-        obs_dim = math.prod(self.os_shape)
+        policy_indices = getattr(train_env, "policy_observation_indices", None)
+        critic_indices = getattr(train_env, "critic_observation_indices", None)
         self.action_dim = math.prod(train_env.single_action_space.shape)
         self.target_entropy = -0.5 * a.target_entropy_multiplier * self.action_dim * 2
 
@@ -165,9 +166,16 @@ class REPPO:
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            self.policy = ReppoPolicy(obs_dim, self.action_dim, a.policy_hidden_dim, a.init_entropy_coefficient,
-                                      a.init_kl_coefficient)
-            self.critic = ReppoCritic(obs_dim, self.action_dim, a.critic_hidden_dim, self.nr_bins)
+            self.policy = select_observations(
+                ReppoPolicy(observation_width(self.os_shape, policy_indices), self.action_dim, a.policy_hidden_dim,
+                            a.init_entropy_coefficient, a.init_kl_coefficient),
+                policy_indices,
+            )
+            self.critic = select_observations(
+                ReppoCritic(observation_width(self.os_shape, critic_indices), self.action_dim, a.critic_hidden_dim,
+                            self.nr_bins),
+                critic_indices,
+            )
         self.policy.to(self.device)
         self.critic.to(self.device)
         self.policy_optimizer = torch.optim.Adam(self.policy.parameters(), lr=a.learning_rate, eps=1e-8)

@@ -21,15 +21,13 @@ the parameters before the update, then the three optimizers step and the
 critic's target moves.
 """
 
-import math
-
 import torch
 
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.sac.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
 from rlx_tpu_torch.models import distributions as D
-from rlx_tpu_torch.models.mlp import EntropyCoefficient, SquashedGaussianPolicy, VectorQCritic
+from rlx_tpu_torch.models.mlp import EntropyCoefficient, SquashedGaussianPolicy, VectorQCritic, select_observations
 
 
 class SAC(OffPolicyAlgorithm):
@@ -39,12 +37,12 @@ class SAC(OffPolicyAlgorithm):
 
     def _build_policy(self, a):
         """The policy network; the SAC variants with other trunks override it."""
-        return SquashedGaussianPolicy(self.obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+        return SquashedGaussianPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
                                       a.activation, a.layer_norm, a.log_std_min, a.log_std_max)
 
     def _build_critic(self, a):
         """The critic ensemble; the SAC variants with other heads override it."""
-        return VectorQCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+        return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
                              a.activation, a.layer_norm, dropout_rate=a.get("dropout_rate", 0.0))
 
     def setup_states(self):
@@ -52,12 +50,11 @@ class SAC(OffPolicyAlgorithm):
         self.anneal_learning_rate = a.anneal_learning_rate
         self.target_entropy = (-float(self.action_dim) if a.target_entropy == "auto"
                                else float(a.target_entropy))
-        self.obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = self._build_policy(a)
-            critic = self._build_critic(a)
+            policy = select_observations(self._build_policy(a), self.policy_observation_indices)
+            critic = select_observations(self._build_critic(a), self.critic_observation_indices)
         alpha = EntropyCoefficient(1.0)
         for module in (policy, critic, alpha):
             module.to(self.device)

@@ -43,9 +43,9 @@ class SimbaVectorCritic(nn.Module):
 
 class SimBa(SAC):
     def _build_policy(self, a):
-        return SimbaPolicy(self.obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks,
+        return SimbaPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks,
                            a.log_std_min, a.log_std_max)
 
     def _build_critic(self, a):
-        return SimbaVectorCritic(self.obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
+        return SimbaVectorCritic(self.critic_obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
                                  a.nr_critics)

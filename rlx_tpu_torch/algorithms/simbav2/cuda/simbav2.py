@@ -60,10 +60,10 @@ class SimbaV2VectorCritic(nn.Module):
 
 class SimbaV2(XQC):
     def _build_policy(self, a):
-        return SimbaV2Policy(self.obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
+        return SimbaV2Policy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
 
     def _build_critic(self, a):
-        return SimbaV2VectorCritic(self.obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
+        return SimbaV2VectorCritic(self.critic_obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
                                    a.nr_atoms, a.nr_critics)
 
     def setup_states(self):

@@ -16,14 +16,12 @@ The same algorithm as the JAX package's ``td3.tpu``:
   (its Adam moments and step count) and both targets stay as they were.
 """
 
-import math
-
 import torch
 
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.td3.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
-from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic
+from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic, select_observations
 
 
 class TD3(OffPolicyAlgorithm):
@@ -36,16 +34,15 @@ class TD3(OffPolicyAlgorithm):
         self.smoothing_epsilon = a.smoothing_epsilon
         self.smoothing_clip_value = a.smoothing_clip_value
         self.policy_delay = a.policy_delay
-        obs_dim = math.prod(self.os_shape)
         # parameters are initialized on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            policy = DeterministicTanhPolicy(obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
+            policy = DeterministicTanhPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes),
                                              a.activation, a.layer_norm)
-            critic = VectorQCritic(obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), 2,
+            critic = VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), 2,
                                    a.activation, a.layer_norm)
-        policy.to(self.device)
-        critic.to(self.device)
+        policy = select_observations(policy, self.policy_observation_indices).to(self.device)
+        critic = select_observations(critic, self.critic_observation_indices).to(self.device)
         adam = lambda module: torch.optim.Adam(module.parameters(), lr=self.learning_rate,
                                                betas=(0.9, 0.999), eps=1e-8)
         self.policy = TrainState(policy, adam(policy))

@@ -29,7 +29,7 @@ def quantile_huber_loss(pred, target, taus, kappa=1.0):
 
 class TQC(SAC):
     def _build_critic(self, a):
-        return VectorQCritic(self.obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
+        return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
                              a.activation, a.layer_norm, output_dim=a.nr_atoms_per_net)
 
     def setup_states(self):

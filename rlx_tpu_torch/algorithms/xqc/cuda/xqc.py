@@ -68,10 +68,10 @@ class XQCVectorCritic(nn.Module):
 
 class XQC(SAC):
     def _build_policy(self, a):
-        return XQCPolicy(self.obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
+        return XQCPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
 
     def _build_critic(self, a):
-        return XQCVectorCritic(self.obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
+        return XQCVectorCritic(self.critic_obs_dim, self.action_dim, a.critic_hidden_dim, a.critic_nr_blocks,
                                a.nr_atoms, a.nr_critics)
 
     def setup_states(self):

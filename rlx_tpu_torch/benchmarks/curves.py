@@ -10,12 +10,15 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_masked_lstm --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_mpo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_reppo --seeds 0
+    python -m rlx_tpu_torch.benchmarks.curves locomotion_lstm --seeds 1 2 3
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
 interval rounded down to a multiple of its rollout batch, as there), so the
 outcome reads against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
-turn; its final return is the mean of its last three evaluations, and the
+turn; its final return is the mean of its last three evaluations of the
+recipe's metric (the episode return, or for the locomotion family the
+episode's velocity tracking, ``eval/episode_tracking``), and the
 check passes when every seed's final return clears the threshold (or, for a
 negative control marked ``"expect": "below"``, stays below it).  Needs a
 CUDA device and prints the card's name and power limit beside the result.
@@ -40,6 +43,12 @@ PENDULUM_OFFPOLICY = {
 MASKED = {
     "environment.nr_envs": 8, "environment.mask_velocity": True,
     "algorithm.nr_steps": 256, "algorithm.learning_rate": 5e-4, "algorithm.gamma": 0.9,
+}
+
+# benchmarks/curves.py: the locomotion recipes' shared overrides
+LOCOMOTION = {
+    "environment.nr_envs": 4096, "algorithm.nr_steps": 32, "algorithm.learning_rate": 3e-4,
+    "algorithm.logging_active": False,
 }
 
 RUNS = {
@@ -127,6 +136,32 @@ RUNS = {
         "overrides": {**MASKED, "algorithm.minibatch_size": 512, "algorithm.nr_epochs": 10,
                       "algorithm.memory_action_dimension": 4},
     },
+    # benchmarks/curves.py: the robot locomotion family, read on the
+    # normalized velocity tracking of an episode (rollout/episode_tracking,
+    # 1 - mean |v - v_cmd| / v_max), 4096 envs x 32 steps
+    "locomotion_ppo": {
+        "algorithm": "ppo.cuda", "environment": "locomotion.robot.cuda",
+        "budget": 150_000_000, "threshold": 0.5, "eval_points": 10, "metric": "eval/episode_tracking",
+        "overrides": {**LOCOMOTION, "algorithm.minibatch_size": 32768, "algorithm.nr_epochs": 4},
+    },
+    "locomotion_lstm": {
+        "algorithm": "ppo_lstm.cuda", "environment": "locomotion.robot.cuda",
+        "budget": 50_000_000, "threshold": 0.5, "eval_points": 10, "metric": "eval/episode_tracking",
+        "overrides": {**LOCOMOTION, "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4,
+                      "algorithm.rnn_hidden_dim": 128},
+    },
+    "locomotion_ppo_bf16": {
+        "algorithm": "ppo.cuda", "environment": "locomotion.robot.cuda",
+        "budget": 50_000_000, "threshold": 0.5, "eval_points": 10, "metric": "eval/episode_tracking",
+        "overrides": {**LOCOMOTION, "algorithm.minibatch_size": 32768, "algorithm.nr_epochs": 4,
+                      "algorithm.compute_dtype": "bfloat16"},
+    },
+    "soccer_lstm": {
+        "algorithm": "ppo_lstm.cuda", "environment": "locomotion.soccer.cuda",
+        "budget": 100_000_000, "threshold": 0.5, "eval_points": 10, "metric": "eval/episode_tracking",
+        "overrides": {**LOCOMOTION, "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4,
+                      "algorithm.rnn_hidden_dim": 128},
+    },
 }
 RUNS["pendulum_masked_transformer"].update(budget=800_000, eval_points=10)
 # benchmarks/curves.py: the categorical and HL-Gauss supports over Pendulum's
@@ -194,9 +229,10 @@ def run_seed(spec, seed):
     model.train()
     torch.cuda.synchronize()
     history = model.eval_history
-    returns = [float(r) for r in history["eval/episode_return"]]
+    returns = [float(r) for r in history[spec.get("metric", "eval/episode_return")]]
     return {
         "seed": seed,
+        "metric": spec.get("metric", "eval/episode_return"),
         "steps": [int(s) for s in history["steps"]],
         "returns": returns,
         "final_return": sum(returns[-3:]) / len(returns[-3:]),

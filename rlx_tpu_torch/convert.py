@@ -17,6 +17,13 @@ flax's ``batch_stats`` beside the params: ``mean``, ``var`` (and
 ``utils/checkpoint.load_model_file`` returns it) into the port's checkpoint
 tree.  Optimizer state is not carried across: a JAX checkpoint written with
 ``save_optimizer_state`` raises.
+
+A net that reads an env's ``policy_observation_indices`` or
+``critic_observation_indices`` has a first kernel of ``[len(indices),
+hidden]`` on both sides, so its parameters map as any other's.
+
+``env_state_from_jax`` turns a JAX env state with a dict physics (the robot
+and soccer envs) into the port's ``EnvState``.
 """
 
 from collections.abc import Mapping
@@ -562,3 +569,30 @@ def checkpoint_tree_from_jax(algorithm, restored):
             "critic_target": critic(restored["critic_target"]),
         }
     raise ValueError(f"no checkpoint conversion for {algorithm!r}")
+
+
+def _tensor_tree(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def env_state_from_jax(state, device="cpu", seed=0):
+    """The port's ``EnvState`` from a JAX package env state whose physics is
+    a dict of arrays (the robot and soccer envs): every array leaf as a
+    tensor of its type, ``eval_mode`` as it is, and a fresh generator
+    seeded with ``seed`` in place of the JAX key."""
+    from rlx_tpu_torch.environments.env import EnvState
+
+    return EnvState(
+        physics=_tensor_tree(state.physics, device),
+        observation=_tensor_tree(state.observation, device),
+        final_observation=_tensor_tree(state.final_observation, device),
+        reward=_tensor_tree(state.reward, device),
+        terminated=_tensor_tree(state.terminated, device),
+        truncated=_tensor_tree(state.truncated, device),
+        info=_tensor_tree(state.info, device),
+        episode_store=_tensor_tree(state.episode_store, device),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        eval_mode=bool(state.eval_mode),
+    )

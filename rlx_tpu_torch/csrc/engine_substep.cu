@@ -140,7 +140,7 @@ __device__ unsigned long long rlx_phase_cycles[NPHASE];
 
 struct DomainPtrs {
   const float* mass_scale;          // [nbody, B]
-  const float* damping_scale;       // [B]
+  const float* damping_scale;       // [nv, B] (per dof: the robots' joint locks)
   const float* frictionloss_scale;  // [B]
   const float* armature_scale;      // [B]
   const float* friction_scale;      // [B]
@@ -614,7 +614,7 @@ engine_substep_kernel(const __grid_constant__ Header H,
         force = fminf(fmaxf(force, lo), hi);
         tau += force * (is_pos ? gear : 1.0f);
       }
-      const float damping = dr.damping_scale ? TF(dof_damping)[d] * dr.damping_scale[b]
+      const float damping = dr.damping_scale ? TF(dof_damping)[d] * dr.damping_scale[(size_t)d * B + b]
                                              : TF(dof_damping)[d];
       const float fl = dr.frictionloss_scale ? TF(dof_frictionloss)[d] * dr.frictionloss_scale[b]
                                              : TF(dof_frictionloss)[d];

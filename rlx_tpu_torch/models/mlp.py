@@ -55,6 +55,31 @@ def _lecun_linear(in_features, out_features):
     return layer
 
 
+def observation_width(observation_shape, indices):
+    """Input width of a net that reads the observation columns ``indices``
+    (all of a flat observation when ``indices`` is None)."""
+    return math.prod(observation_shape) if indices is None else len(indices)
+
+
+def select_observations(module, indices):
+    """Feed ``module`` only the observation columns ``indices`` (an env's
+    ``policy_observation_indices`` or ``critic_observation_indices``), as
+    the JAX nets' ``observation_indices`` field does: a forward pre-hook
+    gathers them from the first argument, so the first layer is
+    ``len(indices)`` wide.  The indices are a buffer outside
+    ``state_dict()``; ``None`` leaves ``module`` as it is."""
+    if indices is None:
+        return module
+    index = torch.as_tensor(indices, dtype=torch.long).cpu()
+    module.register_buffer("observation_indices", index, persistent=False)
+    module.register_forward_pre_hook(_gather_observations)
+    return module
+
+
+def _gather_observations(module, args):
+    return (args[0][..., module.observation_indices],) + tuple(args[1:])
+
+
 class MLP(nn.Module):
     """Dense -> (LayerNorm after the first Dense, or with ``layer_norm_all``
     after every Dense) -> activation, per layer."""

@@ -8,7 +8,13 @@ import torch
 
 from rlx_tpu_torch.environments.types import ActionSpaceType, ObservationSpaceType
 from rlx_tpu_torch.models import distributions as D
-from rlx_tpu_torch.models.mlp import CategoricalPolicy, GaussianPolicy, VCritic
+from rlx_tpu_torch.models.mlp import (
+    CategoricalPolicy,
+    GaussianPolicy,
+    VCritic,
+    observation_width,
+    select_observations,
+)
 
 
 def compute_dtype(config):
@@ -32,16 +38,19 @@ def _check_supported(env):
 
 
 def make_policy(config, env, device):
+    """The env's ``policy_observation_indices``, where it has them, pick the
+    columns the policy reads."""
     _check_supported(env)
     a = config.algorithm
-    obs_dim = math.prod(env.single_observation_space.shape)
+    indices = getattr(env, "policy_observation_indices", None)
+    obs_dim = observation_width(env.single_observation_space.shape, indices)
     if env.general_properties.action_space_type == ActionSpaceType.DISCRETE:
-        return _categorical_policy(config, env, obs_dim, device)
+        return _categorical_policy(config, env, obs_dim, indices, device)
     action_dim = math.prod(env.single_action_space.shape)
-    module = GaussianPolicy(
+    module = select_observations(GaussianPolicy(
         obs_dim, action_dim, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
         a.std_dev, compute_dtype(config),
-    ).to(device)
+    ), indices).to(device)
 
     if a.action_clipping_and_rescaling:
         low, high = env.single_action_space.low, env.single_action_space.high
@@ -69,14 +78,14 @@ def make_policy(config, env, device):
     return PolicyAdapter(module, sample_and_log_prob, log_prob_entropy, mode, process_action)
 
 
-def _categorical_policy(config, env, obs_dim, device):
+def _categorical_policy(config, env, obs_dim, indices, device):
     """Logits over the env's discrete actions; actions go to the env as they
     are and the deterministic action is the argmax."""
     a = config.algorithm
-    module = CategoricalPolicy(
+    module = select_observations(CategoricalPolicy(
         obs_dim, env.single_action_space.n, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
         compute_dtype(config),
-    ).to(device)
+    ), indices).to(device)
 
     def sample_and_log_prob(obs, generator=None, noise=None):
         logits = module(obs)
@@ -94,9 +103,12 @@ def _categorical_policy(config, env, obs_dim, device):
 
 
 def make_critic(config, env, device):
+    """The env's ``critic_observation_indices``, where it has them, pick the
+    columns the critic reads."""
     _check_supported(env)
     a = config.algorithm
-    return VCritic(
-        math.prod(env.single_observation_space.shape), tuple(a.critic_hidden_sizes),
+    indices = getattr(env, "critic_observation_indices", None)
+    return select_observations(VCritic(
+        observation_width(env.single_observation_space.shape, indices), tuple(a.critic_hidden_sizes),
         a.activation, a.layer_norm, compute_dtype(config),
-    ).to(device)
+    ), indices).to(device)

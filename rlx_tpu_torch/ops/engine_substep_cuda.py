@@ -396,17 +396,21 @@ def resident_warps_per_sm(model, lanes, contact_timeconst=0.015, contact_damprat
 
 
 _DR_SHAPES = {
-    "mass_scale": "nbody", "kp_scale": "nu", "kv_scale": "nu", "forcerange_scale": "nu",
+    "mass_scale": "nbody", "damping_scale": "nv", "kp_scale": "nu", "kv_scale": "nu", "forcerange_scale": "nu",
     "ctrl_offset": "nu", "gravity": 3,
 }
 
 
 def _dr_tensors(model, dr, B, device):
-    """Per-field contiguous float32 batch-last tensors (None where unset)."""
-    lead = {"nbody": model.nbody, "nu": len(model.act_dof), 3: 3}
+    """Per-field contiguous float32 batch-last tensors (None where unset).
+    The kernel reads ``damping_scale`` per dof, ``[nv, B]``; a ``[B]`` one
+    (the same scale on every dof) is broadcast to that."""
+    lead = {"nbody": model.nbody, "nu": len(model.act_dof), "nv": model.nv, 3: 3}
     out = []
     for name in DomainParams._fields:
         val = None if dr is None else getattr(dr, name)
+        if name == "damping_scale" and val is not None and val.ndim == 1:
+            val = val.expand(model.nv, B)
         if val is not None:
             shape = (lead[_DR_SHAPES[name]], B) if name in _DR_SHAPES else (B,)
             if tuple(val.shape) != shape or val.device != device:

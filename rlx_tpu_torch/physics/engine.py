@@ -12,8 +12,8 @@ Per substep:
 4. bias forces via the velocity-product recursion with gravity folded in as
    the base acceleration, projected onto the dofs by one RNEA-style
    backward accumulation of world wrenches up the tree;
-5. penalty contacts (sphere/capsule-endpoint vs plane z=0) with stick-slip
-   anchors for tangential friction;
+5. penalty contacts (sphere/capsule-endpoint vs the plane z=0 or a per-env
+   heightfield, ``Terrain``) with stick-slip anchors for tangential friction;
 6. actuators (position servo or motor), damping, smooth frictionloss, damped
    joint-limit springs;
 7. qacc by the tree-sparse LTDL solve; semi-implicit Euler with quaternion
@@ -22,10 +22,13 @@ Per substep:
 All internal state is ``[comp..., B]``.  The public API is batch-first:
 qpos [B, nq], qvel [B, nv], ctrl [B, nu].
 
-``step`` dispatches on the device of its inputs: a CUDA tensor goes through
-the hand-written substep kernel (``rlx_tpu_torch.ops.engine_substep_cuda``),
-a CPU tensor through ``step_reference``, the eager path in this file, which
-is the kernel's plain version.
+``step`` dispatches on the device of its inputs: a CUDA tensor on the plane
+goes through the hand-written substep kernel
+(``rlx_tpu_torch.ops.engine_substep_cuda``), a CPU tensor through
+``step_reference``, the eager path in this file, which is the kernel's plain
+version.  A step over a heightfield runs ``step_reference`` on whatever
+device its tensors are on: the kernel covers the plane only, as the JAX
+package's substep kernel does (its ``engine.step`` sends terrain to XLA).
 """
 
 from typing import NamedTuple, Optional
@@ -42,7 +45,7 @@ class DomainParams(NamedTuple):
     Every field is optional; ``None`` means "use the compiled constant"."""
 
     mass_scale: Optional[torch.Tensor] = None          # [nbody, B] inertia+mass
-    damping_scale: Optional[torch.Tensor] = None       # [B] joint damping
+    damping_scale: Optional[torch.Tensor] = None       # [B] or [nv, B] joint damping
     frictionloss_scale: Optional[torch.Tensor] = None  # [B] dry friction
     armature_scale: Optional[torch.Tensor] = None      # [B] rotor armature
     friction_scale: Optional[torch.Tensor] = None      # [B] contact friction mu
@@ -52,6 +55,29 @@ class DomainParams(NamedTuple):
     forcerange_scale: Optional[torch.Tensor] = None    # [nu, B] torque limit
     ctrl_offset: Optional[torch.Tensor] = None         # [nu, B] servo zero shift
     gravity: Optional[torch.Tensor] = None             # [3, B] gravity vector
+
+
+class Terrain(NamedTuple):
+    """Per-env square heightfield for ground contact (batch-last).
+
+    ``height`` is ``[n*n, B]`` (row-major ``[iy, ix]``), covering x, y in
+    ``[-half_extent_m, half_extent_m]``; lookups take the nearest cell.
+    ``None`` terrain is the plane z=0."""
+
+    height: torch.Tensor
+    n: int
+    half_extent_m: float
+
+
+def terrain_height_T(terrain: Terrain, x, y):
+    """Nearest-cell terrain height at world (x, y); inputs and output
+    ``[..., B]``.  Rounding is half to even, as ``jnp.round``."""
+    n = terrain.n
+    cells_per_m = n / (2.0 * terrain.half_extent_m)
+    ix = torch.clamp(torch.round(x * cells_per_m + n // 2).to(torch.int64), 0, n - 1)
+    iy = torch.clamp(torch.round(y * cells_per_m + n // 2).to(torch.int64), 0, n - 1)
+    flat = (iy * n + ix).reshape(-1, x.shape[-1])                 # [K, B]
+    return torch.gather(terrain.height, 0, flat).reshape(x.shape)
 
 
 def quat_to_mat_np(q):
@@ -302,9 +328,10 @@ def contact_anchor_init(model, qpos):
 
 
 def _contact_wrenches_T(model, Rs, ps, v_list, contact_timeconst, contact_dampratio,
-                        dr: Optional[DomainParams], anchorsT):
+                        dr: Optional[DomainParams], anchorsT, terrain: Optional[Terrain] = None):
     """Per-body world contact wrenches (None where no contact touches the
-    body) from penalty ground contacts on the plane z=0, plus the updated
+    body) from penalty ground contacts on the plane z=0 or the heightfield
+    ``terrain`` (the normal stays vertical), plus the updated
     stick-friction anchors.  Tangential friction holds a contact point by a
     spring to where it first touched while inside the friction cone; beyond
     the cone the anchor slides to the cone boundary."""
@@ -323,7 +350,8 @@ def _contact_wrenches_T(model, Rs, ps, v_list, contact_timeconst, contact_dampra
         stiffness = _minimum(m_eff * omega_c ** 2, 2.0 * m_app / dt ** 2)
         damping = _minimum(2.0 * contact_dampratio * m_eff * omega_c, 0.7 * m_app / dt)
         x = ps[b] + bl.matvec_const(Rs[b], model.con_pos[c])  # [3, B]
-        depth = float(model.con_radius[c]) - (x[2] - 0.0)
+        ground = terrain_height_T(terrain, x[0], x[1]) if terrain is not None else 0.0
+        depth = float(model.con_radius[c]) - (x[2] - ground)
         in_contact = depth > 0.0
         omega, v_o = v_list[b][:3], v_list[b][3:]
         v_pt = v_o + bl.cross(omega, x)
@@ -404,7 +432,7 @@ def limit_damping(model, limit_stiffness, d):
 
 
 def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_dampratio,
-                        limit_stiffness, dr=None, anchorsT=None):
+                        limit_stiffness, dr=None, anchorsT=None, terrain=None):
     M, f_net, Rs, ps, v_list, cols = _dynamics_T(model, qposT, qvelT, dr)
     lam, dof_body = dof_structure(model)
 
@@ -412,7 +440,7 @@ def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_d
         if anchorsT is None:
             anchorsT = contact_points_T(model, qposT)
         wrenches, anchorsT = _contact_wrenches_T(
-            model, Rs, ps, v_list, contact_timeconst, contact_dampratio, dr, anchorsT,
+            model, Rs, ps, v_list, contact_timeconst, contact_dampratio, dr, anchorsT, terrain,
         )
         f_net = [fb if w is None else fb - w for fb, w in zip(f_net, wrenches)]
     C = _backward_project_T(model, cols, f_net, dof_body)
@@ -481,16 +509,20 @@ def step(model: PhysicsModel, qpos, qvel, ctrl, nr_substeps=1,
     the return is ``(qpos, qvel, new_contact_state)``; when None, anchors are
     initialized from the entry pose and the return is ``(qpos, qvel)``.
 
-    CUDA tensors go through the substep kernel, CPU tensors through
-    ``step_reference``.
+    ``terrain`` (optional ``Terrain``): per-env heightfield ground.
+
+    CUDA tensors on the plane go through the substep kernel, CPU tensors
+    through ``step_reference``.  A step with ``terrain`` runs
+    ``step_reference`` on the device of its tensors, the card included: the
+    kernel covers the plane only, as the JAX package's does.
     """
-    if terrain is not None:
-        raise NotImplementedError("heightfield terrain is not ported yet (plane ground only)")
     args = dict(
         nr_substeps=nr_substeps, contact_timeconst=contact_timeconst,
         contact_dampratio=contact_dampratio, limit_stiffness=limit_stiffness,
         dr=dr, ctrl_sequence=ctrl_sequence, contact_state=contact_state,
     )
+    if terrain is not None:
+        return step_reference(model, qpos, qvel, ctrl, terrain=terrain, **args)
     if qpos.is_cuda:
         from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
 
@@ -502,9 +534,8 @@ def step_reference(model: PhysicsModel, qpos, qvel, ctrl, nr_substeps=1,
                    contact_timeconst=0.015, contact_dampratio=1.0, limit_stiffness=200.0,
                    dr=None, terrain=None, ctrl_sequence=None, contact_state=None):
     """Eager PyTorch substeps on any device: the plain version of the
-    substep kernel.  Same signature and returns as ``step``."""
-    if terrain is not None:
-        raise NotImplementedError("heightfield terrain is not ported yet (plane ground only)")
+    substep kernel, and the path of every step over a heightfield.  Same
+    signature and returns as ``step``."""
     dt = model.timestep
     if ctrl_sequence is not None:
         xs = ctrl_sequence.transpose(1, 2)  # [nr_substeps, nu, B]
@@ -518,7 +549,7 @@ def step_reference(model: PhysicsModel, qpos, qvel, ctrl, nr_substeps=1,
     for s in range(xs.shape[0]):
         qaccT, anchorsT = _forward_dynamics_T(
             model, qposT, qvelT, xs[s], contact_timeconst, contact_dampratio,
-            limit_stiffness, dr, anchorsT,
+            limit_stiffness, dr, anchorsT, terrain,
         )
         qposT, qvelT = _integrate_T(model, qposT, qvelT, qaccT, dt)
     if contact_state is not None:

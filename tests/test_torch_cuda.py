@@ -218,3 +218,67 @@ def test_recurrent_policy_on_the_card_matches_the_cpu(cuda, cell):
         outs[str(device)] = [t.detach().cpu().clone() for t in (mean, *(p.grad for p in policy.parameters()))]
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terrain", ["plane", "hfield_diverse"])
+def test_robot_env_step_on_the_card_matches_the_cpu(cuda, terrain):
+    """One step of the quadruped env at 64 envs in evaluation mode (every
+    randomization axis drawn), from a state two steps after the reset,
+    copied to the CPU, the card's draws replayed there, compared on the
+    envs the state's last step did not reset (a reset leaves its lowest
+    foot exactly on the ground, where the first contact's damper turns on
+    the last bit of the kinematics): the plane step goes through
+    the substep kernel, the heightfield step through the eager engine on
+    the card; both against the CPU's eager engine at the kernel's
+    tolerance, 1e-4 (f32, summed in other orders, through stiff contacts)."""
+    from rlx_tpu_torch.config import make_config
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.draws import GeneratorDraws, ReplayDraws
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
+
+    class Recording(GeneratorDraws):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.values = []
+
+        def uniform(self, *args):
+            self.values.append(super().uniform(*args))
+            return self.values[-1]
+
+        def randint(self, *args):
+            self.values.append(super().randint(*args))
+            return self.values[-1]
+
+        def bernoulli(self, *args):
+            self.values.append(super().bernoulli(*args))
+            return self.values[-1]
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+    config = make_config("ppo.cuda", "locomotion.robot.cuda", **{"runner.device": "cpu", "environment.nr_envs": 64,
+                                                                 "environment.terrain.type": terrain})
+    envs = {d: LocomotionEnv(config.environment, 64, device=d) for d in ("cuda", "cpu")}
+    generator = torch.Generator().manual_seed(0)
+    actions = [2.0 * torch.rand(64, envs["cpu"].nr_actuator_joints, generator=generator) - 1.0 for _ in range(3)]
+    state = envs["cuda"].reset(0, eval_mode=True)
+    for action in actions[:2]:
+        state = envs["cuda"].step(state, action.to(cuda))
+    cpu_state = state.replace(
+        physics=to_cpu(state.physics), observation=state.observation.cpu(),
+        final_observation=state.final_observation.cpu(), reward=state.reward.cpu(),
+        terminated=state.terminated.cpu(), truncated=state.truncated.cpu(), info=to_cpu(state.info),
+        episode_store=to_cpu(state.episode_store), generator=torch.Generator().manual_seed(0),
+    )
+    kept = ~(state.terminated | state.truncated).cpu()
+    draws = Recording(torch.Generator(device="cuda").manual_seed(1), cuda)
+    launches = step_cuda.launches
+    state = envs["cuda"].step(state, actions[2].to(cuda), draws=draws)
+    assert step_cuda.launches == launches + (terrain == "plane")
+    cpu_state = envs["cpu"].step(cpu_state, actions[2], draws=ReplayDraws([v.cpu() for v in draws.values], "cpu"))
+    assert int(kept.sum()) >= 32
+    for name in ("qpos", "qvel", "contact_anchor"):
+        torch.testing.assert_close(state.physics[name].cpu()[kept], cpu_state.physics[name][kept], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(state.reward.cpu()[kept], cpu_state.reward[kept], rtol=1e-4, atol=1e-4)
+    assert torch.equal(state.terminated.cpu()[kept], cpu_state.terminated[kept])

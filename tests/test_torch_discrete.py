@@ -377,19 +377,22 @@ def test_left_out_features_raise():
 
 def test_curve_recipes_match_jax():
     """The port's learning checks run the JAX package's recipes: budget,
-    threshold, direction, evaluation points and overrides, name for name."""
+    threshold, direction, evaluation points, overrides and metric, name for
+    name."""
     from rlx_tpu_torch.benchmarks.curves import RUNS
 
     spec = importlib.util.spec_from_file_location("jax_curves", os.path.join(REPO, "benchmarks", "curves.py"))
     jax_curves = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_curves)
-    fields = lambda r: (r["budget"], r["threshold"], r["eval_points"], r.get("expect", "above"), r["overrides"])
+    fields = lambda r: (r["budget"], r["threshold"], r["eval_points"], r.get("expect", "above"), r["overrides"],
+                        r.get("metric", "eval/episode_return"))
     for name, run in RUNS.items():
         ref = jax_curves.RUNS[name]
         assert run["algorithm"] == ref["algorithm"].replace(".tpu", ".cuda"), name
         assert run["environment"] == ref["environment"].replace(".tpu", ".cuda"), name
         assert fields(run) == fields(ref), name
     assert {f"cartpole_spot_{n}" for n in (*FAMILY, "pqn")} <= set(RUNS)
+    assert {"locomotion_ppo", "locomotion_lstm", "locomotion_ppo_bf16", "soccer_lstm"} <= set(RUNS)
     assert {f"pendulum_masked_{n}" for n in ("ppo", "history_window", "memory_actions", "lstm", "gru", "mamba2",
                                              "transformer")} <= set(RUNS)
     assert {f"pendulum_spot_{n}" for n in ("fastsac", "flashsac", "redq", "droq", "aqe", "tqc", "simba", "xqc",

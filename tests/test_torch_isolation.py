@@ -1,6 +1,7 @@
 """The port stands alone: no module of rlx_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or the JAX package.  Every algorithm's
-module is among the modules imported."""
+module and every module under ``rlx_tpu_torch/environments/`` is among the
+modules imported."""
 
 import os
 import subprocess
@@ -25,6 +26,17 @@ root = os.path.dirname(rlx_tpu_torch.algorithms.__file__)
 algorithms = [d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d, "cuda"))]
 missing = sorted(({f"rlx_tpu_torch.algorithms.{a}.cuda.{a}" for a in algorithms}
                   | {"rlx_tpu_torch.models.recurrent", "rlx_tpu_torch.algorithms.recurrent_ppo"}) - set(names))
+# every module file under environments/ (the robot and soccer envs too)
+env_root = os.path.join(os.path.dirname(rlx_tpu_torch.__file__), "environments")
+for dirpath, _, files in os.walk(env_root):
+    for f in files:
+        if f.endswith(".py"):
+            rel = os.path.relpath(os.path.join(dirpath, f), os.path.dirname(rlx_tpu_torch.__file__))
+            module = "rlx_tpu_torch." + rel[:-3].replace(os.sep, ".")
+            module = module[:-len(".__init__")] if module.endswith(".__init__") else module
+            if module not in names and module not in sys.modules:
+                missing.append(module)
+assert "rlx_tpu_torch.environments.locomotion.soccer.cuda.environment" in names
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
 """

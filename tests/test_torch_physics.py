@@ -182,8 +182,15 @@ def test_step_dispatch_and_unsupported_paths():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         step_cuda(model, qpos, qvel, ctrl)
+    # a heightfield step is the eager path on every device; the kernel
+    # covers the plane only
+    terrain = engine.Terrain(height=torch.rand(8 * 8, 4, generator=torch.Generator().manual_seed(0)), n=8,
+                             half_extent_m=1.0)
+    for a, b in zip(engine.step(model, qpos, qvel, ctrl, nr_substeps=2, terrain=terrain),
+                    engine.step_reference(model, qpos, qvel, ctrl, nr_substeps=2, terrain=terrain)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(NotImplementedError):
-        engine.step(model, qpos, qvel, ctrl, terrain=object())
+        step_cuda(model, qpos, qvel, ctrl, terrain=terrain)
 
 
 def test_kernel_tables_and_bound():
