@@ -154,14 +154,36 @@ Phases (each prints one line; any failure exits nonzero):
     profiled as in 28; then through the Runner: 1 iteration, an evaluation
     and a save with the episode cut to 1 s (B2 exactly 82, B1 1), then
     test mode from latest.model with every tensor equal bit for bit and at
-    most 50 B2 launches.
+    most 50 B2 launches;
+32. the pixel envs (``classic.pixel_grid.cuda``, ``classic.pixel_chase.cuda``)
+    on the card against the CPU: 128 envs, 64 steps of the same actions from
+    the same draws, observations, rewards, done flags, final observations
+    and the uint8 frame stack equal exactly; no kernel launched;
+33. NatureCNN on the card against the CPU: the four image nets (the C51
+    Q-network, the Gaussian and categorical policies, the value critic) at
+    batch 256 on 84x84x4 uint8 frames, outputs and every gradient within
+    rtol 1e-4, atol 1e-5 (cuDNN held to f32);
+34. DQN at the JAX bench's ``bench_conv`` shape (128 envs on pixel_chase,
+    batch 256, an 8192-transition uint8 replay, one update a vector step):
+    256 learning steps timed after a warm-up, env-steps/s and updates/s,
+    the replay's bytes, then 64 steps profiled (spans ``dqn/act``,
+    ``/env_step``, ``/store``, ``/sample``, ``/update``);
+35. C51 on pixel_chase (128 envs, batch 256): 64 learning steps, B3
+    exactly 64; B3 against its plain version at [256, 51] -> 51; DDQN and
+    DQN-HL-Gauss 16 steps each, no kernel;
+36. discrete PPO with NatureCNN policy and critic on pixel_chase (128 x 64,
+    minibatch 2048, 4 epochs): 3 iterations, B1 exactly 3, one more
+    profiled; B1 against its plain version at [64, 128]; PQN on pixel_grid,
+    2 iterations, no kernel;
+37. DQN on pixel_chase through the Runner with 2 evaluations and saves,
+    then test mode from latest.model with every tensor equal bit for bit.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20 and 27, B2's at the robots' of phase 29), the
+shapes of phases 15, 19, 20, 27, 35 and 36, B2's at the robots' of phase 29), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
@@ -417,7 +439,9 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)} {json.dumps(resources)}; "
           f"dynamic shared memory a block at the path's shape {json.dumps(shared)}")
 
+    # f32 products and convolutions (PyTorch lets cuDNN use TF32 by default)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
     kernels = []
 
@@ -1871,6 +1895,273 @@ def main():
           f"bit, returns {[f'{r:.3g}' for r in test_returns]}")
     launches_by_path["soccer_runner"] = runner_launches
     launches_by_path["soccer_test"] = test_launches
+    del trained, tester
+
+    # 32. the pixel envs on the card against the CPU: 128 envs, 64 steps of
+    # the same actions from the same draws (the card's initial states handed
+    # to the CPU env), equal exactly; no kernel on these envs
+    from rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment import PixelChase
+    from rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment import PixelGrid
+
+    pixel_envs, pixel_steps = 128, 64
+    pixel_phases_t0 = time.perf_counter()
+    for env_cls in (PixelGrid, PixelChase):
+        draws = []
+
+        class Recording(env_cls):
+            def initial_physics(self, generator, eval_mode):
+                draws.append(super().initial_physics(generator, eval_mode))
+                return draws[-1]
+
+        class Replaying(env_cls):
+            def initial_physics(self, generator, eval_mode):
+                return type(draws[0])(*(t.cpu() for t in draws.pop(0)))
+
+        card_env, cpu_env = Recording(pixel_envs, 16, device=dev), Replaying(pixel_envs, 16, device="cpu")
+        zero_counts()
+        t0 = time.perf_counter()
+        state, ref = card_env.reset(0), cpu_env.reset(0)
+        actions = torch.randint(0, 4, (pixel_steps, pixel_envs), generator=torch.Generator().manual_seed(5),
+                                dtype=torch.int32)
+        dones = 0
+        for t in range(pixel_steps):
+            state, ref = card_env.step(state, actions[t].to(dev)), cpu_env.step(ref, actions[t])
+            for field in ("observation", "final_observation", "reward", "terminated", "truncated"):
+                if not torch.equal(getattr(state, field).cpu(), getattr(ref, field)):
+                    fail(f"{env_cls.__name__} step {t}: {field} on the card differs from the CPU")
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(state.physics, ref.physics)):
+                fail(f"{env_cls.__name__} step {t}: physics (frame stack) on the card differs from the CPU")
+            dones += int((ref.terminated | ref.truncated).sum())
+        torch.cuda.synchronize()
+        path_launches = counts()
+        if any(path_launches.values()) or draws:
+            fail(f"{env_cls.__name__}: launches {path_launches}, {len(draws)} draws left")
+        launches_by_path[env_cls.__name__] = path_launches
+        physics = {name: str(t.dtype).replace("torch.", "") for name, t in zip(state.physics._fields, state.physics)}
+        print(f"env {env_cls.__name__}: {pixel_steps} steps of {pixel_envs} envs on the card equal to the CPU "
+              f"exactly (observations {tuple(state.observation.shape)} {state.observation.dtype}, physics "
+              f"{physics}, {dones} episode ends) in {time.perf_counter() - t0:.2f} s, launches {path_launches}")
+
+    # 33. NatureCNN on the card against the CPU: the four image nets at batch
+    # 256 on 84x84x4 uint8 frames, the same parameters (seeded), outputs and
+    # every parameter's gradient; cuDNN and the products in f32 (TF32 off):
+    # rtol 1e-4, atol 1e-5 (f32 sums in another order)
+    from rlx_tpu_torch.models.mlp import CategoricalPolicy, DiscreteQNet, GaussianPolicy, VCritic
+
+    image = (84, 84, 4)
+    torch.manual_seed(0)
+    image_nets = {
+        "DiscreteQNet (C51, 51 atoms)": DiscreteQNet(None, 4, (512,), output_dim_per_action=51, image_shape=image),
+        "GaussianPolicy": GaussianPolicy(None, 3, (64,), image_shape=image),
+        "CategoricalPolicy": CategoricalPolicy(None, 4, (64,), image_shape=image),
+        "VCritic": VCritic(None, (64,), image_shape=image),
+    }
+    frames = torch.randint(0, 256, (256,) + image, dtype=torch.uint8, generator=torch.Generator().manual_seed(6))
+    cnn_err = {}
+    for name, net in image_nets.items():
+        outs = {}
+        for device in ("cpu", dev):
+            net.zero_grad(set_to_none=True)
+            net.to(device)
+            out = net(frames.to(device))
+            if isinstance(out, tuple):    # the Gaussian policy's (mean, logstd)
+                out = torch.cat([o.reshape(-1) for o in out])
+            out.square().mean().backward()
+            outs[str(device)] = [t.detach().cpu() for t in (out, *(p.grad for p in net.parameters()))]
+        cnn_err[name] = max_err(outs[str(dev)], outs["cpu"], 1e-4, 1e-5, f"{name} on the card")
+    conv = image_nets["VCritic"].trunk.to(dev)
+    x = frames.to(dev)
+    cnn_ms = time_ms(lambda: conv(x), 20)
+    print(f"NatureCNN on the card against the CPU at batch 256 (outputs and every gradient, rtol=1e-4 "
+          f"atol=1e-5): max|err| {json.dumps(cnn_err)}; the trunk's forward {cnn_ms:.3f} ms at batch 256")
+    del image_nets, outs, conv, x
+
+    # 34. DQN at bench_conv's shape (bench.py:252): 128 envs on pixel_chase
+    # (84x84x4), batch 256, a 8192-transition uint8 replay, one update a
+    # vector step; a warm-up train() of 1 prefill + 256 learning steps, then a
+    # timed one, then 64 steps profiled
+    conv_envs, conv_steps = 128, 256
+    config = make_config("dqn.cuda", "classic.pixel_chase.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": conv_envs,
+        "algorithm.total_timesteps": conv_envs + conv_steps * conv_envs, "algorithm.learning_starts": conv_envs,
+        "algorithm.buffer_size": conv_envs * 64, "algorithm.batch_size": 256, "algorithm.update_frequency": 1,
+        "algorithm.logging_frequency": 64 * conv_envs, "algorithm.evaluation_active": False,
+    })
+    dqn = create_model(config)
+    dqn.train()
+    zero_counts()
+    t0 = time.perf_counter()
+    dqn.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    path_launches = counts()
+    if any(path_launches.values()) or dqn.nr_updates != 2 * conv_steps:
+        fail(f"DQN on pixels: launches {path_launches}, {dqn.nr_updates} learning steps")
+    check_logged("DQN on pixels", dqn.metrics_history)
+    replay = dqn.buffer
+    if replay.storage["observation"].dtype != torch.uint8 or replay.storage["next_observation"].dtype != torch.uint8:
+        fail("DQN on pixels: the replay does not hold uint8 frames")
+    launches_by_path["dqn_pixels"] = path_launches
+    conv_rates = {"dqn_pixel_env_steps_per_s": conv_steps * conv_envs / elapsed,
+                  "dqn_pixel_updates_per_s": conv_steps / elapsed}
+
+    def dqn_logging_iteration():
+        dqn.env_state = dqn._logging_iteration(dqn.buffer, dqn.env_state, conv_steps)
+
+    dqn_profile = profile_spans(dqn_logging_iteration, "dqn/")
+    print(f"train: DQN on pixel_chase at bench_conv's shape ({conv_envs} envs, batch 256, NatureCNN, one update a "
+          f"vector step): 1 prefill + {conv_steps} learning steps in {elapsed:.2f} s after a warm-up train(), "
+          + json.dumps(conv_rates) + f", replay {replay.nbytes} bytes ({replay.nbytes / 2**20:.1f} MiB; the "
+          f"frames uint8, {replay.capacity} rows of {replay.nr_envs} envs), launches {path_launches}, last losses "
+          + json.dumps({k: v for k, v in dqn.metrics_history[-1].items() if k.startswith(("loss/", "q_value/"))}))
+    print("profile dqn_pixels (64 learning steps): " + json.dumps(dqn_profile))
+    del dqn, replay
+
+    # 35. C51 on pixel_chase at 128 envs, batch 256: 1 prefill + 64 learning
+    # steps, each through B3 at [256, 51] -> 51; B3 against its plain version
+    # there; then DDQN and DQN-HL-Gauss 16 steps each (no kernel)
+    pixel_offpolicy = {"runner.device": "cuda", "environment.nr_envs": conv_envs,
+                       "algorithm.learning_starts": conv_envs, "algorithm.buffer_size": conv_envs * 64,
+                       "algorithm.batch_size": 256, "algorithm.update_frequency": 1,
+                       "algorithm.evaluation_active": False}
+    for name, steps, b3 in (("c51", 64, 64), ("ddqn", 16, 0), ("dqn_hl_gauss", 16, 0)):
+        model = create_model(make_config(f"{name}.cuda", "classic.pixel_chase.cuda", **{
+            **pixel_offpolicy, "algorithm.total_timesteps": conv_envs * (1 + steps),
+            "algorithm.logging_frequency": 16 * conv_envs}))
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        expected = {"engine_substep": 0, "gae": 0, "categorical_projection": b3}
+        if path_launches != expected or model.nr_updates != steps:
+            fail(f"{name} on pixels: launches {path_launches} != {expected}, {model.nr_updates} learning steps")
+        check_logged(f"{name} on pixels", model.metrics_history)
+        launches_by_path[f"{name}_pixels"] = path_launches
+        print(f"train: {name} on pixel_chase, 1 prefill + {steps} learning steps at {conv_envs} envs, batch 256, in "
+              f"{elapsed:.2f} s; env-steps/s of the log lines {[m['time/sps'] for m in model.metrics_history]}, "
+              f"launches {path_launches}, last losses "
+              + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
+        del model
+    # B3 at C51's pixel shape: rewards of the chase (+1 a catch, -0.01 a step)
+    chase_rewards = lambda n: torch.where(torch.rand(n, 1, device=dev, generator=g) < 0.05, 1.0, -0.01)
+    z, p = c51_targets(256, -10.0, 10.0, chase_rewards)
+    out = categorical_projection_cuda(z, p, -10.0, 10.0, 51)
+    ref = categorical_projection_reference(z, p, -10.0, 10.0, 51)
+    torch.cuda.synchronize()
+    err = max_err([out], [ref], 1e-6, 1e-6, "projection [256, 51] -> 51 (C51 on pixels)")
+    t = kernel_times(lambda: categorical_projection_cuda(z, p, -10.0, 10.0, 51),
+                     lambda: categorical_projection_reference(z, p, -10.0, 10.0, 51), "projection_kernel")
+    t["bound_ms"], t["bound_by"] = roofline(projection_bytes(256, 51, 51), projection_flops(256, 51))
+    kernels[2]["by_shape"]["[256, 51] -> 51 (C51 on pixels)"] = {**t, "max_abs_err": err}
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err)
+    print(f"B3 projection at [256, 51] -> 51 (C51 on pixels, v -10..10): max|err| {err:.3g} (rtol=atol=1e-6), "
+          f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain "
+          f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {projection_bytes(256, 51, 51)} "
+          f"bytes)")
+
+    # 36. discrete PPO with NatureCNN policy and critic on pixel_chase (128
+    # envs x 64 steps, minibatch 2048, 4 epochs): 3 iterations through B1
+    # (image minibatches gathered one by one), one more profiled; B1 against
+    # its plain version at [64, 128]; then PQN on pixel_grid, 2 iterations
+    ppo_envs, ppo_steps = 128, 64
+    ppo_batch = ppo_envs * ppo_steps
+    config = make_config("ppo.cuda", "classic.pixel_chase.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": ppo_envs, "algorithm.nr_steps": ppo_steps,
+        "algorithm.minibatch_size": 2048, "algorithm.nr_epochs": 4, "algorithm.total_timesteps": 3 * ppo_batch,
+        "algorithm.evaluation_active": False,
+    })
+    model = create_model(config)
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    path_launches = counts()
+    if path_launches != {"engine_substep": 0, "gae": 3, "categorical_projection": 0}:
+        fail(f"PPO on pixels: launch counts {path_launches}, expected 3 GAE")
+    check_logged("PPO on pixels", model.metrics_history)
+    launches_by_path["ppo_pixels"] = path_launches
+    ppo_profile = profile_spans(lambda: model.learning_iteration(model.env_state), "ppo/")
+    print(f"train: PPO (discrete, NatureCNN policy and critic) on pixel_chase, 3 iterations at "
+          f"{ppo_envs}x{ppo_steps}, minibatch 2048, 4 epochs, in {elapsed:.2f} s ({3 * ppo_batch / elapsed:.0f} "
+          f"env-steps/s overall, {model.metrics_history[-1]['time/sps']} in the last iteration), launches "
+          f"{path_launches}, last losses "
+          + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
+    print("profile ppo_pixels (one iteration): " + json.dumps(ppo_profile))
+    del model
+    r = torch.where(torch.rand(ppo_steps, ppo_envs, device=dev, generator=g) < 0.05, 1.0, -0.01)
+    v, nv = (0.3 * torch.randn(ppo_steps, ppo_envs, device=dev, generator=g) for _ in range(2))
+    d = torch.rand(ppo_steps, ppo_envs, device=dev, generator=g) < 0.05
+    pixel_gae_err = max_err(gae_advantages_cuda(r, v, nv, d, 0.99, 0.95),
+                            gae_advantages_reference(r, v, nv, d, 0.99, 0.95), 1e-5, 1e-5, "GAE [64, 128]")
+    t = kernel_times(lambda: gae_advantages_cuda(r, v, nv, d, 0.99, 0.95),
+                     lambda: gae_advantages_reference(r, v, nv, d, 0.99, 0.95), "gae_kernel")
+    t["bound_ms"], t["bound_by"] = roofline(gae_bytes(ppo_steps, ppo_envs), 0)
+    kernels[0]["by_shape"]["[64, 128] (PPO on pixels)"] = {**t, "max_abs_err": pixel_gae_err}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], pixel_gae_err)
+    launch = gae_geometry(ppo_steps, ppo_envs)
+    print(f"B1 gae at [64, 128] (PPO on pixels): max|err| {pixel_gae_err:.3g} (rtol=atol=1e-5), kernel "
+          f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain "
+          f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {gae_bytes(ppo_steps, ppo_envs)} "
+          f"bytes; {launch.blocks} blocks of {launch.threads} threads)")
+    model = create_model(make_config("pqn.cuda", "classic.pixel_grid.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": ppo_envs, "algorithm.total_timesteps": 2 * ppo_envs * 32,
+        "algorithm.evaluation_active": False}))
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    path_launches = counts()
+    if any(path_launches.values()) or model.nr_optimizer_steps != 2 * 2 * 4:
+        fail(f"PQN on pixels: launches {path_launches}, {model.nr_optimizer_steps} optimizer steps")
+    check_logged("PQN on pixels", model.metrics_history)
+    launches_by_path["pqn_pixels"] = path_launches
+    print(f"train: PQN (NatureCNN) on pixel_grid, 2 iterations at {ppo_envs}x32 in {elapsed:.2f} s, env-steps/s "
+          f"{[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}")
+    del model
+
+    # 37. DQN on pixel_chase through the Runner: 1 prefill + 64 learning
+    # steps with 2 evaluations and saves, then test mode from latest.model
+    # (every tensor equal bit for bit)
+    os.chdir(workdir.name)
+    pixel_args = ["--algorithm.name=dqn.cuda", "--environment.name=classic.pixel_chase.cuda", "--runner.device=cuda",
+                  f"--environment.nr_envs={conv_envs}", f"--algorithm.learning_starts={conv_envs}",
+                  f"--algorithm.buffer_size={conv_envs * 64}", "--algorithm.batch_size=256",
+                  "--algorithm.update_frequency=1"]
+    runner = Runner([*pixel_args, f"--algorithm.total_timesteps={conv_envs * 65}",
+                     f"--algorithm.logging_frequency={16 * conv_envs}",
+                     f"--algorithm.evaluation_and_save_frequency={32 * conv_envs}", "--runner.save_model=True",
+                     "--runner.run_name=dqn_pixels"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = counts()
+    eval_returns = [float(x) for x in trained.eval_history["eval/episode_return"]]
+    if any(runner_launches.values()) or len(eval_returns) != 2 or not all(map(math.isfinite, eval_returns)):
+        fail(f"DQN pixel runner: launches {runner_launches}, eval returns {eval_returns}")
+    pixel_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "dqn_pixels", "models",
+                                "latest.model")
+    tester = Runner([*pixel_args, "--runner.mode=test", f"--runner.load_model={pixel_latest}",
+                     "--runner.nr_test_episodes=16", "--runner.run_name=dqn_pixels_test"])
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    os.chdir(root)
+    if len(test_returns) != 16 or not all(math.isfinite(r) for r in test_returns):
+        fail(f"DQN pixel test mode returned {test_returns}, expected 16 finite returns")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    launches_by_path["dqn_pixels_runner"] = runner_launches
+    print(f"runner dqn on pixel_chase: 1 prefill + 64 learning steps at {conv_envs} envs with 2 evaluations and "
+          f"saves in {train_s:.2f} s, eval returns {eval_returns}; checkpoint "
+          f"{os.path.getsize(pixel_latest) / 2**20:.2f} MiB; test mode {test_s:.2f} s (load included), "
+          f"{compared} tensors restored bit for bit, mean test return {sum(test_returns) / 16:.3f}")
+    print(f"phases 32-37 (the pixel track) took {time.perf_counter() - pixel_phases_t0:.1f} s")
     del trained, tester
     workdir.cleanup()
 

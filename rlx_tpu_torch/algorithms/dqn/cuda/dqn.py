@@ -10,7 +10,9 @@
   is a multiple of ``target_update_every`` then copies the parameters into
   the target network;
 - Adam (eps 1e-8) at a constant rate; the target starts equal to the
-  parameters.
+  parameters;
+- on an IMAGES env the Q-network's trunk is ``NatureCNN`` and the replay
+  holds uint8 observations (``offpolicy.py``).
 
 DDQN, C51 and DQN-HL-Gauss subclass it and override the Q-values, the
 target and the loss.
@@ -41,7 +43,8 @@ class DQN(OffPolicyAlgorithm):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
             q_net = DiscreteQNet(math.prod(self.os_shape), self.nr_actions, tuple(a.critic_hidden_sizes),
-                                 a.activation, output_dim_per_action=output_dim_per_action)
+                                 a.activation, output_dim_per_action=output_dim_per_action,
+                                 image_shape=self.image_shape)
         q_net.to(self.device)
         self.critic = TrainState(q_net, torch.optim.Adam(q_net.parameters(), lr=self.learning_rate, eps=1e-8))
 

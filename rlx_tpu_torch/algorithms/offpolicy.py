@@ -43,6 +43,11 @@ pipeline (``action_clipping``, then ``action_rescaling`` of ``"none"``,
 other continuous algorithm clips to [-1, 1] and rescales to the env's
 bounds, as the JAX package's ``else`` branch.
 
+Image observations (an IMAGES env) are replayed as uint8, ``observation``
+and ``next_observation`` alike, in the buffer's unpacked layout: the envs
+emit integral floats in 0..255, so the cast is exact, and ``NatureCNN``
+turns them back into float32 on the way in.
+
 Not ported yet (a config that asks for them has no such key, so it raises):
 the device mesh and parallel seeds.
 """
@@ -59,6 +64,7 @@ from rlx_tpu_torch.algorithms.train_state import TrainState
 from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models.mlp import observation_width
+from rlx_tpu_torch.models.policy_factory import image_shape
 from rlx_tpu_torch.ops import replay_buffer as rb
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
@@ -139,6 +145,9 @@ class OffPolicyAlgorithm:
         self.critic_observation_indices = getattr(train_env, "critic_observation_indices", None)
         self.policy_obs_dim = observation_width(self.os_shape, self.policy_observation_indices)
         self.critic_obs_dim = observation_width(self.os_shape, self.critic_observation_indices)
+        # [H, W, C] of an IMAGES env (the nets' NatureCNN input), else None
+        self.image_shape = image_shape(train_env)
+        self.obs_store_dtype = torch.float32 if self.image_shape is None else torch.uint8
         self.discrete = train_env.general_properties.action_space_type == ActionSpaceType.DISCRETE
         if self.discrete:
             # int32 actions, stored as they are and neither clipped nor rescaled
@@ -189,8 +198,8 @@ class OffPolicyAlgorithm:
     # --- scaffolding -------------------------------------------------------
     def _make_buffer(self):
         return rb.create(self.capacity, self.nr_envs, {
-            "observation": (self.os_shape, torch.float32),
-            "next_observation": (self.os_shape, torch.float32),
+            "observation": (self.os_shape, self.obs_store_dtype),
+            "next_observation": (self.os_shape, self.obs_store_dtype),
             "action": ((), torch.int32) if self.discrete else ((self.action_dim,), torch.float32),
             "reward": ((), torch.float32),
             "terminated": ((), torch.float32),
@@ -200,8 +209,8 @@ class OffPolicyAlgorithm:
 
     def _store_step(self, buffer, observation, action, env_state):
         rb.add(buffer, {
-            "observation": observation,
-            "next_observation": env_state.final_observation,
+            "observation": observation.to(self.obs_store_dtype),
+            "next_observation": env_state.final_observation.to(self.obs_store_dtype),
             "action": action,
             "reward": env_state.reward,
             "terminated": env_state.terminated.to(torch.float32),

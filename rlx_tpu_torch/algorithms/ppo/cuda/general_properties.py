@@ -7,7 +7,7 @@ from rlx_tpu_torch.environments.types import (
 
 
 class GeneralProperties:
-    observation_space_types = [ObservationSpaceType.FLAT_VALUES]
+    observation_space_types = [ObservationSpaceType.FLAT_VALUES, ObservationSpaceType.IMAGES]
     action_space_types = [ActionSpaceType.CONTINUOUS, ActionSpaceType.DISCRETE]
     data_interface_types = [DataInterfaceType.TORCH]
 

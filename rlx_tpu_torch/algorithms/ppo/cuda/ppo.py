@@ -10,7 +10,8 @@ Per learning iteration:
 - step-major flatten, the five update arrays packed into one ``[T*B, D]``
   matrix (discrete actions as one f32 column, exact below 2**24), each
   epoch's permutation applied as a single row gather, and minibatches
-  taken as contiguous slices;
+  taken as contiguous slices; image observations (NatureCNN policy and
+  critic) are gathered per minibatch instead;
 - per-minibatch advantage normalization, the clipped PPO loss, a global-norm
   gradient clip and Adam, separately for the policy and the critic, with the
   learning rate annealed linearly on the optimizer step count.
@@ -168,8 +169,8 @@ class PPO:
         T, B = rewards.shape
 
         with torch.no_grad(), record_function("ppo/advantages"):
-            values = self.critic(observations.reshape(T * B, -1)).reshape(T, B)
-            next_values = self.critic(final_observations.reshape(T * B, -1)).reshape(T, B)
+            values = self.critic(observations.reshape((T * B,) + observations.shape[2:])).reshape(T, B)
+            next_values = self.critic(final_observations.reshape((T * B,) + observations.shape[2:])).reshape(T, B)
             advantages, returns = gae_advantages(
                 rewards, values, next_values, terminations, self.gamma, self.gae_lambda
             )
@@ -216,57 +217,69 @@ class PPO:
 
         ``epoch_indices`` ([nr_epochs, batch]) are the per-epoch
         permutations; drawn from ``self.generator`` when not given."""
-        batch_observations, batch_actions, batch_log_probs, batch_returns, batch_advantages = batch_arrays
-        N = self.batch_size
         if epoch_indices is None:
             epoch_indices = torch.stack([
-                torch.randperm(N, generator=self.generator, device=self.device)
+                torch.randperm(self.batch_size, generator=self.generator, device=self.device)
                 for _ in range(self.nr_epochs)
             ])
-        obs_dim = batch_observations.shape[1]
-        action_2d = batch_actions.reshape(N, -1)
-        action_dim = action_2d.shape[1]
-        packed = torch.cat(
-            [batch_observations, action_2d.to(batch_observations.dtype), batch_log_probs[:, None],
-             batch_returns[:, None], batch_advantages[:, None]],
-            dim=1,
-        )
         policy_params = list(self.policy.module.parameters())
         critic_params = list(self.critic.parameters())
         history = []
         lr = self.learning_rate
-        for idx_e in epoch_indices:
-            shuffled = packed[idx_e.to(self.device)]
-            for m in range(self.nr_minibatches):
-                mb = shuffled[m * self.minibatch_size:(m + 1) * self.minibatch_size]
-                obs_mb = mb[:, :obs_dim]
-                action_mb = mb[:, obs_dim:obs_dim + action_dim].to(batch_actions.dtype).reshape(
-                    (-1,) + batch_actions.shape[1:])
-                log_prob_mb = mb[:, obs_dim + action_dim]
-                return_mb = mb[:, obs_dim + action_dim + 1]
-                adv_mb = mb[:, obs_dim + action_dim + 2]
-                adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
+        for obs_mb, action_mb, log_prob_mb, return_mb, adv_mb in self._minibatches(batch_arrays, epoch_indices):
+            adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
 
-                self.policy_optimizer.zero_grad(set_to_none=False)
-                self.critic_optimizer.zero_grad(set_to_none=False)
-                loss, metrics = self._loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
-                loss.backward()
-                with torch.no_grad():
-                    metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
-                        [p.grad for p in policy_params], self.max_grad_norm
-                    )
-                    metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
-                        [p.grad for p in critic_params], self.max_grad_norm
-                    )
-                lr = self.learning_rate_at(self.nr_optimizer_steps)
-                for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                    optimizer.param_groups[0]["lr"] = lr
-                    optimizer.step()
-                self.nr_optimizer_steps += 1
-                history.append({k: v.detach() for k, v in metrics.items()})
+            self.policy_optimizer.zero_grad(set_to_none=False)
+            self.critic_optimizer.zero_grad(set_to_none=False)
+            loss, metrics = self._loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
+            loss.backward()
+            with torch.no_grad():
+                metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
+                    [p.grad for p in policy_params], self.max_grad_norm
+                )
+                metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
+                    [p.grad for p in critic_params], self.max_grad_norm
+                )
+            lr = self.learning_rate_at(self.nr_optimizer_steps)
+            for optimizer in (self.policy_optimizer, self.critic_optimizer):
+                optimizer.param_groups[0]["lr"] = lr
+                optimizer.step()
+            self.nr_optimizer_steps += 1
+            history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
         out["lr/learning_rate"] = torch.tensor(lr)
         return out
+
+    def _minibatches(self, batch_arrays, epoch_indices):
+        """The minibatches ``(observations, actions, log-probs, returns,
+        advantages)`` of each epoch's permutation in turn.  Flat
+        observations travel packed with the rest in one ``[N, D]`` matrix,
+        gathered once an epoch and cut into contiguous slices; images
+        (``[N, H, W, C]``) are gathered per minibatch, as the JAX package
+        does, so no shuffled copy of the whole rollout is made."""
+        batch_observations, batch_actions = batch_arrays[:2]
+        slices = [slice(m * self.minibatch_size, (m + 1) * self.minibatch_size) for m in range(self.nr_minibatches)]
+        epoch_indices = epoch_indices.to(self.device)
+        if batch_observations.ndim != 2:
+            for idx_e in epoch_indices:
+                for rows in slices:
+                    yield tuple(x[idx_e[rows]] for x in batch_arrays)
+            return
+        obs_dim = batch_observations.shape[1]
+        action_2d = batch_actions.reshape(self.batch_size, -1)
+        action_dim = action_2d.shape[1]
+        packed = torch.cat(
+            [batch_observations, action_2d.to(batch_observations.dtype)] + [x[:, None] for x in batch_arrays[2:]],
+            dim=1,
+        )
+        for idx_e in epoch_indices:
+            shuffled = packed[idx_e]
+            for rows in slices:
+                mb = shuffled[rows]
+                action_mb = mb[:, obs_dim:obs_dim + action_dim].to(batch_actions.dtype).reshape(
+                    (-1,) + batch_actions.shape[1:])
+                yield (mb[:, :obs_dim], action_mb, mb[:, obs_dim + action_dim], mb[:, obs_dim + action_dim + 1],
+                       mb[:, obs_dim + action_dim + 2])
 
     # ------------------------------------------------------- eval/save loop
 

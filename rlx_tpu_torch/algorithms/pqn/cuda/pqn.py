@@ -16,7 +16,8 @@ Per learning iteration:
   learning rate annealed linearly on the optimizer step count when asked.
 
 The Q-network is flax's default (lecun) init with a LayerNorm after every
-Dense and has no target network.  Evaluation, save, load and test mode
+Dense (on an IMAGES env a ``NatureCNN`` trunk, fed the rollout's float32
+frames) and has no target network.  Evaluation, save, load and test mode
 follow the JAX package's PQN: an evaluation of ``horizon`` greedy steps
 from a fresh eval reset after each eval/save iteration, and with
 ``runner.save_model`` a ``latest.model`` holding the Q-network's
@@ -35,6 +36,7 @@ from rlx_tpu_torch.algorithms.pqn.cuda.general_properties import GeneralProperti
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
 from rlx_tpu_torch.models.mlp import DiscreteQNet
+from rlx_tpu_torch.models.policy_factory import image_shape
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
@@ -87,7 +89,7 @@ class PQN:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
             self.q_net = DiscreteQNet(math.prod(self.os_shape), self.nr_actions, tuple(a.critic_hidden_sizes),
-                                      a.activation, layer_norm_all=True)
+                                      a.activation, layer_norm_all=True, image_shape=image_shape(train_env))
         self.q_net.to(self.device)
         self.optimizer = torch.optim.Adam(self.q_net.parameters(), lr=self.learning_rate, eps=1e-8)
         self.nr_optimizer_steps = 0
@@ -172,11 +174,12 @@ class PQN:
         observations, final_observations, actions, rewards, terminations = batch
         T, N = rewards.shape
         with torch.no_grad(), record_function("pqn/targets"):
-            next_values = self.q_net(final_observations.reshape(T * N, -1)).max(dim=-1).values.reshape(T, N)
-            q_targets = self.q_lambda_targets(rewards, terminations, next_values)
+            next_values = self.q_net(final_observations.reshape((T * N,) + self.os_shape)).max(dim=-1).values
+            q_targets = self.q_lambda_targets(rewards, terminations, next_values.reshape(T, N))
         with record_function("pqn/update"):
             return self._optimize(
-                (observations.reshape(T * N, -1), actions.reshape(-1), q_targets.reshape(-1)), epoch_indices
+                (observations.reshape((T * N,) + self.os_shape), actions.reshape(-1), q_targets.reshape(-1)),
+                epoch_indices
             )
 
     def _optimize(self, batch_arrays, epoch_indices=None):

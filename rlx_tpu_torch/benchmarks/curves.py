@@ -11,6 +11,7 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_mpo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_reppo --seeds 0
     python -m rlx_tpu_torch.benchmarks.curves locomotion_lstm --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pixel_chase_dqn pixel_chase_dqn_stack1 --seeds 0 1 2
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
@@ -49,6 +50,13 @@ MASKED = {
 LOCOMOTION = {
     "environment.nr_envs": 4096, "algorithm.nr_steps": 32, "algorithm.learning_rate": 3e-4,
     "algorithm.logging_active": False,
+}
+
+# benchmarks/curves.py: the pixel_chase_dqn recipes' overrides
+PIXEL_CHASE = {
+    "environment.nr_envs": 128, "algorithm.learning_starts": 10_000, "algorithm.buffer_size": 30_000,
+    "algorithm.batch_size": 256, "algorithm.learning_rate": 1e-4, "algorithm.epsilon_decay_steps": 150_000,
+    "algorithm.target_update_frequency": 4_000, "algorithm.update_frequency": 1,
 }
 
 RUNS = {
@@ -162,6 +170,20 @@ RUNS = {
         "overrides": {**LOCOMOTION, "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4,
                       "algorithm.rnn_hidden_dim": 128},
     },
+    # benchmarks/curves.py: DQN with NatureCNN on the 84x84x4 pixel_chase
+    # frames (uint8 replay), and its negative control on one frame, which
+    # cannot see where the goal drifts and must stay below the bar
+    "pixel_chase_dqn": {
+        "algorithm": "dqn.cuda", "environment": "classic.pixel_chase.cuda",
+        "budget": 400_000, "threshold": 0.6, "eval_points": 8,
+        "overrides": dict(PIXEL_CHASE),
+    },
+    "pixel_chase_dqn_stack1": {
+        "algorithm": "dqn.cuda", "environment": "classic.pixel_chase.cuda",
+        "budget": 400_000, "threshold": 0.6, "eval_points": 8, "expect": "below",
+        "overrides": {"environment.nr_envs": 128, "environment.frame_stack": 1,
+                      **{k: v for k, v in PIXEL_CHASE.items() if k != "environment.nr_envs"}},
+    },
 }
 RUNS["pendulum_masked_transformer"].update(budget=800_000, eval_points=10)
 # benchmarks/curves.py: the categorical and HL-Gauss supports over Pendulum's
@@ -248,29 +270,32 @@ def passes(spec, final_return):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("name", choices=sorted(RUNS))
+    parser.add_argument("names", nargs="+", choices=sorted(RUNS), metavar="name")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    parser.add_argument("--out", default=None)
+    parser.add_argument("--out", default=None, help="the record's path (one recipe)")
     args = parser.parse_args(argv)
+    if args.out and len(args.names) > 1:
+        parser.error("--out takes the record of one recipe")
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: the learning checks run on the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    spec = RUNS[args.name]
-    seeds = [run_seed(spec, seed) for seed in args.seeds]
-    result = {
-        "name": args.name, "algorithm": spec["algorithm"], "environment": spec["environment"],
-        "budget": spec["budget"], "threshold": spec["threshold"], "card": card,
-        "seeds": seeds,
-        "expect": spec.get("expect", "above"),
-        "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],
-    }
-    result["passed"] = all(result["per_seed_passed"])
-    print(json.dumps(result))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
+    for name in args.names:
+        spec = RUNS[name]
+        seeds = [run_seed(spec, seed) for seed in args.seeds]
+        result = {
+            "name": name, "algorithm": spec["algorithm"], "environment": spec["environment"],
+            "budget": spec["budget"], "threshold": spec["threshold"], "card": card,
+            "seeds": seeds,
+            "expect": spec.get("expect", "above"),
+            "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],
+        }
+        result["passed"] = all(result["per_seed_passed"])
+        print(json.dumps(result))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
 
 
 if __name__ == "__main__":

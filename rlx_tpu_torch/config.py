@@ -117,10 +117,15 @@ def apply_overrides(config, overrides):
 
 def create_env(config):
     """(train env, eval env) on ``runner.device``; a CUDA device that is not
-    there raises, it never falls back to the CPU."""
-    if config.runner.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError(f"runner.device={config.runner.device!r} but no CUDA device is available; "
-                           "pass runner.device=cpu to run on the CPU")
+    there raises, it never falls back to the CPU.  On a CUDA device cuDNN's
+    convolutions are held to float32 (PyTorch lets them run in TF32 by
+    default, unlike its matrix products), so NatureCNN computes in the same
+    precision as the JAX reference and the port's Dense layers."""
+    if config.runner.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"runner.device={config.runner.device!r} but no CUDA device is available; "
+                               "pass runner.device=cpu to run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
     return get_environment_create_env(config.environment.name)(config)
 
 

@@ -18,6 +18,12 @@ flax's ``batch_stats`` beside the params: ``mean``, ``var`` (and
 tree.  Optimizer state is not carried across: a JAX checkpoint written with
 ``save_optimizer_state`` raises.
 
+flax ``Conv`` kernels ``[kh, kw, in, out]`` become conv2d weights ``[out,
+in, kh, kw]``.  The port's ``NatureCNN`` flattens its last feature map in
+flax's (H, W, C) order, so ``Dense_0`` after it is a plain transpose too.
+An image net (``vision``) has ``NatureCNN_0`` where a flat one has
+``MLP_0``; the converters below take either.
+
 A net that reads an env's ``policy_observation_indices`` or
 ``critic_observation_indices`` has a first kernel of ``[len(indices),
 hidden]`` on both sides, so its parameters map as any other's.
@@ -73,10 +79,30 @@ def _mlp(p, layer_norm_all=False):
     return out
 
 
+def nature_cnn_state_dict(flax_params, prefix=""):
+    """``NatureCNN`` state_dict from flax ``NatureCNN`` params (``Conv_0..2``
+    and ``Dense_0``), its keys under ``prefix``."""
+    p = _unwrap(flax_params)
+    out = {}
+    for i in range(3):
+        kernel = np.asarray(p[f"Conv_{i}"]["kernel"], np.float32)
+        out[f"{prefix}convs.{i}.weight"] = _f32(kernel.transpose(3, 2, 0, 1))
+        out[f"{prefix}convs.{i}.bias"] = _f32(p[f"Conv_{i}"]["bias"])
+    out.update(_dense(f"{prefix}dense", p["Dense_0"]))
+    return out
+
+
+def _trunk(p, layer_norm_all=False):
+    """The trunk's state: ``NatureCNN_0`` of an image net, else ``MLP_0``."""
+    if "NatureCNN_0" in p:
+        return nature_cnn_state_dict(p["NatureCNN_0"], "trunk.")
+    return _mlp(p["MLP_0"], layer_norm_all)
+
+
 def policy_state_dict(flax_params):
     """``GaussianPolicy`` state_dict from flax ``GaussianPolicy`` params."""
     p = _unwrap(flax_params)
-    out = _mlp(p["MLP_0"])
+    out = _trunk(p)
     out.update(_dense("mean", p["Dense_0"]))
     out["policy_logstd"] = torch.as_tensor(np.asarray(p["policy_logstd"], np.float32).copy())
     return out
@@ -85,17 +111,18 @@ def policy_state_dict(flax_params):
 def categorical_policy_state_dict(flax_params):
     """``CategoricalPolicy`` state_dict from flax ``CategoricalPolicy`` params."""
     p = _unwrap(flax_params)
-    out = _mlp(p["MLP_0"])
+    out = _trunk(p)
     out.update(_dense("logits", p["Dense_0"]))
     return out
 
 
 def discrete_q_net_state_dict(flax_params, layer_norm_all=False):
     """``DiscreteQNet`` state_dict from flax ``DiscreteQNet`` params (flat
-    observations; any number of outputs per action; ``layer_norm_all`` as
-    the net was built, PQN's)."""
+    or image observations; any number of outputs per action;
+    ``layer_norm_all`` as the net was built, PQN's, read by a flat net
+    only)."""
     p = _unwrap(flax_params)
-    out = _mlp(p["MLP_0"], layer_norm_all)
+    out = _trunk(p, layer_norm_all)
     out.update(_dense("head", p["Dense_0"]))
     return out
 
@@ -103,7 +130,7 @@ def discrete_q_net_state_dict(flax_params, layer_norm_all=False):
 def critic_state_dict(flax_params):
     """``VCritic`` state_dict from flax ``VCritic`` params."""
     p = _unwrap(flax_params)
-    out = _mlp(p["MLP_0"])
+    out = _trunk(p)
     out.update(_dense("value", p["Dense_0"]))
     return out
 

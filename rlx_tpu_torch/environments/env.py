@@ -119,7 +119,8 @@ class DeviceEnv:
         # selected per env by `done`.
         reset_physics = self.initial_physics(state.generator, state.eval_mode)
         new_physics = tree_where(done, reset_physics, physics)
-        new_observation = torch.where(done[:, None], self.observe(reset_physics), observation)
+        done_obs = done.reshape((-1,) + (1,) * (observation.ndim - 1))
+        new_observation = torch.where(done_obs, self.observe(reset_physics), observation)
 
         return state.replace(
             physics=new_physics,

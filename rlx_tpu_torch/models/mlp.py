@@ -11,6 +11,11 @@ with bfloat16 the trunk's products run in bfloat16, while the heads, the
 distribution math and Adam stay float32.  Without it the trunk computes in
 its input's type.  LayerNorm uses eps=1e-6 (flax's default; torch's is
 1e-5).
+
+Image observations ``[..., H, W, C]`` (``image_shape`` given) go through
+``NatureCNN`` in place of the MLP trunk, as the JAX nets' ``vision``
+branch: in float32 whatever ``compute_dtype`` says, and reading the whole
+image (observation indices apply to flat observations only).
 """
 
 import math
@@ -53,6 +58,65 @@ def _lecun_linear(in_features, out_features):
     lecun_normal_(layer.weight)
     nn.init.zeros_(layer.bias)
     return layer
+
+
+def _lecun_conv(in_channels, out_channels, kernel_size, stride):
+    """flax ``nn.Conv``'s default init: lecun normal over the fan-in
+    ``in_channels * kh * kw``, zero bias."""
+    layer = nn.Conv2d(in_channels, out_channels, kernel_size, stride)
+    std = math.sqrt(1.0 / (in_channels * kernel_size * kernel_size)) / TRUNCATED_NORMAL_STDDEV
+    nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class NatureCNN(nn.Module):
+    """The DQN Nature CNN over ``[..., H, W, C]`` images (the JAX package's
+    ``NatureCNN``): ``x / 255`` in float32 (uint8 replay rows and the envs'
+    float32 frames alike), then conv 8x8/4 to 32, conv 4x4/2 to 64, conv
+    3x3/1 to 64, each VALID and ReLU (84 -> 20 -> 9 -> 7), flatten and Dense
+    to ``features`` with ReLU.
+
+    The images stay NHWC as flax has them: conv2d gets ``permute(0, 3, 1,
+    2)``, an NCHW-shaped view with channels-last strides, and the last
+    feature map is permuted back before the flatten, so its order is
+    flax's (H, W, C) and ``Dense_0``'s kernel carries over as a plain
+    transpose (``convert.nature_cnn_state_dict``)."""
+
+    LAYERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))   # (out channels, kernel, stride)
+
+    def __init__(self, image_shape, features=512):
+        super().__init__()
+        height, width, channels = image_shape
+        convs = []
+        for out_channels, kernel, stride in self.LAYERS:
+            convs.append(_lecun_conv(channels, out_channels, kernel, stride))
+            height, width, channels = (height - kernel) // stride + 1, (width - kernel) // stride + 1, out_channels
+        self.convs = nn.ModuleList(convs)
+        self.dense = _lecun_linear(height * width * channels, features)
+        self.features = features
+
+    def forward(self, x):
+        batch_shape = x.shape[:-3]
+        # x / 255 in float32, then in the parameters' type (float64 in the
+        # parity tests), as flax promotes the float32 frames to its params'
+        x = (x.to(torch.float32) / 255.0).to(self.dense.weight.dtype)
+        x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(batch_shape + (-1,))
+        return F.relu(self.dense(x))
+
+
+def make_trunk(obs_dim, hidden_sizes, activation, layer_norm=False, compute_dtype=None, image_shape=None,
+               **mlp_options):
+    """(trunk, its output width): ``NatureCNN`` over ``image_shape`` when
+    given, else the ``MLP``."""
+    if image_shape is not None:
+        trunk = NatureCNN(image_shape)
+        return trunk, trunk.features
+    return MLP(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype=compute_dtype,
+               **mlp_options), hidden_sizes[-1]
 
 
 def observation_width(observation_shape, indices):
@@ -122,10 +186,10 @@ class GaussianPolicy(nn.Module):
     """obs -> (mean, logstd) with a state-independent logstd parameter."""
 
     def __init__(self, obs_dim, action_dim, hidden_sizes, activation="tanh", layer_norm=False,
-                 std_dev=1.0, compute_dtype=None):
+                 std_dev=1.0, compute_dtype=None, image_shape=None):
         super().__init__()
-        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype=compute_dtype)
-        self.mean = _orthogonal_linear(hidden_sizes[-1], action_dim, 0.01)
+        self.trunk, width = make_trunk(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype, image_shape)
+        self.mean = _orthogonal_linear(width, action_dim, 0.01)
         self.policy_logstd = nn.Parameter(torch.full((1, action_dim), math.log(std_dev)))
 
     def forward(self, x):
@@ -138,10 +202,10 @@ class CategoricalPolicy(nn.Module):
     after a bf16 trunk."""
 
     def __init__(self, obs_dim, nr_actions, hidden_sizes, activation="tanh", layer_norm=False,
-                 compute_dtype=None):
+                 compute_dtype=None, image_shape=None):
         super().__init__()
-        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype=compute_dtype)
-        self.logits = _orthogonal_linear(hidden_sizes[-1], nr_actions, 0.01)
+        self.trunk, width = make_trunk(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype, image_shape)
+        self.logits = _orthogonal_linear(width, nr_actions, 0.01)
 
     def forward(self, x):
         return self.logits(self.trunk(x))
@@ -151,10 +215,10 @@ class VCritic(nn.Module):
     """obs -> state value [..., 1]."""
 
     def __init__(self, obs_dim, hidden_sizes, activation="tanh", layer_norm=False,
-                 compute_dtype=None):
+                 compute_dtype=None, image_shape=None):
         super().__init__()
-        self.trunk = MLP(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype=compute_dtype)
-        self.value = _orthogonal_linear(hidden_sizes[-1], 1, 1.0)
+        self.trunk, width = make_trunk(obs_dim, hidden_sizes, activation, layer_norm, compute_dtype, image_shape)
+        self.value = _orthogonal_linear(width, 1, 1.0)
 
     def forward(self, x):
         return self.value(self.trunk(x))
@@ -287,25 +351,27 @@ class QCritic(VectorQCritic):
 
 
 class DiscreteQNet(nn.Module):
-    """Flat obs -> Q-values per action ``[B, nr_actions]``, or with
+    """obs -> Q-values per action ``[B, nr_actions]``, or with
     ``output_dim_per_action`` > 1 a distributional head ``[B, nr_actions,
     output_dim_per_action]`` (C51 atoms, HL-Gauss bins).  flax's default
     (lecun) init, f32, LayerNorm after every Dense with ``layer_norm_all``
-    (PQN).  Image observations (the JAX package's NatureCNN branch) wait
-    for the pixel track and raise."""
+    (PQN).  With ``image_shape`` the trunk is ``NatureCNN`` (no LayerNorm),
+    the JAX package's branch for ``[..., H, W, C]`` inputs; a flat net
+    refuses image inputs."""
 
     def __init__(self, obs_dim, nr_actions, hidden_sizes, activation="relu", output_dim_per_action=1,
-                 layer_norm_all=False):
+                 layer_norm_all=False, image_shape=None):
         super().__init__()
         self.nr_actions = nr_actions
         self.output_dim_per_action = output_dim_per_action
-        self.trunk = MLP(obs_dim, hidden_sizes, activation, orthogonal_init=False,
-                         layer_norm_all=layer_norm_all)
-        self.head = _lecun_linear(hidden_sizes[-1], nr_actions * output_dim_per_action)
+        self.vision = image_shape is not None
+        self.trunk, width = make_trunk(obs_dim, hidden_sizes, activation, image_shape=image_shape,
+                                       orthogonal_init=False, layer_norm_all=layer_norm_all)
+        self.head = _lecun_linear(width, nr_actions * output_dim_per_action)
 
     def forward(self, x):
-        if x.ndim >= 4:
-            raise NotImplementedError("image observations (NatureCNN) are not ported yet")
+        if x.ndim >= 4 and not self.vision:
+            raise ValueError(f"a net built for flat observations got images of shape {tuple(x.shape)}")
         out = self.head(self.trunk(x))
         if self.output_dim_per_action > 1:
             return out.reshape(out.shape[:-1] + (self.nr_actions, self.output_dim_per_action))

@@ -1,5 +1,6 @@
 """Policy adapter: one actor-critic codepath for continuous and discrete
-actions.  Image policies (NatureCNN) are not ported yet."""
+actions over flat or image observations (an IMAGES env gets ``NatureCNN``
+encoders, as the JAX package's ``vision`` nets)."""
 
 import math
 from typing import Callable, NamedTuple
@@ -32,15 +33,16 @@ class PolicyAdapter(NamedTuple):
     process_action: Callable       # raw action -> env action
 
 
-def _check_supported(env):
-    if env.general_properties.observation_space_type != ObservationSpaceType.FLAT_VALUES:
-        raise NotImplementedError("only flat observations are ported")
+def image_shape(env):
+    """The ``[H, W, C]`` shape of an IMAGES env's observations, else None."""
+    if env.general_properties.observation_space_type == ObservationSpaceType.IMAGES:
+        return tuple(env.single_observation_space.shape)
+    return None
 
 
 def make_policy(config, env, device):
     """The env's ``policy_observation_indices``, where it has them, pick the
     columns the policy reads."""
-    _check_supported(env)
     a = config.algorithm
     indices = getattr(env, "policy_observation_indices", None)
     obs_dim = observation_width(env.single_observation_space.shape, indices)
@@ -49,7 +51,7 @@ def make_policy(config, env, device):
     action_dim = math.prod(env.single_action_space.shape)
     module = select_observations(GaussianPolicy(
         obs_dim, action_dim, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
-        a.std_dev, compute_dtype(config),
+        a.std_dev, compute_dtype(config), image_shape(env),
     ), indices).to(device)
 
     if a.action_clipping_and_rescaling:
@@ -84,7 +86,7 @@ def _categorical_policy(config, env, obs_dim, indices, device):
     a = config.algorithm
     module = select_observations(CategoricalPolicy(
         obs_dim, env.single_action_space.n, tuple(a.policy_hidden_sizes), a.activation, a.layer_norm,
-        compute_dtype(config),
+        compute_dtype(config), image_shape(env),
     ), indices).to(device)
 
     def sample_and_log_prob(obs, generator=None, noise=None):
@@ -105,10 +107,9 @@ def _categorical_policy(config, env, obs_dim, indices, device):
 def make_critic(config, env, device):
     """The env's ``critic_observation_indices``, where it has them, pick the
     columns the critic reads."""
-    _check_supported(env)
     a = config.algorithm
     indices = getattr(env, "critic_observation_indices", None)
     return select_observations(VCritic(
         observation_width(env.single_observation_space.shape, indices), tuple(a.critic_hidden_sizes),
-        a.activation, a.layer_norm, compute_dtype(config),
+        a.activation, a.layer_norm, compute_dtype(config), image_shape(env),
     ), indices).to(device)

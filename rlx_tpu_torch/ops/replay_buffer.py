@@ -2,12 +2,13 @@
 
 The same layout and semantics as the JAX package's ``ops/replay_buffer.py``:
 
-- every field is flat (rank <= 1) and 4-byte numeric (float32, int32 or
-  bool), and all of them are stored in ONE env-major
-  ``[nr_envs, capacity, D]`` float32 tensor, so a uniform sample is a
-  single row gather.  int32 fields round-trip exactly only below 2**24.
-  Fields that cannot be packed (image observations) wait for the pixel
-  track: ``create`` raises ``NotImplementedError`` for them;
+- when every field is flat (rank <= 1) and 4-byte numeric (float32, int32
+  or bool), all of them are stored in ONE env-major ``[nr_envs, capacity,
+  D]`` float32 tensor, so a uniform sample is a single row gather.  int32
+  fields round-trip exactly only below 2**24;
+- otherwise (image observations, uint8 rows) each field is its own
+  ``[capacity, nr_envs, ...]`` tensor of its own type (``layout`` is
+  None), written in place, and a sample is one gather per field;
 - ``sample`` draws (time, env) uniformly; ``sample_nstep`` reads ``n_step``
   consecutive rows with the write head re-based when the buffer is full and
   the sequence cut at terminations and truncations.
@@ -28,34 +29,50 @@ _PACKABLE_DTYPES = (torch.float32, torch.int32, torch.bool)
 
 class ReplayBuffer:
     def __init__(self, storage, layout):
-        self.storage = storage   # [nr_envs, capacity, D] float32
-        self.layout = layout     # ((name, offset, width, trailing_shape, dtype), ...)
+        # packed: [nr_envs, capacity, D] float32; unpacked: dict name ->
+        # [capacity, nr_envs, ...] of the field's type
+        self.storage = storage
+        self.layout = layout     # ((name, offset, width, trailing_shape, dtype), ...) or None
         self.pos = 0             # write head
         self.size = 0            # filled rows
 
     @property
+    def packed(self):
+        return self.layout is not None
+
+    @property
     def nr_envs(self):
-        return self.storage.shape[0]
+        return self.storage.shape[0] if self.packed else next(iter(self.storage.values())).shape[1]
 
     @property
     def capacity(self):
-        return self.storage.shape[1]
+        return self.storage.shape[1] if self.packed else next(iter(self.storage.values())).shape[0]
 
     @property
     def data(self):
         """Per-field view ``[capacity, nr_envs, ...]``."""
+        if not self.packed:
+            return self.storage
         rows = self.storage.transpose(0, 1)
         return _unpack_rows(self.layout, rows, tuple(rows.shape[:2]))
 
+    @property
+    def device(self):
+        return self.storage.device if self.packed else next(iter(self.storage.values())).device
+
+    @property
+    def nbytes(self):
+        """Bytes the storage holds."""
+        tensors = [self.storage] if self.packed else self.storage.values()
+        return sum(t.numel() * t.element_size() for t in tensors)
+
 
 def _build_layout(field_specs):
+    """The packed layout, or None when a field is not flat and 4-byte."""
     layout, offset = [], 0
     for name, (shape, dtype) in field_specs.items():
         if len(shape) > 1 or dtype not in _PACKABLE_DTYPES:
-            raise NotImplementedError(
-                f"field {name!r} ({tuple(shape)}, {dtype}) cannot be packed; the dict layout "
-                "for image observations is not ported yet"
-            )
+            return None
         width = int(shape[0]) if shape else 1
         layout.append((name, offset, width, tuple(int(s) for s in shape), dtype))
         offset += width
@@ -65,8 +82,23 @@ def _build_layout(field_specs):
 def create(capacity, nr_envs, field_specs, device="cpu"):
     """``field_specs``: dict name -> (trailing_shape, dtype)."""
     layout = _build_layout(field_specs)
+    if layout is None:
+        return ReplayBuffer({name: torch.zeros((capacity, nr_envs) + tuple(shape), dtype=dtype, device=device)
+                             for name, (shape, dtype) in field_specs.items()}, None)
     total = sum(width for _, _, width, _, _ in layout)
     return ReplayBuffer(torch.zeros((nr_envs, capacity, total), device=device), layout)
+
+
+def set_data(buffer, data):
+    """Replace every field's contents with ``data`` (name -> ``[capacity,
+    nr_envs, ...]``), in place; the write head and fill count stay."""
+    if not buffer.packed:
+        for name, field in buffer.storage.items():
+            field.copy_(data[name])
+        return
+    for name, off, width, _, _ in buffer.layout:
+        rows = data[name].to(torch.float32).reshape(buffer.capacity, buffer.nr_envs, width)
+        buffer.storage[..., off:off + width] = rows.transpose(0, 1)
 
 
 def _pack_row(layout, transition, nr_envs):
@@ -85,8 +117,13 @@ def _unpack_rows(layout, rows, batch_shape):
 
 
 def add(buffer, transition):
-    """Write one ``[nr_envs, ...]`` row per field at the write head, in place."""
-    buffer.storage[:, buffer.pos] = _pack_row(buffer.layout, transition, buffer.nr_envs)
+    """Write one ``[nr_envs, ...]`` row per field at the write head, in place
+    (cast to each field's type)."""
+    if buffer.packed:
+        buffer.storage[:, buffer.pos] = _pack_row(buffer.layout, transition, buffer.nr_envs)
+    else:
+        for name, field in buffer.storage.items():
+            field[buffer.pos] = transition[name]
     buffer.pos = (buffer.pos + 1) % buffer.capacity
     buffer.size = min(buffer.size + 1, buffer.capacity)
 
@@ -97,11 +134,13 @@ def _randint(generator, high, batch_size, device):
 
 def sample(buffer, generator, batch_size, t_idx=None, e_idx=None):
     """Uniform sample of ``batch_size`` transitions -> dict of ``[batch, ...]``."""
-    device = buffer.storage.device
+    device = buffer.device
     if t_idx is None:
         t_idx = _randint(generator, buffer.size, batch_size, device)
     if e_idx is None:
         e_idx = _randint(generator, buffer.nr_envs, batch_size, device)
+    if not buffer.packed:
+        return {name: field[t_idx, e_idx] for name, field in buffer.storage.items()}
     rows = buffer.storage[e_idx, t_idx]                     # ONE [batch, D] gather
     return _unpack_rows(buffer.layout, rows, (batch_size,))
 
@@ -115,7 +154,7 @@ def sample_nstep(buffer, generator, batch_size, n_step, gamma, t0=None, e_idx=No
     Needs the fields observation, next_observation, action, reward,
     terminated and truncated.
     """
-    device = buffer.storage.device
+    device = buffer.device
     if t0 is None:
         # valid start rows: at least n_step rows before the write head when full
         t0 = _randint(generator, max(buffer.size - n_step + 1, 1), batch_size, device)
@@ -127,7 +166,10 @@ def sample_nstep(buffer, generator, batch_size, n_step, gamma, t0=None, e_idx=No
     base = buffer.pos if buffer.size >= buffer.capacity else 0
     steps = torch.arange(n_step, device=device)
     rows = (base + t0[:, None] + steps[None, :]) % buffer.capacity     # [batch, n]
-    seq = _unpack_rows(buffer.layout, buffer.storage[e_idx[:, None], rows], (batch_size, n_step))
+    if buffer.packed:
+        seq = _unpack_rows(buffer.layout, buffer.storage[e_idx[:, None], rows], (batch_size, n_step))
+    else:
+        seq = {name: buffer.storage[name][rows, e_idx[:, None]] for name in ("reward", "terminated", "truncated")}
 
     # mask[k] = 1 while no termination/truncation happened strictly before k
     dones = torch.clamp(seq["terminated"] + seq["truncated"], 0.0, 1.0)
@@ -139,11 +181,17 @@ def sample_nstep(buffer, generator, batch_size, n_step, gamma, t0=None, e_idx=No
 
     last = torch.clamp((mask > 0).sum(dim=1) - 1, min=0)             # last live index
     batch = torch.arange(batch_size, device=device)
+    if buffer.packed:
+        first = {name: seq[name][:, 0] for name in ("observation", "action")}
+        next_observation = seq["next_observation"][batch, last]
+    else:
+        # the wide fields are read at the rows used only
+        first = {name: buffer.storage[name][rows[:, 0], e_idx] for name in ("observation", "action")}
+        next_observation = buffer.storage["next_observation"][rows[batch, last], e_idx]
     return {
-        "observation": seq["observation"][:, 0],
-        "action": seq["action"][:, 0],
+        **first,
         "n_step_reward": n_step_reward,
-        "n_step_next_observation": seq["next_observation"][batch, last],
+        "n_step_next_observation": next_observation,
         "n_step_terminated": seq["terminated"][batch, last],
         "n_step_gamma": gamma ** (last.to(torch.float32) + 1.0),
     }

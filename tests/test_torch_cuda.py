@@ -282,3 +282,69 @@ def test_robot_env_step_on_the_card_matches_the_cpu(cuda, terrain):
                                    atol=1e-4)
     torch.testing.assert_close(state.reward.cpu()[kept], cpu_state.reward[kept], rtol=1e-4, atol=1e-4)
     assert torch.equal(state.terminated.cpu()[kept], cpu_state.terminated[kept])
+
+
+@pytest.mark.cuda
+def test_nature_cnn_on_the_card_matches_the_cpu(cuda):
+    """NatureCNN's Q-network at batch 256 on 84 x 84 x 4 frames, uint8 in as
+    the replay feeds it: outputs and every parameter's gradient (of the
+    mean of the squared outputs, as ``chip_smoke.py`` phase 33) on the card
+    (cuDNN's convolutions held to float32, as the runner sets them)
+    against the CPU, at f32 tolerances for sums in another order: 1e-4
+    relative, 1e-5 absolute."""
+    from rlx_tpu_torch.models.mlp import DiscreteQNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    net = DiscreteQNet(None, 4, (512,), output_dim_per_action=51, image_shape=(84, 84, 4))
+    frames = torch.randint(0, 256, (256, 84, 84, 4), dtype=torch.uint8)
+    outs = {}
+    for device in ("cpu", cuda):
+        net.zero_grad(set_to_none=True)
+        net.to(device)
+        out = net(frames.to(device))
+        out.square().mean().backward()
+        outs[str(device)] = [t.detach().cpu().clone() for t in (out, *(p.grad for p in net.parameters()))]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pixel_grid", "pixel_chase"])
+def test_pixel_env_steps_on_the_card_match_the_cpu(cuda, name):
+    """64 steps of 128 envs on the card and on the CPU from the same initial
+    state and actions, each reset's draws taken on the card and handed to the
+    CPU env: observations, rewards, done flags, final observations and the
+    uint8 frame stack equal exactly."""
+    from rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment import PixelChase
+    from rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment import PixelGrid
+
+    draws = []
+
+    def recording(cls):
+        class Recording(cls):
+            def initial_physics(self, generator, eval_mode):
+                draws.append(super().initial_physics(generator, eval_mode))
+                return draws[-1]
+        return Recording
+
+    def replaying(cls):
+        class Replaying(cls):
+            def initial_physics(self, generator, eval_mode):
+                return type(draws[0])(*(t.cpu() for t in draws.pop(0)))
+        return Replaying
+
+    cls = PixelGrid if name == "pixel_grid" else PixelChase
+    card, cpu = recording(cls)(128, 16, device=cuda), replaying(cls)(128, 16, device="cpu")
+    state = card.reset(0)
+    ref = cpu.reset(0)
+    g = torch.Generator().manual_seed(1)
+    for t in range(64):
+        action = torch.randint(0, 4, (128,), generator=g, dtype=torch.int32)
+        state = card.step(state, action.to(cuda))
+        ref = cpu.step(ref, action)
+        for field in ("observation", "final_observation", "reward", "terminated", "truncated"):
+            assert torch.equal(getattr(state, field).cpu(), getattr(ref, field)), (t, field)
+        for a, b in zip(state.physics, ref.physics):
+            assert torch.equal(a.cpu(), b), t
+    assert not draws

@@ -152,7 +152,8 @@ def test_hl_gauss_ops_match_jax(v_min, v_max, nr_bins):
 @pytest.mark.parametrize("atoms,layer_norm_all", [(1, False), (51, False), (1, True)])
 def test_discrete_q_net_matches_flax(atoms, layer_norm_all):
     """Converted flax parameters give flax's outputs (f32, 1e-5), ``[B, A]``
-    or ``[B, A, atoms]``; image inputs raise."""
+    or ``[B, A, atoms]``; a net built for flat observations refuses images
+    (the image nets are ``tests/test_torch_image_nets.py``'s)."""
     from rlx_tpu.models.mlp import DiscreteQNet as JaxDiscreteQNet
 
     jnet = JaxDiscreteQNet(nr_actions=3, hidden_sizes=HIDDEN, output_dim_per_action=atoms,
@@ -167,7 +168,7 @@ def test_discrete_q_net_matches_flax(atoms, layer_norm_all):
         out = net(torch.tensor(obs))
     assert out.shape == ((9, 3) if atoms == 1 else (9, 3, atoms))
     _close(out, jnet.apply(params, obs), 1e-5, "q-values")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         net(torch.zeros(2, 8, 8, 3))
 
 
@@ -352,19 +353,36 @@ def test_jax_discrete_ppo_checkpoint_carries_into_the_port(tmp_path):
         _close(port.critic(torch.tensor(obs)), jmodel.critic.apply(jmodel.critic_state.params, obs), 1e-5, "values")
 
 
-def test_image_observations_still_raise():
-    """Discrete actions are ported; image observations (NatureCNN) are not."""
+@pytest.mark.parametrize("environment", ["classic.pixel_grid.cuda", "classic.pixel_chase.cuda"])
+def test_image_families_accepted_and_the_rest_refused(environment):
+    """The six families whose JAX counterparts list IMAGES pass the runner's
+    compatibility check on both pixel envs and build NatureCNN nets there;
+    a family whose JAX counterpart lists flat values only (SAC) is still
+    refused."""
+    from rlx_tpu_torch.algorithms.algorithm_manager import get_algorithm_general_properties
+    from rlx_tpu_torch.environments.environment_manager import get_environment_general_properties
     from types import SimpleNamespace
 
     from rlx_tpu_torch.environments.types import ActionSpaceType, ObservationSpaceType
-    from rlx_tpu_torch.models.policy_factory import make_policy
+    from rlx_tpu_torch.runner.runner import Runner
 
-    config = make_config("ppo.cuda", "classic.cart_pole.cuda", **{"runner.device": "cpu"})
-    env = create_model(config).train_env
-    env.general_properties = SimpleNamespace(action_space_type=ActionSpaceType.DISCRETE,
-                                             observation_space_type=ObservationSpaceType.IMAGES)
-    with pytest.raises(NotImplementedError):
-        make_policy(config, env, "cpu")
+    for algorithm in (*FAMILY, "pqn", "ppo"):
+        runner = Runner([f"--algorithm.name={algorithm}.cuda", f"--environment.name={environment}",
+                         "--runner.device=cpu", "--environment.nr_envs=2"])
+        assert ObservationSpaceType.IMAGES in get_algorithm_general_properties(f"{algorithm}.cuda").observation_space_types
+        model = create_model(runner.config)
+        nets = [model.policy.module, model.critic] if algorithm == "ppo" else (
+            [model.q_net] if algorithm == "pqn" else [model.critic.module])
+        assert all(any(name.startswith("trunk.convs.") for name in net.state_dict()) for net in nets), algorithm
+    # SAC on images with continuous actions: refused for the observations;
+    # on the pixel envs (discrete actions) the runner refuses it too
+    make_config("sac.cuda", environment, **{"runner.device": "cpu"})
+    continuous_images = SimpleNamespace(**{**vars(get_environment_general_properties(environment)),
+                                           "action_space_type": ActionSpaceType.CONTINUOUS})
+    with pytest.raises(ValueError, match="observation space"):
+        Runner.check_compatibility(get_algorithm_general_properties("sac.cuda"), continuous_images)
+    with pytest.raises(ValueError, match="action space"):
+        Runner(["--algorithm.name=sac.cuda", f"--environment.name={environment}", "--runner.device=cpu"])
 
 
 def test_left_out_features_raise():

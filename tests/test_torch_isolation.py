@@ -37,6 +37,8 @@ for dirpath, _, files in os.walk(env_root):
             if module not in names and module not in sys.modules:
                 missing.append(module)
 assert "rlx_tpu_torch.environments.locomotion.soccer.cuda.environment" in names
+assert {"rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment",
+        "rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment"} <= set(names)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
 """

@@ -117,7 +117,3 @@ def test_samplers_draw_only_filled_rows():
     nstep = rb.sample_nstep(ours, g, 256, 2, 0.9)
     assert nstep["observation"].shape == (256, OBS) and nstep["n_step_gamma"].max() <= 0.9 ** 1 + 1e-7
 
-
-def test_unpackable_field_raises():
-    with pytest.raises(NotImplementedError):
-        rb.create(4, 2, {"pixels": ((8, 8), torch.float32)})
