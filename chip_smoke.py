@@ -176,14 +176,36 @@ Phases (each prints one line; any failure exits nonzero):
     profiled; B1 against its plain version at [64, 128]; PQN on pixel_grid,
     2 iterations, no kernel;
 37. DQN on pixel_chase through the Runner with 2 evaluations and saves,
-    then test mode from latest.model with every tensor equal bit for bit.
+    then test mode from latest.model with every tensor equal bit for bit;
+38. the native C++ env batcher (``environments/native/envbatch.cpp``, built
+    by g++): ``native.cart_pole.host`` and ``native.pendulum.host`` with
+    their results on the card and on the CPU, from the same seed under the
+    same actions, over two horizons with auto-resets, at 8 and 1,024 envs,
+    every output equal bit for bit and no kernel launched; the host time of
+    a card step, split into the action's copy down, the C++ step and the
+    copy up;
+39. PPO on ``native.pendulum.host`` and discrete PPO on
+    ``native.cart_pole.host`` at the ``hopper_ppo`` shape (8 envs x 256
+    steps, minibatch 64, 10 epochs, (256, 256)): 2 iterations each, B1
+    exactly 2; the same on ``classic.pendulum.cuda``; for the bridge's
+    cost each Pendulum's rollout timed alone and one more iteration's
+    device idle share, the host Pendulum's iteration also profiled (``ppo/``
+    spans, top kernels); B1 against
+    its plain version at [256, 8] on each host path's inputs;
+40. C51 on ``native.cart_pole.host`` at the ``cartpole_spot_c51`` recipe
+    and FastTD3 on ``native.pendulum.host`` at ``pendulum_spot_fasttd3``'s:
+    the prefill and 256 learning steps, B3 exactly once a step; B3 against
+    its plain version at [128, 51] -> 51 and [128, 101] -> 101;
+41. PPO on ``native.pendulum.host`` through the Runner with 2 evaluations
+    and saves, then test mode from latest.model, every tensor equal bit for
+    bit.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20, 27, 35 and 36, B2's at the robots' of phase 29), the
+shapes of phases 15, 19, 20, 27, 35, 36, 39 and 40, B2's at the robots' of phase 29), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
@@ -2162,6 +2184,251 @@ def main():
           f"{os.path.getsize(pixel_latest) / 2**20:.2f} MiB; test mode {test_s:.2f} s (load included), "
           f"{compared} tensors restored bit for bit, mean test return {sum(test_returns) / 16:.3f}")
     print(f"phases 32-37 (the pixel track) took {time.perf_counter() - pixel_phases_t0:.1f} s")
+    del trained, tester
+
+    # 38. the native C++ batcher (the host track's card path): envbatch.cpp
+    # built by g++; native.cart_pole.host and native.pendulum.host with their
+    # results on the card and on the CPU, from the same seed under the same
+    # actions, over two horizons with auto-resets, at the registration's 8
+    # envs and at 1,024: every output equal bit for bit, no kernel launched;
+    # then the host time of a card step, split into the action's copy down,
+    # the C++ step and the copy up
+    import numpy as np
+
+    from rlx_tpu_torch.environments.native import batcher as native
+
+    host_phases_t0 = time.perf_counter()
+
+    library = _build.host_library_path(os.path.join(native.NATIVE_DIR, "envbatch.cpp"), [], ["-lpthread"])
+    built = not os.path.exists(library)
+    t0 = time.perf_counter()
+    native._library("envbatch")
+    print(f"build: envbatch.cpp {'compiled by g++' if built else 'found already built'} in "
+          f"{time.perf_counter() - t0:.1f} s ({os.path.basename(library)})")
+    rng = np.random.default_rng(38)
+    step_split = {}
+    for env_id in ("cart_pole", "pendulum"):
+        for nr_envs in (8, 1024):
+            envs = {d: native.NativeEnvBatch(env_id, nr_envs, seed=1, device=d) for d in (dev, "cpu")}
+            horizon = envs["cpu"].horizon
+            discrete = env_id == "cart_pole"
+            zero_counts()
+            states = {d: env.reset(0) for d, env in envs.items()}
+            compared = episodes = 0
+            for t in range(2 * horizon):
+                action = (torch.from_numpy(rng.integers(0, 2, size=nr_envs).astype(np.int32)) if discrete else
+                          torch.from_numpy(rng.uniform(-2.5, 2.5, size=(nr_envs, 1)).astype(np.float32)))
+                states = {d: env.step(states[d], action.to(d)) for d, env in envs.items()}
+                for field in ("observation", "final_observation", "reward", "terminated", "truncated"):
+                    if not torch.equal(getattr(states[dev], field).cpu(), getattr(states["cpu"], field)):
+                        fail(f"native {env_id} at {nr_envs} envs, step {t}: {field} on the card differs from the CPU")
+                    compared += 1
+                for key in states["cpu"].info:
+                    if not torch.equal(states[dev].info[key].cpu(), states["cpu"].info[key]):
+                        fail(f"native {env_id} at {nr_envs} envs, step {t}: {key} on the card differs from the CPU")
+                episodes += int((states["cpu"].terminated | states["cpu"].truncated).sum())
+            if episodes < nr_envs or any(counts().values()):
+                fail(f"native {env_id}: {episodes} episodes ended in 2 horizons, launches {counts()}")
+            # the card's step alone, actions drawn on the card
+            env = envs[dev]
+            state = env.reset(0)
+            gen = torch.Generator(device=dev).manual_seed(38)
+            draw = ((lambda: torch.randint(0, 2, (nr_envs,), device=dev, generator=gen, dtype=torch.int32))
+                    if discrete else (lambda: 4 * torch.rand(nr_envs, 1, device=dev, generator=gen) - 2))
+            steps = 1000
+            env.timings = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = env.step(state, draw())
+            torch.cuda.synchronize()
+            total_us = (time.perf_counter() - t0) / steps * 1e6
+            split = {k: v / steps * 1e6 for k, v in env.timings.items()}
+            step_split[f"{env_id} B={nr_envs}"] = {"step_us": total_us, **{f"{k}_us": v for k, v in split.items()}}
+            print(f"native {env_id} at {nr_envs} envs: card and CPU equal bit for bit over {2 * horizon} steps "
+                  f"({compared} tensors, {episodes} episodes ended); a card step {total_us:.1f} us on the host: "
+                  f"action down {split['action_down']:.1f}, C++ step {split['host_step']:.1f}, copy up "
+                  f"{split['results_up']:.1f} us ({env.edge.staging.numel()} bytes pinned)")
+            for e in envs.values():
+                e.close()
+
+    print(f"phase 38 took {time.perf_counter() - host_phases_t0:.1f} s")
+    phase_t0 = time.perf_counter()
+
+    # 39. PPO on native.pendulum.host and discrete PPO on native.cart_pole.host
+    # at the hopper_ppo shape (8 envs x 256 steps, minibatch 64, 10 epochs,
+    # (256, 256)): 2 iterations each through B1, one more profiled; the same
+    # on classic.pendulum.cuda in this call, so the bridge's cost reads
+    # against the device env's; B1 against its plain version at [256, 8]
+    # on each host path's inputs
+    hopper_shape = {k: v for k, v in RUNS["hopper_ppo"]["overrides"].items()}
+    host_batch = hopper_shape["algorithm.nr_steps"] * hopper_shape["environment.nr_envs"]
+    host_ppo = {}
+    for label, environment in (("native_pendulum", "native.pendulum.host"),
+                               ("native_cart_pole", "native.cart_pole.host"),
+                               ("classic_pendulum", "classic.pendulum.cuda")):
+        model = create_model(make_config("ppo.cuda", environment, **{
+            **hopper_shape, "runner.device": "cuda", "algorithm.total_timesteps": 2 * host_batch,
+            "algorithm.evaluation_active": False}))
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        if path_launches != {"engine_substep": 0, "gae": 2, "categorical_projection": 0}:
+            fail(f"PPO on {environment}: launch counts {path_launches}, expected 2 GAE")
+        check_logged(f"PPO on {environment}", model.metrics_history)
+        if environment.endswith(".host"):
+            launches_by_path[f"ppo_{label}"] = path_launches
+        host_ppo[label] = {"env_steps_per_s": 2 * host_batch / elapsed,
+                           "last_iteration_sps": model.metrics_history[-1]["time/sps"]}
+        print(f"train: PPO on {environment} at the hopper_ppo shape (8x256, minibatch 64, 10 epochs, (256, 256)), "
+              f"2 iterations in {elapsed:.2f} s ({2 * host_batch / elapsed:.0f} env-steps/s overall, "
+              f"{model.metrics_history[-1]['time/sps']} in the last), launches {path_launches}")
+        if label != "native_cart_pole":
+            # the bridge's cost: the rollout of each Pendulum timed alone, and
+            # one iteration's device idle share; the host pendulum's
+            # iteration also with its spans and top kernels
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.env_state = model._rollout(model.env_state)[0]
+            torch.cuda.synchronize()
+            host_ppo[label]["rollout_ms"] = (time.perf_counter() - t0) * 1e3
+            host_ppo[label].update(device_idle(lambda: model.learning_iteration(model.env_state), "ppo/"))
+            if label == "native_pendulum":
+                profile = profile_spans(lambda: model.learning_iteration(model.env_state), "ppo/")
+                host_ppo[label]["host_spans_ms"] = profile["host_spans_ms"]
+                print(f"profile ppo_{label} (one iteration): " + json.dumps(profile))
+            print(f"ppo_{label}: rollout alone {host_ppo[label]['rollout_ms']:.1f} ms (256 steps of 8 envs), one "
+                  f"iteration {host_ppo[label]['wall_ms']:.1f} ms, device busy {host_ppo[label]['device_busy_ms']:.1f} "
+                  f"ms, idle share {host_ppo[label]['device_idle_share']:.3f}")
+        model.train_env.close()
+        model.eval_env.close()
+        del model
+    for label, (r, d, gamma) in {
+        "[256, 8] (PPO on native.pendulum.host)": (-16.0 * torch.rand(256, 8, device=dev, generator=g),
+                                                   torch.zeros(256, 8, dtype=torch.bool, device=dev), 0.99),
+        "[256, 8] (PPO on native.cart_pole.host)": (torch.ones(256, 8, device=dev),
+                                                    torch.rand(256, 8, device=dev, generator=g) < 0.05, 0.99),
+    }.items():
+        v, nv = (r.mean() * 20 + 5.0 * torch.randn(256, 8, device=dev, generator=g) for _ in range(2))
+        err = max_err(gae_advantages_cuda(r, v, nv, d, gamma, 0.95), gae_advantages_reference(r, v, nv, d, gamma, 0.95),
+                      1e-5, 1e-5, f"GAE {label}")
+        t = kernel_times(lambda: gae_advantages_cuda(r, v, nv, d, gamma, 0.95),
+                         lambda: gae_advantages_reference(r, v, nv, d, gamma, 0.95), "gae_kernel")
+        t["bound_ms"], t["bound_by"] = roofline(gae_bytes(256, 8), 0)
+        kernels[0]["by_shape"][label] = {**t, "max_abs_err": err}
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err)
+        print(f"B1 gae at {label}: max|err| {err:.3g} (rtol=atol=1e-5), kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.3f} ms bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {gae_bytes(256, 8)} bytes)")
+
+    print(f"phase 39 took {time.perf_counter() - phase_t0:.1f} s")
+    phase_t0 = time.perf_counter()
+
+    # 40. C51 on native.cart_pole.host at the cartpole_spot_c51 recipe and
+    # FastTD3 on native.pendulum.host at the pendulum_spot_fasttd3 recipe:
+    # the recipe's prefill, then 256 learning steps, B3 exactly once a step;
+    # B3 against its plain version at each path's shape
+    host_offpolicy = {}
+    for name, environment, recipe_name in (("c51", "native.cart_pole.host", "cartpole_spot_c51"),
+                                           ("fasttd3", "native.pendulum.host", "pendulum_spot_fasttd3")):
+        overrides = {**RUNS[recipe_name]["overrides"], "runner.device": "cuda"}
+        starts = make_config(f"{name}.cuda", environment, **overrides).algorithm.learning_starts
+        overrides.update({"algorithm.total_timesteps": starts + 256 * 8, "algorithm.logging_frequency": 64 * 8,
+                          "algorithm.evaluation_active": False})
+        model = create_model(make_config(f"{name}.cuda", environment, **overrides))
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        path_launches = counts()
+        expected = {"engine_substep": 0, "gae": 0, "categorical_projection": 256}
+        if path_launches != expected or model.nr_updates != 256:
+            fail(f"{name} on {environment}: launches {path_launches} != {expected}, {model.nr_updates} learning steps")
+        check_logged(f"{name} on {environment}", model.metrics_history)
+        launches_by_path[f"{name}_{environment.split('.')[1]}_host"] = path_launches
+        sps = [m["time/sps"] for m in model.metrics_history]
+        host_offpolicy[name] = {"env_steps_per_s_by_log_line": sps, "wall_s": elapsed}
+        print(f"train: {name} on {environment} at the {recipe_name} recipe, {starts // 8} prefill + 256 learning "
+              f"steps at 8 envs in {elapsed:.2f} s; env-steps/s of the log lines (the first includes the prefill) "
+              f"{sps}, launches {path_launches}")
+        model.train_env.close()
+        model.eval_env.close()
+        del model
+    for label, (n, v_lo, v_hi, atoms, reward, gamma) in {
+        "[128, 51] -> 51 (C51 on native.cart_pole.host, 0..500)": (128, 0.0, 500.0, 51,
+                                                                    lambda n: torch.ones(n, 1, device=dev), 0.99),
+        "[128, 101] -> 101 (FastTD3 on native.pendulum.host, -800..100)": (
+            128, -800.0, 100.0, 101, lambda n: -16.0 * torch.rand(n, 1, device=dev, generator=g), 0.97),
+    }.items():
+        support = torch.linspace(v_lo, v_hi, atoms, device=dev)
+        d = (torch.rand(n, 1, device=dev, generator=g) < 0.05).float()
+        z, p = reward(n) + gamma * (1.0 - d) * support[None], softmax_probs(n, atoms)
+        out = categorical_projection_cuda(z, p, v_lo, v_hi, atoms)
+        ref = categorical_projection_reference(z, p, v_lo, v_hi, atoms)
+        torch.cuda.synchronize()
+        err = max_err([out], [ref], 1e-6, 1e-6, f"projection {label}")
+        t = kernel_times(lambda: categorical_projection_cuda(z, p, v_lo, v_hi, atoms),
+                         lambda: categorical_projection_reference(z, p, v_lo, v_hi, atoms), "projection_kernel")
+        t["bound_ms"], t["bound_by"] = roofline(projection_bytes(n, atoms, atoms), projection_flops(n, atoms))
+        kernels[2]["by_shape"][label] = {**t, "max_abs_err": err}
+        kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err)
+        print(f"B3 projection at {label}: max|err| {err:.3g} (rtol=atol=1e-6), kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.3f} ms bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {projection_bytes(n, atoms, atoms)} bytes)")
+
+    print(f"phase 40 took {time.perf_counter() - phase_t0:.1f} s")
+    phase_t0 = time.perf_counter()
+
+    # 41. keeping a policy on a host env: PPO on native.pendulum.host through
+    # the Runner at the hopper_ppo shape, 2 iterations with an evaluation and
+    # a save after each, then test mode from latest.model (every tensor
+    # equal bit for bit)
+    os.chdir(workdir.name)
+    host_args = ["--algorithm.name=ppo.cuda", "--environment.name=native.pendulum.host", "--runner.device=cuda",
+                 *[f"--{k}={v}" for k, v in hopper_shape.items()]]
+    runner = Runner([*host_args, f"--algorithm.total_timesteps={2 * host_batch}",
+                     f"--algorithm.evaluation_and_save_frequency={host_batch}", "--runner.save_model=True",
+                     "--runner.run_name=ppo_native_pendulum"])
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = runner.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner_launches = counts()
+    eval_returns = [float(x) for x in trained.eval_history["eval/episode_return"]]
+    if runner_launches != {"engine_substep": 0, "gae": 2, "categorical_projection": 0} or len(eval_returns) != 2 \
+            or not all(map(math.isfinite, eval_returns)):
+        fail(f"PPO native.pendulum.host runner: launches {runner_launches}, eval returns {eval_returns}")
+    host_latest = os.path.join(workdir.name, "runs", "rlx_tpu_torch", "default", "ppo_native_pendulum", "models",
+                               "latest.model")
+    tester = Runner([*host_args, "--runner.mode=test", f"--runner.load_model={host_latest}",
+                     "--runner.nr_test_episodes=8", "--runner.run_name=ppo_native_pendulum_test"])
+    zero_counts()
+    t0 = time.perf_counter()
+    test_returns = tester.run()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = counts()
+    os.chdir(root)
+    if len(test_returns) != 8 or not all(math.isfinite(r) for r in test_returns) or any(test_launches.values()):
+        fail(f"PPO native.pendulum.host test mode returned {test_returns}, launches {test_launches}")
+    compared = same_tree(trained.checkpoint_tree(), tester.model.checkpoint_tree())
+    launches_by_path["ppo_native_pendulum_runner"] = runner_launches
+    launches_by_path["ppo_native_pendulum_test"] = test_launches
+    print(f"runner ppo on native.pendulum.host: 2 iterations at 8x256 with 2 evaluations and saves in "
+          f"{train_s:.2f} s, eval returns {eval_returns}; checkpoint {os.path.getsize(host_latest) / 2**20:.2f} MiB; "
+          f"test mode {test_s:.2f} s (load included), {compared} tensors restored bit for bit, mean test return "
+          f"{sum(test_returns) / 8:.2f}")
+    print("host track: " + json.dumps({"native_step_split": step_split, "ppo": {
+        k: {key: v[key] for key in ("env_steps_per_s", "rollout_ms", "wall_ms", "device_idle_share", "host_spans_ms")
+            if key in v}
+        for k, v in host_ppo.items()}, "offpolicy": host_offpolicy}))
+    print(f"phase 41 took {time.perf_counter() - phase_t0:.1f} s; phases 38-41 (the host track) took "
+          f"{time.perf_counter() - host_phases_t0:.1f} s")
     del trained, tester
     workdir.cleanup()
 

@@ -12,6 +12,8 @@
     python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_reppo --seeds 0
     python -m rlx_tpu_torch.benchmarks.curves locomotion_lstm --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves pixel_chase_dqn pixel_chase_dqn_stack1 --seeds 0 1 2
+    python -m rlx_tpu_torch.benchmarks.curves hopper_ppo --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves dmc_walker_walk_sac --seeds 1 2 3
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
@@ -21,8 +23,11 @@ turn; its final return is the mean of its last three evaluations of the
 recipe's metric (the episode return, or for the locomotion family the
 episode's velocity tracking, ``eval/episode_tracking``), and the
 check passes when every seed's final return clears the threshold (or, for a
-negative control marked ``"expect": "below"``, stays below it).  Needs a
-CUDA device and prints the card's name and power limit beside the result.
+negative control marked ``"expect": "below"``, stays below it).  A recipe
+runs on the card, and prints the card's name and power limit beside the
+result, unless it names ``"device": "cpu"``: the host-env recipes, whose
+MuJoCo and dm_control envs need packages only a CPU machine has (the JAX
+package's records of them are CPU runs too).
 """
 
 import argparse
@@ -52,6 +57,17 @@ LOCOMOTION = {
     "algorithm.logging_active": False,
 }
 
+# benchmarks/curves.py: _REF_PPO, the reference's PPO hyperparameters
+# (`rl_x/algorithms/ppo/flax/default_config.py`), 8 envs x 256 steps
+REF_PPO = {
+    "algorithm.learning_rate": 3e-4, "algorithm.anneal_learning_rate": False, "algorithm.nr_steps": 2048 // 8,
+    "algorithm.nr_epochs": 10, "algorithm.minibatch_size": 64, "algorithm.gamma": 0.99,
+    "algorithm.gae_lambda": 0.95, "algorithm.clip_range": 0.2, "algorithm.entropy_coef": 0.0,
+    "algorithm.critic_coef": 0.5, "algorithm.max_grad_norm": 0.5,
+    "algorithm.action_clipping_and_rescaling": True, "algorithm.policy_hidden_sizes": (256, 256),
+    "algorithm.critic_hidden_sizes": (256, 256),
+}
+
 # benchmarks/curves.py: the pixel_chase_dqn recipes' overrides
 PIXEL_CHASE = {
     "environment.nr_envs": 128, "algorithm.learning_starts": 10_000, "algorithm.buffer_size": 30_000,
@@ -60,6 +76,19 @@ PIXEL_CHASE = {
 }
 
 RUNS = {
+    # benchmarks/curves.py: hopper_ppo and dmc_walker_walk_sac, host envs on
+    # the CPU (Gymnasium's MuJoCo Hopper; the native C++ dm_control walker,
+    # one env, one update an env step)
+    "hopper_ppo": {
+        "algorithm": "ppo.cuda", "environment": "gym.mujoco.hopper_v5.host", "device": "cpu",
+        "budget": 300_000, "threshold": 800.0, "eval_points": 12,
+        "overrides": {**REF_PPO, "environment.nr_envs": 8},
+    },
+    "dmc_walker_walk_sac": {
+        "algorithm": "sac.cuda", "environment": "native.dmc_walker_walk.host", "device": "cpu",
+        "budget": 150_000, "threshold": 300.0, "eval_points": 8,
+        "overrides": {"environment.nr_envs": 1},
+    },
     # benchmarks/curves.py: pendulum_ppo (gamma 0.9, 8 envs x 256 steps)
     "pendulum_ppo": {
         "algorithm": "ppo.cuda", "environment": "classic.pendulum.cuda",
@@ -226,11 +255,11 @@ for name in ("dqn", "ddqn", "dqn_hl_gauss"):
 def run_seed(spec, seed):
     from rlx_tpu_torch.config import create_model, make_config
 
-    budget, overrides = spec["budget"], spec["overrides"]
+    budget, overrides, device = spec["budget"], spec["overrides"], spec.get("device", "cuda")
     # an algorithm key the config lacks (FastMPO's buffer_size: it sizes its
     # buffer per env) is added unread by the JAX package's make_config; the
     # port's raises, so it is left out here
-    defaults = make_config(spec["algorithm"], spec["environment"], **{"runner.device": "cuda"}).algorithm
+    defaults = make_config(spec["algorithm"], spec["environment"], **{"runner.device": device}).algorithm
     overrides = {k: v for k, v in overrides.items()
                  if not k.startswith("algorithm.") or k.split(".", 1)[1] in defaults}
     eval_frequency = max(budget // spec["eval_points"], 1)
@@ -239,7 +268,7 @@ def run_seed(spec, seed):
         eval_frequency = max(eval_frequency // batch, 1) * batch
     config = make_config(spec["algorithm"], spec["environment"], **{
         **overrides,
-        "runner.device": "cuda",
+        "runner.device": device,
         "algorithm.total_timesteps": budget,
         "algorithm.evaluation_and_save_frequency": eval_frequency,
         "algorithm.evaluation_active": True,
@@ -249,7 +278,10 @@ def run_seed(spec, seed):
     model = create_model(config)
     start = time.perf_counter()
     model.train()
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    model.train_env.close()
+    model.eval_env.close()
     history = model.eval_history
     returns = [float(r) for r in history[spec.get("metric", "eval/episode_return")]]
     return {
@@ -276,16 +308,20 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.out and len(args.names) > 1:
         parser.error("--out takes the record of one recipe")
-    if not torch.cuda.is_available():
-        sys.exit("no CUDA device: the learning checks run on the card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = None
+    if any(RUNS[name].get("device", "cuda") == "cuda" for name in args.names):
+        if not torch.cuda.is_available():
+            sys.exit("no CUDA device: the learning checks run on the card")
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     for name in args.names:
         spec = RUNS[name]
         seeds = [run_seed(spec, seed) for seed in args.seeds]
+        device = spec.get("device", "cuda")
         result = {
             "name": name, "algorithm": spec["algorithm"], "environment": spec["environment"],
-            "budget": spec["budget"], "threshold": spec["threshold"], "card": card,
+            "budget": spec["budget"], "threshold": spec["threshold"], "device": device,
+            "card": card if device == "cuda" else None, "torch_threads": torch.get_num_threads(),
             "seeds": seeds,
             "expect": spec.get("expect", "above"),
             "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],

@@ -1,0 +1,12 @@
+"""Native C++ vectorized Gymnasium MuJoCo v5 'hopper', stepped on the host."""
+
+from rlx_tpu_torch.environments.environment_manager import extract_environment_name_from_file, register_environment
+from rlx_tpu_torch.environments.native.batcher import MujocoNativeEnvBatch
+from rlx_tpu_torch.environments.native.common import make_native_registration
+
+get_config, create_train_and_eval_env, GeneralProperties = make_native_registration(
+    MujocoNativeEnvBatch, "hopper", discrete=False
+)
+
+NAME = extract_environment_name_from_file(__file__)
+register_environment(NAME, get_config, create_train_and_eval_env, GeneralProperties)

@@ -16,14 +16,24 @@ class ObservationSpaceType(Enum):
 class DataInterfaceType(Enum):
     """How observations/actions cross the algorithm<->environment boundary.
 
-    TORCH  — tensors on the env's device; the env is stepped in-process.
+    TORCH  — tensors on the env's device (``runner.device``), whether the
+             env steps there or on the host behind a numpy<->torch edge.
     """
 
     TORCH = 0
 
 
 class SimulationType(Enum):
-    DEVICE = 0  # stepped on the training device
+    """Where the simulation runs.
+
+    DEVICE — a torch env stepped on the training device.
+    HOST   — stepped on the host CPU (C++, Gymnasium, dm_control, a socket);
+             ``environments/gym/host_bridge.py`` carries each step's results
+             to the training device.
+    """
+
+    DEVICE = 0
+    HOST = 1
 
 
 class DeepLearningFrameworkType(Enum):

@@ -1,4 +1,5 @@
-"""Build the CUDA sources in ``rlx_tpu_torch/csrc`` at first use.
+"""Build the CUDA sources in ``rlx_tpu_torch/csrc``, and the host C++ of the
+native env batcher, at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for Hopper (``sm_90a``) into
@@ -7,6 +8,11 @@ ignores ``build/``) and loaded with ``ctypes``.  The file name carries a
 hash of the source, so an edited source is rebuilt and a stale library is
 never loaded.  All missing libraries are compiled together, one ``nvcc``
 process per source.
+
+The host C++ sources (``environments/native/envbatch*.cpp``) are compiled
+by ``g++`` one at a time when an env first needs one (``load_host``), into
+the same directory and under the same naming; ``build_all`` never touches
+them, so a machine without ``nvcc`` runs the native envs.
 """
 
 import collections
@@ -24,6 +30,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _loaded = {}
 
@@ -91,3 +99,42 @@ def load(name):
             build_all()
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
+
+
+def build_dir():
+    """The build directory, created if missing (also where a native env's
+    compiled MuJoCo model goes)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return BUILD_DIR
+
+
+def host_library_path(source, compile_flags=(), link_flags=()):
+    """``build/rlx_tpu_torch/<name>-<hash>.so`` of a host C++ source: the hash
+    covers the source, the compiler and linker flags (the MuJoCo builds name
+    the ``libmujoco`` file they link), so a change to any of them rebuilds."""
+    with open(source, "rb") as f:
+        text = f.read()
+    flags = " ".join([*HOST_FLAGS, *compile_flags, "|", *link_flags])
+    digest = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def load_host(source, compile_flags=(), link_flags=()):
+    """The ``ctypes`` library of a host C++ source, compiled by ``g++`` with
+    ``HOST_FLAGS`` if its library is missing.  Each process writes its own
+    temporary file and renames it into place, so processes that build at
+    once (test workers) never load a half-written library.  A failed
+    compile raises with the compiler's output."""
+    path = host_library_path(source, compile_flags, link_flags)
+    if path not in _loaded:
+        if not os.path.exists(path):
+            build_dir()
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = ["g++", *HOST_FLAGS, *compile_flags, "-o", tmp, source, *link_flags]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for {os.path.basename(source)} ({' '.join(cmd)}):\n{proc.stdout}")
+            os.replace(tmp, path)
+        _loaded[path] = ctypes.CDLL(path)
+    return _loaded[path]

@@ -13,6 +13,7 @@ import torch
 from rlx_tpu.environments.locomotion.ant.tpu.environment import Ant as JaxAnt
 from rlx_tpu.environments.locomotion.ant.tpu.environment import AntPhysics as JaxAntPhysics
 from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import Ant, AntPhysics
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 RTOL = ATOL = 1e-5
 B, HORIZON = 8, 20
@@ -124,13 +125,14 @@ def test_ant_eval_return_of_a_standing_ant_matches_jax():
         "environment.nr_envs": nr_envs, "environment.horizon": horizon}))
     _, env = create_env(make_config("ppo.cuda", "locomotion.ant.cuda", **{
         "runner.device": "cpu", "environment.nr_envs": nr_envs, "environment.horizon": horizon}))
-    jstate = jenv.reset(jax.random.PRNGKey(0), eval_mode=True)
+    jstate = jax.jit(jenv.reset, static_argnames="eval_mode")(jax.random.PRNGKey(0), eval_mode=True)
     state = env.reset(0, eval_mode=True)
     jstep = jax.jit(jenv.step)
     zeros = jnp.zeros((nr_envs, 8))
-    for _ in range(horizon):
-        jstate = jstep(jstate, zeros)
-        state = env.step(state, torch.zeros(nr_envs, 8))
+    with torch.inference_mode():
+        for _ in range(horizon):
+            jstate = jstep(jstate, zeros)
+            state = env.step(state, torch.zeros(nr_envs, 8))
     assert bool(state.truncated.all()) and bool(np.asarray(jstate.truncated).all())
     ours = state.info["rollout/episode_return"].numpy()
     ref = np.asarray(jstate.info["rollout/episode_return"])

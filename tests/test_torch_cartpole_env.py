@@ -19,6 +19,7 @@ from rlx_tpu.environments.classic.cart_pole.tpu.environment import CartPole as J
 from rlx_tpu.environments.classic.cart_pole.tpu.environment import CartPolePhysics as JaxPhysics
 from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments.classic.cart_pole.cuda.environment import CartPole, CartPolePhysics
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 HORIZON, STEPS = 25, 40
 TOL = 1e-5

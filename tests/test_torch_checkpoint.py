@@ -22,6 +22,7 @@ from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
 from rlx_tpu_torch.config import create_env, create_model, make_config
 from rlx_tpu_torch.utils import checkpoint as ckpt
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 HIDDEN = (16, 16)
 

@@ -348,3 +348,54 @@ def test_pixel_env_steps_on_the_card_match_the_cpu(cuda, name):
         for a, b in zip(state.physics, ref.physics):
             assert torch.equal(a.cpu(), b), t
     assert not draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["cart_pole", "pendulum"])
+def test_native_env_on_the_card_matches_the_cpu(cuda, env_id):
+    """The native C++ batcher with its results on the card and on the CPU,
+    from the same seed under the same actions, over 450 steps with
+    auto-resets: every tensor equal bit for bit.  Each step's state is kept
+    and compared only after the next step has run, so a copy up still
+    reading the pinned buffer when the next step writes it would show."""
+    from rlx_tpu_torch.environments.native.batcher import NativeEnvBatch
+
+    envs = {d: NativeEnvBatch(env_id, 64, seed=9, nr_threads=2, device=d) for d in (cuda, "cpu")}
+    rng = np.random.default_rng(4)
+    states = {d: env.reset(0) for d, env in envs.items()}
+    assert states[cuda].observation.is_cuda and envs[cuda].edge.staging.is_pinned()
+    kept = None
+    for t in range(450):
+        if env_id == "cart_pole":
+            action = torch.tensor(rng.integers(0, 2, size=64), dtype=torch.int32)
+        else:
+            action = torch.tensor(rng.uniform(-2.5, 2.5, size=(64, 1)), dtype=torch.float32)
+        # the action comes from the card (a blocking copy down) and the CPU
+        states = {d: env.step(states[d], action.to(d)) for d, env in envs.items()}
+        if kept is not None:
+            for field in ("observation", "final_observation", "reward", "terminated", "truncated"):
+                assert torch.equal(getattr(kept[cuda], field).cpu(), getattr(kept["cpu"], field)), (t, field)
+            for key in kept["cpu"].info:
+                assert torch.equal(kept[cuda].info[key].cpu(), kept["cpu"].info[key]), (t, key)
+        kept = states
+    assert float(states["cpu"].info["rollout/episode_length"].sum()) > 0
+    for env in envs.values():
+        env.close()
+
+
+@pytest.mark.cuda
+def test_host_edge_waits_for_its_copy_before_the_host_writes_again(cuda):
+    """A reset right after a step (no action copied down in between) must
+    not overwrite the staging buffer under the step's copy up: the step's
+    results, read after the reset, equal the CPU's."""
+    from rlx_tpu_torch.environments.native.batcher import NativeEnvBatch
+
+    envs = {d: NativeEnvBatch("pendulum", 4096, seed=2, nr_threads=2, device=d) for d in (cuda, "cpu")}
+    action = torch.full((4096, 1), 0.7)
+    stepped = {d: env.step(env.reset(0), action.to(d)) for d, env in envs.items()}
+    for env in envs.values():
+        env.reset(0)
+    for field in ("observation", "final_observation", "reward"):
+        assert torch.equal(getattr(stepped[cuda], field).cpu(), getattr(stepped["cpu"], field)), field
+    for env in envs.values():
+        env.close()

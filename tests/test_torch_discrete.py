@@ -30,6 +30,7 @@ from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.mlp import CategoricalPolicy, DiscreteQNet
 from rlx_tpu_torch.ops.distributional import hl_gauss_expectation, hl_gauss_targets
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 OBS, ACTIONS, HIDDEN, B = 4, 2, (32, 16), 16
 FAMILY = ("dqn", "ddqn", "c51", "dqn_hl_gauss")
@@ -396,7 +397,7 @@ def test_left_out_features_raise():
 def test_curve_recipes_match_jax():
     """The port's learning checks run the JAX package's recipes: budget,
     threshold, direction, evaluation points, overrides and metric, name for
-    name."""
+    name, the host envs' two among them."""
     from rlx_tpu_torch.benchmarks.curves import RUNS
 
     spec = importlib.util.spec_from_file_location("jax_curves", os.path.join(REPO, "benchmarks", "curves.py"))
@@ -411,6 +412,9 @@ def test_curve_recipes_match_jax():
         assert fields(run) == fields(ref), name
     assert {f"cartpole_spot_{n}" for n in (*FAMILY, "pqn")} <= set(RUNS)
     assert {"locomotion_ppo", "locomotion_lstm", "locomotion_ppo_bf16", "soccer_lstm"} <= set(RUNS)
+    # the host envs' recipes, run on the CPU as JAX's records were
+    assert {name for name, run in RUNS.items() if run.get("device") == "cpu"} == {"hopper_ppo",
+                                                                                 "dmc_walker_walk_sac"}
     assert {f"pendulum_masked_{n}" for n in ("ppo", "history_window", "memory_actions", "lstm", "gru", "mamba2",
                                              "transformer")} <= set(RUNS)
     assert {f"pendulum_spot_{n}" for n in ("fastsac", "flashsac", "redq", "droq", "aqe", "tqc", "simba", "xqc",

@@ -19,6 +19,7 @@ from rlx_tpu_torch.ops.projection_cuda import (
     categorical_projection_cuda,
     projection_geometry,
 )
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 V_MIN, V_MAX = -10.0, 10.0
 

@@ -18,6 +18,7 @@ import torch
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_model, make_config
 from torch_parity import assert_state_dict, batch, close, models, normals, np_tree, to_torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 ACT, OBS, ATOMS, B = 8, 34, 11, 32
 SMALL = {

@@ -19,6 +19,7 @@ import torch
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.runner.runner import Runner
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 ACT, ATOMS = 8, 11
 OBS, HIDDEN = 34, (32, 16)

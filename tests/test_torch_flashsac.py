@@ -23,6 +23,7 @@ from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.flashsac.cuda import layers
 from rlx_tpu_torch.runner.runner import Runner
 from torch_parity import assert_state_dict, batch, close, models, normals, np_tree, same_tree, to_torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 ACT, OBS, ATOMS, B = 8, 34, 11, 16
 SMALL = {

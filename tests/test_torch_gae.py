@@ -12,6 +12,7 @@ from rlx_tpu_torch.ops.gae import gae_advantages, gae_advantages_reference
 from rlx_tpu_torch.ops.gae_cuda import (
     COLUMNS, TIME_CHUNK, WARPS, gae_advantages_cuda, gae_bytes, gae_geometry,
 )
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 RTOL = ATOL = 1e-5
 

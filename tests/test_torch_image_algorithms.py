@@ -26,6 +26,7 @@ from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.ops import replay_buffer as rb
 from rlx_tpu_torch.runner.runner import Runner
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 TOL = 1e-5
 FRAME = (84, 84, 4)

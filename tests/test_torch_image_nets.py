@@ -19,6 +19,7 @@ import torch
 from rlx_tpu.models import mlp as jax_mlp
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.models.mlp import CategoricalPolicy, DiscreteQNet, GaussianPolicy, NatureCNN, VCritic
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B, TOL = 4, 1e-5
 SHAPE = (84, 84, 4)

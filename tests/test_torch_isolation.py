@@ -1,7 +1,7 @@
 """The port stands alone: no module of rlx_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or the JAX package.  Every algorithm's
 module and every module under ``rlx_tpu_torch/environments/`` is among the
-modules imported."""
+modules imported, the host envs' modules and their 20 registrations named."""
 
 import os
 import subprocess
@@ -39,6 +39,13 @@ for dirpath, _, files in os.walk(env_root):
 assert "rlx_tpu_torch.environments.locomotion.soccer.cuda.environment" in names
 assert {"rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment",
         "rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment"} <= set(names)
+# the host envs: the edge, the three bridges, the process pool, the Atari
+# stack, the socket env, and every host registration
+host = {"rlx_tpu_torch.environments." + m for m in (
+    "gym.host_bridge", "gym.process_pool", "gym.common", "gym.atari.common", "gym.atari.wrappers",
+    "native.batcher", "native.common", "dmc.host_bridge", "custom_interface.prototype.connection")}
+host_registrations = [m for m in names if m.startswith("rlx_tpu_torch.environments.") and m.endswith(".host")]
+assert host <= set(names) and len(host_registrations) == 20, (sorted(host - set(names)), host_registrations)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
 """

@@ -13,6 +13,7 @@ from rlx_tpu.models.mlp import VCritic as JaxVCritic
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, GaussianPolicy, QCritic, VCritic, VectorQCritic
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 HIDDEN = (32, 16)
 OBS, ACT = 34, 8

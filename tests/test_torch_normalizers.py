@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from rlx_tpu_torch.ops import normalizers
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 
 def _assert_states_close(ours, ref, tol):

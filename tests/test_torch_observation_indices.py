@@ -18,6 +18,7 @@ import torch
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_env, create_model, make_config
 from torch_parity import close, np_tree
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 POLICY_INDICES = [2, 0]
 CRITIC_INDICES = [1, 2, 0]

@@ -10,6 +10,7 @@ import torch
 
 from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments.classic.pendulum.cuda.environment import Pendulum, PendulumPhysics
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B, HORIZON, STEPS = 8, 25, 30
 TOL = 1e-5

@@ -20,6 +20,7 @@ from rlx_tpu_torch.ops.engine_substep_cuda import (
     ltdl_schedule, model_tables, step_cuda, substep_flops,
 )
 from tests.test_physics import ANT_XML, TEST_XML, random_state
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 RTOL = ATOL = 1e-5
 

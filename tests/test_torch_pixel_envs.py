@@ -24,6 +24,7 @@ from rlx_tpu.environments.classic.pixel_grid.tpu.environment import PixelGrid as
 from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment import ChasePhysics, PixelChase
 from rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment import GridPhysics, PixelGrid
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B, STEPS, HORIZON = 8, 40, 12
 UP, DOWN, LEFT, RIGHT = 0, 1, 2, 3

@@ -18,6 +18,7 @@ from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 from rlx_tpu_torch.config import create_env, create_model, make_config
 from rlx_tpu_torch.runner.runner import Runner, parse_flags
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 NR_ENVS, NR_STEPS, MINIBATCH, EPOCHS = 4, 4, 8, 2
 SHARED = {

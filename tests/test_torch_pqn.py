@@ -17,6 +17,7 @@ import torch
 from rlx_tpu.environments.classic.cart_pole.tpu.environment import CartPolePhysics as JaxPhysics
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_model, make_config
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 NR_ENVS, NR_STEPS, EPOCHS, MINIBATCHES = 4, 8, 2, 4
 SMALL = {

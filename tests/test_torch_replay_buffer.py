@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from rlx_tpu_torch.ops import replay_buffer as rb
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 OBS, ACT = 3, 2
 

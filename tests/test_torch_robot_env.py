@@ -36,6 +36,7 @@ from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import Locomot
 from rlx_tpu_torch.environments.locomotion.robot.robots.configs import ROBOT_CONFIGS
 from torch_robot_parity import close_tree, configs, jax_env, port_state, record_draws, replay, run_steps, to64
 from torch_robot_parity import float64  # noqa: F401 (module fixture: float64 on both sides)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B = 4
 TOL = 1e-5

@@ -52,7 +52,8 @@ def test_learning_iteration_matches_jax(float64):
     jmodel._log_train_callback = lambda metrics, *_: logged.append({k: float(v) for k, v in metrics.items()})
 
     action_dim = env.nr_actuator_joints
-    jcarry = (to64(jmodel.policy_state), to64(jmodel.critic_state), to64(jmodel.train_env.reset(jax.random.PRNGKey(0))),
+    jreset = jax.jit(jmodel.train_env.reset)
+    jcarry = (to64(jmodel.policy_state), to64(jmodel.critic_state), to64(jreset(jax.random.PRNGKey(0))),
               to64(jmodel.policy.initialize_carry(E)), jax.random.PRNGKey(5))
     noise, env_indices = _jax_draws(jcarry[4], action_dim)
     jcarry = jax.block_until_ready(jax.jit(lambda c: jmodel._learning_iteration(c, 0, 0)[0])(jcarry))

@@ -15,6 +15,7 @@ import torch
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.runner.runner import Runner, parse_flags
 from rlx_tpu_torch.utils.logging import rlx_logger
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 PENDULUM = ["--environment.name=classic.pendulum.cuda", "--runner.device=cpu", "--environment.nr_envs=4"]
 ALGORITHMS = {

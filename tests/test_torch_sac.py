@@ -19,6 +19,7 @@ import torch
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_env, create_model, make_config
 from rlx_tpu_torch.models import distributions as D
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 ACT, OBS, HIDDEN, B = 8, 34, (32, 16), 32
 SMALL = {

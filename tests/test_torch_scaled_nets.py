@@ -26,6 +26,7 @@ from rlx_tpu_torch.config import make_config
 from rlx_tpu_torch.models import layers
 from rlx_tpu_torch.runner.runner import Runner
 from torch_parity import assert_state_dict, batch, close, models, normals, np_tree, same_tree, to_torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B = 16
 NEW = ("fastsac", "flashsac", "redq", "droq", "aqe", "tqc", "simba", "xqc", "simbav2", "crossq")

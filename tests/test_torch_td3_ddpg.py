@@ -17,6 +17,7 @@ import torch
 
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.config import create_model, make_config
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 ACT, OBS, HIDDEN, B = 8, 34, (32, 16), 32
 SMALL = {

@@ -20,6 +20,7 @@ import torch
 
 from rlx_tpu_torch.environments.locomotion.robot.robots.configs import ROBOT_CONFIGS
 from rlx_tpu_torch.physics import engine, load_model
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 TOL = 1e-5
 B = 4

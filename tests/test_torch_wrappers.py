@@ -20,6 +20,7 @@ from rlx_tpu.environments.classic.pendulum.tpu.environment import PendulumPhysic
 from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments import wrappers
 from rlx_tpu_torch.environments.classic.pendulum.cuda.environment import Pendulum, PendulumPhysics
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 B, HORIZON, STEPS = 4, 3, 5
 TOL = 1e-5

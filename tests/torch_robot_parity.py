@@ -178,7 +178,8 @@ def run_steps(jenv, jreset, jstep, env, teleport, nr_steps=3, tol=1e-5):
         action = rng.uniform(-1.0, 1.0, size=(B, env.nr_actuator_joints))
         jstate, draws = jstep(jstate, jnp.asarray(action))
         jstate = to64(jstate)
-        state = env.step(state, torch.tensor(action), draws=replay(draws))
+        with torch.no_grad():
+            state = env.step(state, torch.tensor(action), draws=replay(draws))
         close_env_state(env, state, jstate, tol, f"step {i}")
         assert set(state.info) == set(dict(jstate.info))
         done = state.terminated | state.truncated
