@@ -198,14 +198,26 @@ Phases (each prints one line; any failure exits nonzero):
     its plain version at [128, 51] -> 51 and [128, 101] -> 101;
 41. PPO on ``native.pendulum.host`` through the Runner with 2 evaluations
     and saves, then test mode from latest.model, every tensor equal bit for
-    bit.
+    bit;
+42. parallel seeds (``algorithm.nr_parallel_seeds``): PPO on the Ant at
+    phase 5's flagship shape with 4 seeds (4 x 4096 envs x 64 steps) for 3
+    iterations through ``create_model`` / ``train``, B1 exactly 3 and B2
+    exactly 192 launches (phase 5's: the seeds ride in each launch), its
+    env-steps/s summed over seeds against phase 5's and the idle share of
+    one profiled 4-seed iteration; seed 1 of a 3-seed f32 PPO run on the Ant
+    (64 envs x 16 steps) against its one-seed run after one iteration;
+    SAC at ``OFFPOLICY_SHAPE`` with 4 seeds (4 x 1024 envs, batch 8192 a
+    seed), B2 once a step; C51 on CartPole with 4 seeds, B3 once an update
+    at ``[4 x 128, 51]``; B1 at [64, 16384], B2 at B = 16384 and B3 at
+    [512, 51] -> 51 against their plain versions.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20, 27, 35, 36, 39 and 40, B2's at the robots' of phase 29), the
+shapes of phases 15, 19, 20, 27, 35, 36, 39, 40 and 42, B2's at the robots' of phase 29 and
+the 4-seed batch of phase 42), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
@@ -287,22 +299,25 @@ def kernel_device_ms(fn, reps, kernel_name):
     """Mean device time of the kernel whose name contains ``kernel_name``
     over ``reps`` calls of ``fn``, from torch.profiler's CUDA events: the
     kernel alone, where ``time_ms`` also counts a host that enqueues more
-    slowly than the kernel runs.  The tracer may drop an event at the edge
-    of the window, so the mean is over the launches it saw (at least half)."""
+    slowly than the kernel runs.  The tracer may drop events of the window
+    (it once kept 45 of 100), so the mean is over the launches it saw, at
+    least half, and a window that kept fewer is traced again, three times
+    at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel_name in e.name]
-    if not reps // 2 <= len(times) <= reps:
-        fail(f"profiler saw {len(times)} launches of {kernel_name} in {reps} calls")
-    return sum(times) / len(times) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+        if reps // 2 <= len(times) <= reps:
+            return sum(times) / len(times) / 1e3
+    fail(f"profiler saw {len(times)} launches of {kernel_name} in {reps} calls, three windows running")
 
 
 def profile_spans(fn, span_prefix):
@@ -641,6 +656,7 @@ def main():
     for p in list(model.policy.module.parameters()) + list(model.critic.parameters()):
         if not torch.isfinite(p).all():
             fail("non-finite parameters after training")
+    ppo_env_steps_per_s = ITERATIONS * batch / elapsed   # phase 42 compares 4 seeds with it
     print(f"train: {ITERATIONS} PPO iterations at {nr_envs}x{nr_steps}, "
           f"{ITERATIONS * batch / elapsed:.0f} env-steps/s overall, "
           f"{history[-1]['time/sps']} env-steps/s in the last iteration, launches {launches}, "
@@ -2431,6 +2447,177 @@ def main():
           f"{time.perf_counter() - host_phases_t0:.1f} s")
     del trained, tester
     workdir.cleanup()
+
+    # 42. parallel seeds: every launch carries all seeds
+    phase_t0 = time.perf_counter()
+    from rlx_tpu_torch.algorithms import parallel_seeds
+    from rlx_tpu_torch.algorithms.c51.cuda import c51 as c51_module
+    from rlx_tpu_torch.algorithms.training_program import run_training_program
+
+    seeds = 4
+    seeded = {"algorithm.nr_parallel_seeds": seeds, "algorithm.logging_active": False}
+    # phase 5's flagship shape (later phases reuse its names)
+    nr_envs, nr_steps = 4096, 64
+    batch = nr_envs * nr_steps
+    ppo_overrides = {"runner.device": "cuda",
+                     "environment.nr_envs": nr_envs, "algorithm.nr_steps": nr_steps,
+                     "algorithm.total_timesteps": ITERATIONS * batch, "algorithm.minibatch_size": batch // 8,
+                     "algorithm.nr_epochs": 4, "algorithm.policy_hidden_sizes": (512, 256, 128),
+                     "algorithm.critic_hidden_sizes": (512, 256, 128), "algorithm.activation": "elu",
+                     "algorithm.layer_norm": True, "algorithm.compute_dtype": "bfloat16",
+                     "algorithm.evaluation_active": False}
+    model = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **ppo_overrides, **seeded))
+    if model.train_env.nr_envs != seeds * nr_envs:
+        fail(f"4-seed PPO env holds {model.train_env.nr_envs} envs")
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    seeds_launches = counts()
+    expected = {"engine_substep": nr_steps * ITERATIONS, "gae": ITERATIONS, "categorical_projection": 0}
+    if seeds_launches != expected:
+        fail(f"4-seed PPO launch counts {seeds_launches} != {expected} (phase 5's: the seeds ride in each launch)")
+    for p in list(model.policy.module.parameters()) + list(model.critic.parameters()):
+        if not torch.isfinite(p).all():
+            fail("4-seed PPO: non-finite parameters after training")
+    launches_by_path["ppo_4_seeds"] = seeds_launches
+    seeds_env_steps_per_s = seeds * ITERATIONS * batch / elapsed
+    profiled = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **ppo_overrides, **seeded))
+    profiled.env_state = profiled._init_train_carry()[0]
+    profiled.learning_iteration(profiled.env_state)   # warm-up of the 4-seed shapes
+
+    def seeds_iteration():
+        profiled.env_state, _ = profiled.learning_iteration(profiled.env_state)
+
+    seeds_profile = profile_spans(seeds_iteration, "ppo/")
+    del profiled
+    print(f"parallel seeds PPO: {seeds} seeds x {nr_envs} envs x {nr_steps} steps, {ITERATIONS} iterations in "
+          f"{elapsed:.2f} s, {seeds_env_steps_per_s:.0f} env-steps/s summed over seeds against "
+          f"{ppo_env_steps_per_s:.0f} of one seed (phase 5), x{seeds_env_steps_per_s / ppo_env_steps_per_s:.2f}; "
+          f"launches {seeds_launches}; one profiled 4-seed iteration: " + json.dumps(seeds_profile))
+
+    # seed 1 of a 3-seed f32 run is its one-seed run (both through B1 and B2)
+    small = {"runner.device": "cuda", "environment.nr_envs": 64, "algorithm.nr_steps": 16,
+             "algorithm.total_timesteps": 64 * 16, "algorithm.minibatch_size": 256, "algorithm.nr_epochs": 2,
+             "algorithm.policy_hidden_sizes": (64, 64), "algorithm.critic_hidden_sizes": (64, 64),
+             "algorithm.evaluation_active": False, "algorithm.logging_active": False,
+             "environment.initial_state_noise": 0.1}
+    three = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **small, **{
+        "algorithm.nr_parallel_seeds": 3, "environment.seed": 3}))
+    run_training_program(three)
+    one = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **small, **{
+        "environment.seed": parallel_seeds.seed_for(3, 1)}))
+    one.train()
+    torch.cuda.synchronize()
+    # f32 (TF32 off): the 3-seed products are batched, the one-seed ones
+    # not, so they round apart: 1e-4 relative + absolute on the parameters
+    seed_err = max_err(
+        [p[1] for p in list(three.policy.module.parameters()) + list(three.critic.parameters())],
+        list(one.policy.module.parameters()) + list(one.critic.parameters()), 1e-4, 1e-4,
+        "seed 1 of 3 against its one-seed run")
+    print(f"parallel seeds PPO: seed 1 of 3 after one iteration (64 envs x 16 steps, f32) equals its one-seed run "
+          f"at seed_for(3, 1) = {parallel_seeds.seed_for(3, 1)}: max|err| {seed_err:.3g} over every parameter "
+          f"(rtol=atol=1e-4)")
+    del three, one
+
+    # SAC at bench_offpolicy's shape with 4 seeds: B2 once a step
+    learning_steps, sac_envs = 16, 1024
+    sac_seeds = create_model(make_config("sac.cuda", "locomotion.ant.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": sac_envs, **OFFPOLICY_SHAPE, **seeded,
+        "algorithm.total_timesteps": sac_envs + learning_steps * sac_envs,
+        "algorithm.logging_frequency": learning_steps * sac_envs}))
+    zero_counts()
+    t0 = time.perf_counter()
+    sac_seeds.train()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    sac_launches = counts()
+    if sac_launches != {"engine_substep": 1 + learning_steps, "gae": 0, "categorical_projection": 0}:
+        fail(f"4-seed SAC launch counts {sac_launches} != {1 + learning_steps} B2")
+    for name in sac_seeds.state_names:
+        if not all(torch.isfinite(p).all() for p in getattr(sac_seeds, name).module.parameters()):
+            fail(f"4-seed SAC: non-finite {name} parameters")
+    launches_by_path["sac_4_seeds"] = sac_launches
+    print(f"parallel seeds SAC: {seeds} seeds x {sac_envs} envs, batch 8192 a seed, 1 prefill + {learning_steps} "
+          f"learning steps in {elapsed:.2f} s ({seeds * (1 + learning_steps) * sac_envs / elapsed:.0f} env-steps/s "
+          f"summed over seeds, buffer allocation and prefill included), launches {sac_launches}")
+    del sac_seeds
+
+    # C51 on CartPole with 4 seeds: B3 once an update, at [4 x 128, 51]
+    c51_steps, c51_starts = 32, 1_000
+    shapes = []
+    projection = c51_module.categorical_projection_dense
+    c51_module.categorical_projection_dense = lambda z, p, *a: shapes.append(tuple(z.shape)) or projection(z, p, *a)
+    try:
+        c51_seeds = create_model(make_config("c51.cuda", "classic.cart_pole.cuda", **{
+            **RUNS["cartpole_spot_c51"]["overrides"], "runner.device": "cuda", **seeded,
+            "algorithm.learning_starts": c51_starts, "algorithm.total_timesteps": c51_starts + c51_steps * 8,
+            "algorithm.logging_frequency": c51_steps * 8, "algorithm.evaluation_active": True,
+            "environment.horizon": 100}))
+        zero_counts()
+        t0 = time.perf_counter()
+        c51_seeds.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        c51_module.categorical_projection_dense = projection
+    c51_seed_launches = counts()
+    batch_rows = seeds * c51_seeds.batch_size
+    if c51_seed_launches != {"engine_substep": 0, "gae": 0, "categorical_projection": c51_steps} \
+            or set(shapes) != {(batch_rows, 51)}:
+        fail(f"4-seed C51 launch counts {c51_seed_launches}, projection shapes {sorted(set(shapes))}")
+    c51_returns = c51_seeds.eval_history["eval/episode_return"]
+    if c51_returns.shape != (seeds, 1) or not all(map(math.isfinite, c51_returns.ravel())):
+        fail(f"4-seed C51 eval history {c51_returns}")
+    launches_by_path["c51_4_seeds"] = c51_seed_launches
+    print(f"parallel seeds C51: {seeds} seeds x 8 envs, {c51_starts // 8} prefill + {c51_steps} learning steps in "
+          f"{elapsed:.2f} s, launches {c51_seed_launches}, every projection at {shapes[0]}; eval returns per seed "
+          f"{c51_returns.ravel().tolist()}")
+    del c51_seeds
+
+    # the kernels at the seed-folded shapes against their plain versions
+    args = gae_inputs(64, seeds * 4096)
+    out, ref = gae_advantages_cuda(*args, 0.99, 0.95), gae_advantages_reference(*args, 0.99, 0.95)
+    torch.cuda.synchronize()
+    err = max_err(out, ref, 1e-5, 1e-5, "GAE [64, 16384]")
+    t = kernel_times(lambda: gae_advantages_cuda(*args, 0.99, 0.95),
+                     lambda: gae_advantages_reference(*args, 0.99, 0.95), "gae_kernel")
+    t["bound_ms"], t["bound_by"] = gae_bytes(64, seeds * 4096) / H100_BYTES_PER_S * 1e3, "bytes"
+    kernels[0]["by_shape"][f"[64, {seeds * 4096}] (PPO, {seeds} seeds)"] = {**t, "max_abs_err": err}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err)
+    print(f"B1 gae at [64, {seeds * 4096}] ({seeds} seeds): max|err| {err:.3g} (rtol=atol=1e-5), kernel "
+          f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms) plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.4f} ms")
+    B = seeds * 4096
+    qpos, qvel, ctrl = ant_batch(ant, B)
+    out = step_cuda(ant, qpos, qvel, ctrl, nr_substeps=4)
+    ref = engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=4)
+    torch.cuda.synchronize()
+    err = max_err(out, ref, 1e-4, 1e-4, f"substep (Ant, B={B})")
+    t = kernel_times(lambda: step_cuda(ant, qpos, qvel, ctrl, nr_substeps=4),
+                     lambda: engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=4), "engine_substep_kernel",
+                     reps=100)
+    t["bound_ms"], t["bound_by"] = roofline(substep_bytes(ant, B, with_anchors=False), substep_flops(ant) * B * 4)
+    kernels[1]["by_shape"] = {**kernels[1].get("by_shape", {}), f"Ant B={B} (PPO, {seeds} seeds)": {
+        **t, "max_abs_err": err}}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+    print(f"B2 engine_substep at B={B} ({seeds} seeds), 4 substeps: max|err| {err:.3g} (rtol=atol=1e-4), kernel "
+          f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms) plain {t['plain_ms']:.2f} ms bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+    n = batch_rows
+    z, p = c51_targets(n, 0.0, 500.0, lambda n: torch.ones(n, 1, device=dev))
+    out, ref = categorical_projection_cuda(z, p, 0.0, 500.0, 51), categorical_projection_reference(z, p, 0.0, 500.0, 51)
+    torch.cuda.synchronize()
+    err = max_err([out], [ref], 1e-6, 1e-6, f"projection [{n}, 51]")
+    t = kernel_times(lambda: categorical_projection_cuda(z, p, 0.0, 500.0, 51),
+                     lambda: categorical_projection_reference(z, p, 0.0, 500.0, 51), "projection_kernel")
+    t["bound_ms"], t["bound_by"] = roofline(projection_bytes(n, 51, 51), projection_flops(n, 51))
+    kernels[2]["by_shape"][f"[{n}, 51] -> 51 (C51, {seeds} seeds)"] = {**t, "max_abs_err": err}
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err)
+    print(f"B3 projection at [{n}, 51] -> 51 ({seeds} seeds): max|err| {err:.3g} (rtol=atol=1e-6), kernel "
+          f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms) plain {t['plain_ms']:.3f} ms bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    print(f"phase 42 took {time.perf_counter() - phase_t0:.1f} s")
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

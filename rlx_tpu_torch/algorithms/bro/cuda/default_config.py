@@ -1,9 +1,9 @@
 """BRO defaults (the JAX package's ``bro.tpu`` values; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``).  The
-BroNet widths are ``*_hidden_dim`` / ``*_nr_blocks``; ``*_hidden_sizes``,
-``log_std_*``, ``activation`` and ``layer_norm`` are kept as JAX keeps
-them, unread."""
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
+ROADMAP Queue A item 19c). The BroNet widths are ``*_hidden_dim`` /
+``*_nr_blocks``; ``*_hidden_sizes``, ``log_std_*``, ``activation`` and
+``layer_norm`` are kept as JAX keeps them, unread."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -46,4 +46,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

@@ -4,7 +4,8 @@ expected value, the target distribution projected onto the support by
 ``ops.distributional.categorical_projection_dense`` (kernel B3 on a CUDA
 tensor, its plain version on the CPU) and a cross-entropy loss.  The target
 is computed without gradients (JAX's ``stop_gradient``; the B3 wrapper
-refuses inputs that require grad)."""
+refuses inputs that require grad).  With parallel seeds all seeds' targets
+go through one projection, ``[S * B, atoms]``."""
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +16,8 @@ from rlx_tpu_torch.ops.distributional import categorical_projection_dense
 
 
 class C51(DQN):
+    parallel_seeds = True
+
     def setup_states(self):
         a = self.config.algorithm
         self.v_min = a.v_min
@@ -31,11 +34,22 @@ class C51(DQN):
         return self.expectation(module(observation))
 
     def target(self, batch):
+        return categorical_projection_dense(*self._target_inputs(batch), self.v_min, self.v_max, self.nr_atoms)
+
+    def _target_seeds(self, batch):
+        P = self.parallel
+        target_z, best_probs = self.seed_map(self._target_inputs, batch)
+        return P.split(categorical_projection_dense(P.merge(target_z), P.merge(best_probs), self.v_min, self.v_max,
+                                                    self.nr_atoms))
+
+    def _target_inputs(self, batch):
+        """(target atoms, the best next action's probabilities), each ``[B,
+        atoms]``: what the projection takes."""
         next_probs = F.softmax(self.critic.target(batch["next_observation"]), dim=-1)   # [B, A, atoms]
         best_action = torch.argmax((next_probs * self.atoms).sum(-1), dim=-1)
         best_probs = next_probs[torch.arange(next_probs.shape[0], device=self.device), best_action]
         target_z = batch["reward"][:, None] + self.gamma * (1.0 - batch["terminated"][:, None]) * self.atoms[None]
-        return categorical_projection_dense(target_z, best_probs, self.v_min, self.v_max, self.nr_atoms)
+        return target_z, best_probs
 
     def loss(self, batch, target_dist):
         logits = self.critic.module(batch["observation"])   # [B, A, atoms]

@@ -1,7 +1,8 @@
 """CrossQ defaults (the JAX package's ``crossq.tpu`` values: SAC's with 2048 x
 2048 critics, policy delay 3 and batch-renorm momentum 0.99; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``)."""
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
+ROADMAP Queue A item 19c)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

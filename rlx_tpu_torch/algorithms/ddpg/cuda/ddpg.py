@@ -16,13 +16,14 @@ import torch
 
 from rlx_tpu_torch.algorithms.ddpg.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, QCritic, select_observations
 
 
 class DDPG(OffPolicyAlgorithm):
     # the checkpoint tree holds policy, policy_target, critic, critic_target
     state_names = ("policy", "critic")
+    parallel_seeds = True
 
     def setup_states(self):
         a = self.config.algorithm
@@ -51,6 +52,9 @@ class DDPG(OffPolicyAlgorithm):
             noise = torch.randn(action.shape, generator=self.generator, device=self.device)
         return torch.clamp(action + self.epsilon * noise, -1.0, 1.0)
 
+    def act_draws(self, generator):
+        return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}
+
     @torch.no_grad()
     def eval_act(self, observation):
         return self.policy.module(observation)
@@ -58,19 +62,35 @@ class DDPG(OffPolicyAlgorithm):
     def update(self, batch, step):
         """One critic step, one policy step on the updated critic, and both
         Polyak updates.  Returns the metrics as device scalars."""
+        return self._step(batch, lambda fn, *xs: fn(*xs), global_norm)
+
+    def update_seeds(self, batch, step):
+        return self._step(batch, self.seed_map, per_seed_global_norm)
+
+    def _critic_loss(self, batch):
         obs, next_obs = batch["observation"], batch["next_observation"]
         with torch.no_grad():
             next_q = self.critic.target(next_obs, self.policy.target(next_obs)).squeeze(-1)
             y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * next_q
 
         q = self.critic.module(obs, batch["action"]).squeeze(-1)
-        q_loss = ((q - y) ** 2).mean()
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        return ((q - y) ** 2).mean(), q.detach().mean()
+
+    def _policy_loss(self, batch):
+        obs = batch["observation"]
+        return -self.critic.module(obs, self.policy.module(obs)).mean()
+
+    def _step(self, batch, call, norm):
+        """The critic step, then the policy's on the updated critic, then both
+        Polyak updates; ``call(fn, *xs)`` runs a loss (``seed_map`` with
+        parallel seeds, whose ``[S]`` losses are summed)."""
+        q_loss, q_value = call(self._critic_loss, batch)
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         self.critic.apply_gradients(critic_grads)
 
         # the policy loss on the updated critic; gradients to the policy only
-        policy_loss = -self.critic.module(obs, self.policy.module(obs)).mean()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
+        policy_loss = call(self._policy_loss, batch)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
         self.policy.apply_gradients(policy_grads)
         self.policy.polyak_update(self.tau)
         self.critic.polyak_update(self.tau)
@@ -79,9 +99,9 @@ class DDPG(OffPolicyAlgorithm):
             return {
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
-                "q_value/q_value": q.detach().mean(),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "q_value/q_value": q_value,
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
 
     def general_properties():

@@ -8,6 +8,8 @@ from rlx_tpu_torch.algorithms.dqn.cuda.dqn import DQN
 
 
 class DDQN(DQN):
+    parallel_seeds = True
+
     def next_q_target(self, batch):
         best_action = torch.argmax(self.critic.module(batch["next_observation"]), dim=-1)
         next_q = self.critic.target(batch["next_observation"])

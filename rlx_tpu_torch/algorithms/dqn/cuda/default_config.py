@@ -1,8 +1,8 @@
 """DQN defaults (the JAX package's ``dqn.tpu`` values; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``).
-``anneal_learning_rate`` is kept for the JAX package's command lines; DQN
-does not read it there either."""
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` (1 by default) trains that many seeds in
+one program, ``algorithms/parallel_seeds.py``). ``anneal_learning_rate`` is
+kept for the JAX package's command lines; DQN does not read it there either."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -28,4 +28,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

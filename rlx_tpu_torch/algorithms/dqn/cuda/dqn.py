@@ -15,7 +15,9 @@
   holds uint8 observations (``offpolicy.py``).
 
 DDQN, C51 and DQN-HL-Gauss subclass it and override the Q-values, the
-target and the loss.
+target and the loss.  With parallel seeds (``offpolicy.py``) the target and
+the loss are mapped over the seeds (``update_seeds``), C51's projection
+taking all seeds' targets in one call.
 """
 
 import math
@@ -24,13 +26,14 @@ import torch
 
 from rlx_tpu_torch.algorithms.dqn.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models.mlp import DiscreteQNet
 
 
 class DQN(OffPolicyAlgorithm):
     # the checkpoint tree holds critic and critic_target
     state_names = ("critic",)
+    parallel_seeds = True
 
     def setup_states(self, output_dim_per_action=1):
         a = self.config.algorithm
@@ -70,6 +73,13 @@ class DQN(OffPolicyAlgorithm):
             draw = torch.rand(greedy.shape, generator=self.generator, device=self.device)
         return torch.where(draw < self.epsilon(step), random_action, greedy)
 
+    def act_draws(self, generator):
+        return {
+            "random_action": torch.randint(0, self.nr_actions, (self.nr_envs,), generator=generator,
+                                           device=self.device, dtype=torch.int32),
+            "draw": torch.rand((self.nr_envs,), generator=generator, device=self.device),
+        }
+
     @torch.no_grad()
     def eval_act(self, observation):
         return torch.argmax(self.q_values(self.critic.module, observation), dim=-1).to(torch.int32)
@@ -93,8 +103,22 @@ class DQN(OffPolicyAlgorithm):
         scalars."""
         with torch.no_grad():
             target = self.target(batch)
-        q_loss, q_mean = self.loss(batch, target)
-        grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        return self._step(self.loss(batch, target), step, global_norm)
+
+    def update_seeds(self, batch, step):
+        with torch.no_grad():
+            target = self._target_seeds(batch)
+        return self._step(self.seed_map(self.loss, batch, target), step, per_seed_global_norm)
+
+    def _target_seeds(self, batch):
+        """Every seed's ``target`` ``[S, B, ...]``."""
+        return self.seed_map(self.target, batch)
+
+    def _step(self, losses, step, norm):
+        """Gradients of the loss (summed over seeds), the Adam step and the
+        target copy as ``step`` says; returns the metrics."""
+        q_loss, q_mean = losses
+        grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         if step % self.update_every == 0:
             self.critic.apply_gradients(grads)
         if step % self.target_update_every == 0:
@@ -104,7 +128,7 @@ class DQN(OffPolicyAlgorithm):
                 "loss/q_loss": q_loss.detach(),
                 "q_value/q_value": q_mean.detach(),
                 "epsilon/epsilon": torch.tensor(self.epsilon(step)),
-                "gradients/critic_grad_norm": global_norm(grads),
+                "gradients/critic_grad_norm": norm(grads),
             }
 
     def general_properties():

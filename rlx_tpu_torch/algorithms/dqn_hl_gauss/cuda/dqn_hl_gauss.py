@@ -5,11 +5,16 @@ the scalar TD target (target network, best expected next value) is smeared
 into bin probabilities by a Gaussian, trained with cross-entropy."""
 
 from rlx_tpu_torch.algorithms.c51.cuda.c51 import C51
+from rlx_tpu_torch.algorithms.dqn.cuda.dqn import DQN
 from rlx_tpu_torch.algorithms.dqn_hl_gauss.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.ops.distributional import hl_gauss_expectation, hl_gauss_targets
 
 
 class DQNHLGauss(C51):
+    parallel_seeds = True
+    # its target needs no projection kernel: mapped over the seeds as DQN's
+    _target_seeds = DQN._target_seeds
+
     def expectation(self, logits):
         return hl_gauss_expectation(logits, self.v_min, self.v_max)
 

@@ -14,11 +14,17 @@ epochs that stepped.
 
 ``"median"`` is ``jnp.median``'s: the mean of the two middle values of an
 even-length batch (``torch.median`` returns the lower one).
+
+With parallel seeds each seed stops on its own: the loss and ``|ratio -
+1|``'s mean or median are per seed, and a stopped seed's Adam does not step
+(``parallel_seeds.masked_adam_step``: per-seed step counts and learning
+rates) while the others go on.
 """
 
 import torch
 
 from rlx_tpu_torch.algorithms.espo.cuda.general_properties import GeneralProperties
+from rlx_tpu_torch.algorithms.parallel_seeds import masked_adam_step
 from rlx_tpu_torch.algorithms.ppo.cuda.ppo import PPO
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
 
@@ -39,6 +45,8 @@ class ESPO(PPO):
         if a.delta_calc_operator not in ("mean", "median"):
             raise ValueError(f"unknown delta_calc_operator {a.delta_calc_operator!r}")
         self.delta_calc_operator = torch.mean if a.delta_calc_operator == "mean" else median
+        # each seed's optimizer steps (they stop apart)
+        self.seed_optimizer_steps = None if self.parallel is None else [0] * self.parallel.nr_seeds
 
     def _espo_loss(self, observations, actions, log_probs, returns, advantages):
         new_log_prob, entropy = self.policy.log_prob_entropy(observations, actions)
@@ -59,9 +67,44 @@ class ESPO(PPO):
             "policy_ratio/ratio_delta": ratio_delta,
         }
 
+    def _optimize_seeds(self, batch_arrays, epoch_indices=None):
+        """``_optimize`` for every seed at once, each seed stopping on its own."""
+        P = self.parallel
+        observations, actions, log_probs, returns, advantages = batch_arrays
+        advantages = ((advantages - advantages.mean(dim=1, keepdim=True))
+                      / (advantages.std(dim=1, unbiased=False, keepdim=True) + 1e-8))
+        active = torch.ones(P.nr_seeds, dtype=torch.bool, device=self.device)
+        history = []
+        for _ in range(self.nr_epochs):
+            self.policy_optimizer.zero_grad(set_to_none=False)
+            self.critic_optimizer.zero_grad(set_to_none=False)
+            loss, ratio_delta, metrics = P.map(self._espo_loss, self._nets(), observations, actions, log_probs,
+                                               returns, advantages)
+            loss.sum().backward()
+            with torch.no_grad():
+                for name, module in (("policy", self.policy.module), ("critic", self.critic)):
+                    metrics[f"gradients/{name}_grad_norm"] = clip_by_global_norm_(
+                        [p.grad for p in module.parameters()], self.max_grad_norm, per_seed=True)
+            metrics["policy_ratio/nr_active_epochs"] = active.float()
+            lrs = [self.learning_rate_at(count) for count in self.seed_optimizer_steps]
+            for optimizer in (self.policy_optimizer, self.critic_optimizer):
+                masked_adam_step(optimizer, active, lrs)
+            stepped = active.tolist()
+            self.seed_optimizer_steps = [c + int(a) for c, a in zip(self.seed_optimizer_steps, stepped)]
+            self.nr_optimizer_steps = self.seed_optimizer_steps[0]
+            # stop every FOLLOWING epoch of a seed once its ratio has deviated too far
+            active = active & (ratio_delta <= self.max_ratio_delta)
+            history.append({k: v.detach() for k, v in metrics.items()})
+        out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
+        out["policy_ratio/nr_active_epochs"] = out["policy_ratio/nr_active_epochs"] * self.nr_epochs
+        out["lr/learning_rate"] = torch.tensor(lrs)
+        return out
+
     def _optimize(self, batch_arrays, epoch_indices=None):
         """``nr_epochs`` full-batch epochs with the early stop; no
         permutation is drawn (``epoch_indices`` is not read)."""
+        if self.parallel is not None:
+            return self._optimize_seeds(batch_arrays, epoch_indices)
         observations, actions, log_probs, returns, advantages = batch_arrays
         advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
         policy_params = list(self.policy.module.parameters())

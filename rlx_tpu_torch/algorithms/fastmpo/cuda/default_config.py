@@ -1,7 +1,7 @@
-"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC
-flavor of the recipe; its ``shard_local_sampling`` and
-``nr_parallel_seeds`` keys are left out with the mesh and parallel seeds,
-so setting one raises ``KeyError``)."""
+"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC flavor
+of the recipe; its ``shard_local_sampling`` key is left out with the mesh, so
+setting it raises ``KeyError``; ``nr_parallel_seeds`` above 1 raises
+``NotImplementedError``, ROADMAP Queue A item 19c)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -64,4 +64,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=False,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

@@ -1,7 +1,8 @@
 """FastTD3 defaults (the JAX package's ``fasttd3.tpu`` values; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, and ``anneal_learning_rate``, which FastTD3
-never reads, is left out too)."""
+``shard_local_sampling`` key is left out with the mesh, and
+``anneal_learning_rate``, which FastTD3 never reads, is left out too).
+``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -36,4 +37,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

@@ -18,6 +18,11 @@ The same algorithm as the JAX package's ``fasttd3.tpu``:
   other updates the policy loss is still computed for the metrics, but the
   policy's optimizer (and so its Adam moments and step count) and both
   targets stay as they were.
+
+With parallel seeds each seed has its own nets, its own running
+normalizer (fed with its own envs' observations) and its own n-step
+batches; the targets of all seeds go through one projection (kernel B3 at
+``[S * batch, atoms]``).
 """
 
 import torch
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 
 from rlx_tpu_torch.algorithms.fasttd3.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic, select_observations
 from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops.distributional import categorical_projection_dense
@@ -35,6 +40,7 @@ class FastTD3(OffPolicyAlgorithm):
     # the JAX package's state names: the checkpoint tree holds policy,
     # policy_target, critic, critic_target and obs_normalizer
     state_names = ("policy", "critic", "obs_normalizer")
+    parallel_seeds = True
 
     def setup_states(self):
         a = self.config.algorithm
@@ -73,7 +79,14 @@ class FastTD3(OffPolicyAlgorithm):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            if self.parallel is None:
+                self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            else:
+                self.obs_normalizer = self.parallel.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
+                                                        self.parallel.split(observation))
+
+    def act_draws(self, generator):
+        return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}
 
     @torch.no_grad()
     def act(self, observation, step=0, noise=None):
@@ -98,6 +111,26 @@ class FastTD3(OffPolicyAlgorithm):
         step and both Polyak updates.  ``smoothing_noise`` (standard normal,
         ``[batch, action_dim]``) is drawn from the generator unless given.
         Returns the metrics as device scalars."""
+        with torch.no_grad():
+            target_dist = categorical_projection_dense(*self._target_inputs(batch, smoothing_noise), self.v_min,
+                                                       self.v_max, self.nr_atoms)
+        return self._step(batch, step, target_dist, lambda fn, *xs: fn(*xs), global_norm)
+
+    def update_seeds(self, batch, step):
+        """``update`` for every seed; one projection for all seeds' targets."""
+        P = self.parallel
+        shape = (self.batch_size, self.action_dim)
+        noise = P.draw(lambda g: torch.randn(shape, generator=g, device=self.device))
+        with torch.no_grad():
+            target_z, chosen_probs = self.seed_map(self._target_inputs, batch, noise)
+            target_dist = P.split(categorical_projection_dense(P.merge(target_z), P.merge(chosen_probs), self.v_min,
+                                                               self.v_max, self.nr_atoms))
+        return self._step(batch, step, target_dist, self.seed_map, per_seed_global_norm)
+
+    def _target_inputs(self, batch, smoothing_noise=None):
+        """(target atoms ``[B, atoms]``, the chosen target critic's
+        probabilities ``[B, atoms]``) of one seed's batch: what the
+        projection takes."""
         obs = self._norm(batch["observation"])
         if self.n_step > 1:
             next_obs = self._norm(batch["n_step_next_observation"])
@@ -122,19 +155,32 @@ class FastTD3(OffPolicyAlgorithm):
             else:
                 chosen_probs = next_probs.mean(dim=0)
             target_z = reward[:, None] + discount[:, None] * (1.0 - terminated[:, None]) * self.atoms[None]
-            target_dist = categorical_projection_dense(target_z, chosen_probs, self.v_min, self.v_max,
-                                                       self.nr_atoms)
+        return target_z, chosen_probs
 
-        critic_params = list(self.critic.module.parameters())
-        logits = self.critic.module(obs, batch["action"])                               # [2, B, atoms]
+    def _critic_loss(self, batch, target_dist):
+        """(cross-entropy loss, expected value of the batch's Q) of one seed."""
+        logits = self.critic.module(self._norm(batch["observation"]), batch["action"])     # [2, B, atoms]
         q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
-        critic_grads = torch.autograd.grad(q_loss, critic_params)
+        return q_loss, self.expected_value(logits.detach()).mean()
+
+    def _policy_loss(self, batch):
+        obs = self._norm(batch["observation"])
+        return -self.expected_value(self.critic.module(obs, self.policy.module(obs))).mean(-1).mean()
+
+    def _step(self, batch, step, target_dist, call, norm):
+        """The critic step, then the policy loss on the updated critic and,
+        on ``step % policy_delay == 0``, the policy step and both Polyak
+        updates; ``call(fn, *xs)`` runs a loss (``seed_map`` with parallel
+        seeds, whose ``[S]`` losses are summed)."""
+        critic_params = list(self.critic.module.parameters())
+        q_loss, q_value = call(self._critic_loss, batch, target_dist)
+        critic_grads = torch.autograd.grad(q_loss.sum(), critic_params)
         self.critic.apply_gradients(critic_grads)
 
         # the policy loss on the updated critic; gradients to the policy only
         policy_params = list(self.policy.module.parameters())
-        policy_loss = -self.expected_value(self.critic.module(obs, self.policy.module(obs))).mean(-1).mean()
-        policy_grads = torch.autograd.grad(policy_loss, policy_params)
+        policy_loss = call(self._policy_loss, batch)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), policy_params)
         if step % self.policy_delay == 0:
             self.policy.apply_gradients(policy_grads)
             self.policy.polyak_update(self.tau)
@@ -144,10 +190,10 @@ class FastTD3(OffPolicyAlgorithm):
             return {
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
-                "q_value/q_value": self.expected_value(logits.detach()).mean(),
+                "q_value/q_value": q_value,
                 "lr/learning_rate": self.learning_rate_tensor,
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
 
     def general_properties():

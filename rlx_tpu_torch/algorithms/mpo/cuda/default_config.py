@@ -1,6 +1,7 @@
 """MPO defaults (the JAX package's ``mpo.tpu`` values; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``)."""
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
+ROADMAP Queue A item 19c)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -44,4 +45,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

@@ -48,8 +48,17 @@ and ``next_observation`` alike, in the buffer's unpacked layout: the envs
 emit integral floats in 0..255, so the cast is exact, and ``NatureCNN``
 turns them back into float32 on the way in.
 
-Not ported yet (a config that asks for them has no such key, so it raises):
-the device mesh and parallel seeds.
+Parallel seeds (``algorithm.nr_parallel_seeds = S > 1``,
+``parallel_seeds.py``): ``setup_states`` runs once per seed under that
+seed (as the JAX package's), and every state is seed-stacked; the buffer
+holds the ``S * N`` env rows, each seed samples only its own rows from its
+own generator (the prefill's random actions likewise), and an algorithm
+that declares ``parallel_seeds = True`` in its own class body supplies
+``act_draws(generator)`` (the act's draws of one seed, in its one-seed
+order) and ``update_seeds(batch, step)``, which maps its losses over the
+seeds (``seed_map``) and steps the stacked optimizers.  Any other family
+raises ``NotImplementedError`` at S > 1.  Not ported yet (a config that asks
+for it has no such key, so it raises): the device mesh.
 """
 
 import math
@@ -60,8 +69,13 @@ import torch
 from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
+from rlx_tpu_torch.algorithms.parallel_seeds import (
+    NoGenerator, ParallelSeeds, check_config, finish, first_seed_state, nr_parallel_seeds, refuse, stack_states,
+)
 from rlx_tpu_torch.algorithms.train_state import TrainState
-from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
+from rlx_tpu_torch.algorithms.training_program import (
+    eval_means, eval_reset_seed, run_training_program, train_reset_seed,
+)
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models.mlp import observation_width
 from rlx_tpu_torch.models.policy_factory import image_shape
@@ -101,6 +115,10 @@ class OffPolicyAlgorithm:
 
         a = config.algorithm
         self.name = a.name.split(".")[0]
+        check_config(config)
+        nr_seeds = nr_parallel_seeds(config)
+        if nr_seeds > 1 and not type(self).__dict__.get("parallel_seeds", False):
+            refuse(config, f"algorithm {a.name}")
         self.save_model = config.runner.save_model
         self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
@@ -159,12 +177,16 @@ class OffPolicyAlgorithm:
             self.process_action = action_pipeline(train_env.single_action_space, a.get("action_clipping", True),
                                                   a.get("action_rescaling", "normal"))
 
-        self.logger = MetricsLogger(config.runner.track_console)
+        self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
 
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.host_generator = torch.Generator().manual_seed(self.seed)
-        self.setup_states()
+        self.parallel = None
+        if nr_seeds == 1:
+            self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.host_generator = torch.Generator().manual_seed(self.seed)
+            self.setup_states()
+        else:
+            self._setup_seed_states(ParallelSeeds(self.seed, nr_seeds, self.device))
         self.nr_train_resets = 0
         self.nr_updates = 0          # learning steps taken, over every train() call
         self.metrics_history = []   # per-logging-iteration float metrics
@@ -172,6 +194,7 @@ class OffPolicyAlgorithm:
 
     # --- algorithm hooks ---------------------------------------------------
     state_names = ()
+    parallel_seeds = False   # declared True by a family's own class body
 
     def setup_states(self):
         raise NotImplementedError
@@ -195,9 +218,95 @@ class OffPolicyAlgorithm:
         """Extra per-transition replay fields, ``{name: (shape, dtype)}``."""
         return {}
 
+    def act_draws(self, generator):
+        """The draws of one ``act`` call of one seed, ``{keyword: tensor}``."""
+        raise NotImplementedError
+
+    def update_seeds(self, batch, step):
+        """``update`` for all seeds at once; ``batch`` fields ``[S, B, ...]``."""
+        raise NotImplementedError
+
+    # --- parallel seeds ----------------------------------------------------
+    def _setup_seed_states(self, parallel):
+        """``setup_states`` once per seed under that seed, each state then
+        seed-stacked; the one-seed generators stand aside until ``train()``
+        hands seed 0's back (``_keep_first_seed``)."""
+        seed = self.seed
+        per_seed = []
+        for s in range(parallel.nr_seeds):
+            self.seed = parallel.seeds[s]
+            self.setup_states()
+            per_seed.append({name: getattr(self, name) for name in self.state_names})
+        self.seed = seed
+        for name in self.state_names:
+            setattr(self, name, stack_states([states[name] for states in per_seed]))
+        self.parallel = parallel
+        self.generator = self.host_generator = NoGenerator()
+
+    def _keep_first_seed(self):
+        for name in self.state_names:
+            setattr(self, name, first_seed_state(getattr(self, name)))
+        finish(self)
+
+    def seed_map(self, fn, *xs):
+        """``fn(*xs_s)`` per seed in one batched call (``ParallelSeeds.map``)
+        over ``[S, ...]`` inputs: every ``TrainState``'s net and target is
+        seed s's, and every dict state is seed s's while ``fn`` runs."""
+        modules, dicts = {}, {}
+        for name in self.state_names:
+            state = getattr(self, name)
+            if isinstance(state, TrainState):
+                modules[name] = state.module
+                if state.target is not None:
+                    modules[f"{name}_target"] = state.target
+            else:
+                dicts[name] = state
+
+        def with_dicts(states, *args):
+            saved = {name: getattr(self, name) for name in states}
+            self.__dict__.update(states)
+            try:
+                return fn(*args)
+            finally:
+                self.__dict__.update(saved)
+
+        return self.parallel.map(with_dicts, modules, dicts, *xs)
+
+    def _act(self, observation, step):
+        if self.parallel is None:
+            return self.act(observation, step=step)
+        P = self.parallel
+        draws = P.draw(self.act_draws)
+        return P.merge(self.seed_map(lambda o, d: self.act(o, step=step, **d), P.split(observation), draws))
+
+    def _eval_act(self, observation):
+        if self.parallel is None:
+            return self.eval_act(observation)
+        return self.parallel.merge(self.seed_map(self.eval_act, self.parallel.split(observation)))
+
+    def _sample_seeds(self, buffer):
+        """Each seed's batch from its own env rows and generator, drawn as its
+        one-seed run draws it; one gather for all seeds -> ``[S, B, ...]``."""
+        P = self.parallel
+        if self.n_step > 1:
+            high = max(buffer.size - self.n_step + 1, 1)
+        else:
+            high = buffer.size
+        idx = P.draw(lambda g: torch.stack([rb._randint(g, high, self.batch_size, self.device),
+                                            rb._randint(g, self.nr_envs, self.batch_size, self.device)]))
+        t_idx = idx[:, 0].reshape(-1)
+        e_idx = P.rows(idx[:, 1], self.nr_envs)
+        total = P.nr_seeds * self.batch_size
+        if self.n_step > 1:
+            flat = rb.sample_nstep(buffer, None, total, self.n_step, self.gamma, t0=t_idx, e_idx=e_idx)
+        else:
+            flat = rb.sample(buffer, None, total, t_idx=t_idx, e_idx=e_idx)
+        return {k: P.split(v) for k, v in flat.items()}
+
     # --- scaffolding -------------------------------------------------------
     def _make_buffer(self):
-        return rb.create(self.capacity, self.nr_envs, {
+        nr_env_rows = self.nr_envs * (1 if self.parallel is None else self.parallel.nr_seeds)
+        return rb.create(self.capacity, nr_env_rows, {
             "observation": (self.os_shape, self.obs_store_dtype),
             "next_observation": (self.os_shape, self.obs_store_dtype),
             "action": ((), torch.int32) if self.discrete else ((self.action_dim,), torch.float32),
@@ -223,6 +332,8 @@ class OffPolicyAlgorithm:
             return self._sample(buffer)
 
     def _sample(self, buffer):
+        if self.parallel is not None:
+            return self._sample_seeds(buffer)
         if self.n_step > 1:
             return rb.sample_nstep(buffer, self.generator, self.batch_size, self.n_step, self.gamma)
         return rb.sample(buffer, self.generator, self.batch_size)
@@ -233,7 +344,7 @@ class OffPolicyAlgorithm:
         observation = env_state.observation
         with record_function(f"{self.name}/act"), torch.no_grad():
             self.pre_act(step)
-            action = self.act(observation, step=step)
+            action = self._act(observation, step)
         with record_function(f"{self.name}/env_step"), torch.no_grad():
             env_state = self.train_env.step(env_state, self.process_action(action))
         with record_function(f"{self.name}/store"), torch.no_grad():
@@ -244,15 +355,21 @@ class OffPolicyAlgorithm:
                 return env_state, self.update_with_buffer(buffer, step)
         batch = self.sample_batch(buffer)
         with record_function(f"{self.name}/update"):
-            metrics = self.update(batch, step)
+            metrics = self.update(batch, step) if self.parallel is None else self.update_seeds(batch, step)
         return env_state, metrics
 
     def _random_action(self):
-        """Uniform in [-1, 1], or in [0, nr_actions) for discrete actions."""
+        """Uniform in [-1, 1], or in [0, nr_actions) for discrete actions
+        (each seed's rows from its own generator)."""
+        if self.parallel is not None:
+            return self.parallel.merge(self.parallel.draw(self._random_action_of))
+        return self._random_action_of(self.generator)
+
+    def _random_action_of(self, generator):
         if self.discrete:
-            return torch.randint(0, self.nr_actions, (self.nr_envs,), generator=self.generator,
+            return torch.randint(0, self.nr_actions, (self.nr_envs,), generator=generator,
                                  device=self.device, dtype=torch.int32)
-        return 2.0 * torch.rand((self.nr_envs, self.action_dim), generator=self.generator,
+        return 2.0 * torch.rand((self.nr_envs, self.action_dim), generator=generator,
                                 device=self.device) - 1.0
 
     def _prefill(self, buffer, env_state):
@@ -293,15 +410,11 @@ class OffPolicyAlgorithm:
     def _eval_iteration(self, eval_save_iteration):
         """``horizon`` deterministic steps from a fresh eval reset; the mean of
         every ``rollout/*`` info key becomes ``eval/*``."""
-        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
-        eval_env_state = self.eval_env.reset(seed, eval_mode=True)
+        eval_env_state = self.eval_env.reset(eval_reset_seed(self), eval_mode=True)
         for _ in range(self.horizon):
-            action = self.eval_act(eval_env_state.observation)
+            action = self._eval_act(eval_env_state.observation)
             eval_env_state = self.eval_env.step(eval_env_state, self.process_action(action))
-        eval_metrics = {
-            "eval/" + k.split("rollout/", 1)[1]: float(v.float().mean())
-            for k, v in eval_env_state.info.items() if k.startswith("rollout/")
-        }
+        eval_metrics = eval_means(self, eval_env_state.info)
         if self.logging_active:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics
@@ -322,8 +435,9 @@ class OffPolicyAlgorithm:
         eval_metrics, is_best = None, False
         if self.evaluation_active:
             eval_metrics = self._eval_iteration(eval_save_iteration)
-            is_best = eval_metrics["eval/episode_return"] > best_return
-            best_return = max(best_return, eval_metrics["eval/episode_return"])
+            # elementwise: with parallel seeds the return is one per seed
+            is_best = np.all(eval_metrics["eval/episode_return"] > best_return)
+            best_return = np.maximum(best_return, eval_metrics["eval/episode_return"])
         if self.save_model:
             self.save()
             if is_best:
@@ -333,6 +447,8 @@ class OffPolicyAlgorithm:
     def train(self):
         start = self._last_log_time = time.time()
         (self.buffer, self.env_state, _), eval_history = run_training_program(self)
+        if self.parallel is not None:
+            self._keep_first_seed()
         self.eval_history = None
         if eval_history is not None:
             # x-axis in env interactions consumed: the random prefill

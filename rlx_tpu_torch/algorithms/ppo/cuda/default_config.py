@@ -1,4 +1,6 @@
-"""PPO defaults (the JAX package's ``ppo.tpu`` values for the keys ported)."""
+"""PPO defaults (the JAX package's ``ppo.tpu`` values for the keys ported).
+``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -30,4 +32,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

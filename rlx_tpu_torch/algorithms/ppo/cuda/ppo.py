@@ -32,6 +32,16 @@ The optimizer matches ``optax.chain(clip_by_global_norm(max_grad_norm),
 inject_hyperparams(adam)(lr=schedule))``: gradients are scaled by
 ``max_norm / norm`` only when ``norm >= max_norm``, Adam uses eps=1e-8, and
 the learning rate is evaluated from the step count before each step.
+
+With ``nr_parallel_seeds = S > 1`` (``algorithms/parallel_seeds.py``) the
+nets are seed-stacked and ``self.parallel`` holds the seed axis: the
+rollout samples each seed's actions from its own generator in one batched
+policy call over the ``S * N`` envs, the critic and GAE (B1) run once over
+``[T, S * N]``, each seed takes its own permutations (``epoch_indices``
+``[S, nr_epochs, batch]``), and each minibatch's loss, advantage
+normalization included, is a per-seed loss whose sum over seeds is
+differentiated; the gradients are clipped per seed.  The iteration's
+metrics are then ``[S]`` tensors.
 """
 
 import math
@@ -42,12 +52,18 @@ import torch
 from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
+from rlx_tpu_torch.algorithms.parallel_seeds import (
+    NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
+)
 from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import (
     clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
-from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
+from rlx_tpu_torch.algorithms.training_program import (
+    eval_means, eval_reset_seed, run_training_program, train_reset_seed,
+)
 from rlx_tpu_torch.environments.types import ActionSpaceType
+from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -62,9 +78,12 @@ class PPO:
         self.device = train_env.device
 
         a = config.algorithm
+        check_config(config)
         self.save_model = config.runner.save_model
         self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
+        nr_seeds = nr_parallel_seeds(config)
+        self.parallel = ParallelSeeds(self.seed, nr_seeds, self.device) if nr_seeds > 1 else None
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
         self.learning_rate = a.learning_rate
@@ -98,14 +117,21 @@ class PPO:
         if not self.continuous and train_env.single_action_space.n > 2**24:
             raise ValueError("discrete actions travel as one f32 column, exact only below 2**24 actions")
 
-        self.logger = MetricsLogger(config.runner.track_console)
+        self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
 
         # parameters are initialized on the CPU from the seed, then moved
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(self.seed)
-            self.policy = make_policy(config, train_env, "cpu")
-            self.critic = make_critic(config, train_env, "cpu")
+        if self.parallel is None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(self.seed)
+                self.policy = make_policy(config, train_env, "cpu")
+                self.critic = make_critic(config, train_env, "cpu")
+        else:
+            built = self.parallel.init(lambda: (make_policy(config, train_env, "cpu"),
+                                                make_critic(config, train_env, "cpu")))
+            self.policy = built[0][0]
+            stack_modules([b[0].module for b in built])
+            self.critic = stack_modules([b[1] for b in built])
         self.policy.module.to(self.device)
         self.critic.to(self.device)
         self.policy_optimizer = torch.optim.Adam(
@@ -115,9 +141,12 @@ class PPO:
             self.critic.parameters(), lr=self.learning_rate, eps=1e-8
         )
         self.nr_optimizer_steps = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        # seeds of the eval and test resets
-        self.host_generator = torch.Generator().manual_seed(self.seed)
+        if self.parallel is None:
+            self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            # seeds of the eval and test resets
+            self.host_generator = torch.Generator().manual_seed(self.seed)
+        else:
+            self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
         self.metrics_history = []  # per-iteration float metrics when logging is active
@@ -130,6 +159,56 @@ class PPO:
         fraction = 1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / max(self.nr_updates, 1)
         return self.learning_rate * fraction
 
+    # ----------------------------------------------------------- parallel seeds
+
+    def _nets(self):
+        """The nets a per-seed function reads (``ParallelSeeds.map``)."""
+        return {"policy": self.policy.module, "critic": self.critic}
+
+    def _seed_map(self, fn, *rows):
+        """``fn`` per seed over seed-major ``[S * N, ...]`` rows, in one
+        batched call; outputs back as ``[S * N, ...]`` rows."""
+        out = self.parallel.map(fn, self._nets(), *(self.parallel.split(x) for x in rows))
+        return tuple(self.parallel.merge(x) for x in out) if isinstance(out, tuple) else self.parallel.merge(out)
+
+    def _sample_action(self, observation):
+        """(action, log-prob) of a rollout step; with parallel seeds each
+        seed's noise comes from its own generator, drawn as its one-seed run
+        draws it."""
+        if self.parallel is None:
+            return self.policy.sample_and_log_prob(observation, self.generator)
+        dtype = next(self.policy.module.parameters()).dtype
+        if self.continuous:
+            shape = (self.nr_envs,) + tuple(self.train_env.single_action_space.shape)
+            noise = self.parallel.draw(lambda g: torch.randn(shape, generator=g, device=self.device, dtype=dtype))
+        else:
+            shape = (self.nr_envs, self.train_env.single_action_space.n)
+            noise = D.gumbel_noise(self.parallel.draw(
+                lambda g: torch.rand(shape, generator=g, device=self.device, dtype=dtype)))
+        return self._seed_map(lambda o, n: self.policy.sample_and_log_prob(o, None, n), observation,
+                              self.parallel.merge(noise))
+
+    def _values(self, observations):
+        """The critic's values ``[T, B]`` of ``[T, B, ...]`` observations."""
+        T, B = observations.shape[:2]
+        if self.parallel is None:
+            return self.critic(observations.reshape((T * B,) + observations.shape[2:])).reshape(T, B)
+        P = self.parallel
+        values = P.map(self.critic, self._nets(), P.split_time(observations))
+        return P.merge_time(values, T).reshape(T, B)
+
+    def _mode(self, observation):
+        if self.parallel is None:
+            return self.policy.mode(observation)
+        return self._seed_map(self.policy.mode, observation)
+
+    def _policy_std(self):
+        """``exp(policy_logstd)``'s mean (per seed with parallel seeds)."""
+        std = torch.exp(self.policy.module.policy_logstd.detach())
+        if self.parallel is None:
+            return std.mean()
+        return std.reshape(self.parallel.nr_seeds, -1).mean(dim=1)
+
     # ------------------------------------------------------------------ train
 
     @torch.no_grad()
@@ -141,7 +220,7 @@ class PPO:
         info_sums = None
         for _ in range(T):
             observation = env_state.observation
-            action, log_prob = self.policy.sample_and_log_prob(observation, self.generator)
+            action, log_prob = self._sample_action(observation)
             env_state = self.train_env.step(env_state, self.policy.process_action(action))
             observations.append(observation)
             final_observations.append(env_state.final_observation)
@@ -157,7 +236,7 @@ class PPO:
         stack = lambda xs: torch.stack(xs)
         batch = tuple(stack(x) for x in (observations, final_observations, actions, rewards,
                                         terminations, log_probs))
-        infos = {k: v / (T * self.nr_envs) for k, v in info_sums.items()}
+        infos = {k: v / (T * self.train_env.nr_envs) for k, v in info_sums.items()}
         return env_state, batch, infos
 
     def learning_iteration(self, env_state):
@@ -169,13 +248,15 @@ class PPO:
         T, B = rewards.shape
 
         with torch.no_grad(), record_function("ppo/advantages"):
-            values = self.critic(observations.reshape((T * B,) + observations.shape[2:])).reshape(T, B)
-            next_values = self.critic(final_observations.reshape((T * B,) + observations.shape[2:])).reshape(T, B)
+            values = self._values(observations)
+            next_values = self._values(final_observations)
             advantages, returns = gae_advantages(
                 rewards, values, next_values, terminations, self.gamma, self.gae_lambda
             )
 
         flat = lambda x: x.reshape((T * B,) + x.shape[2:])
+        if self.parallel is not None:
+            flat = self.parallel.split_time
         with record_function("ppo/update"):
             metrics = self._optimize(
                 (flat(observations), flat(actions), flat(log_probs), flat(returns), flat(advantages))
@@ -184,7 +265,7 @@ class PPO:
             torch.var(returns, unbiased=False) + 1e-8
         )
         if self.continuous:
-            metrics["policy/std_dev"] = torch.exp(self.policy.module.policy_logstd.detach()).mean()
+            metrics["policy/std_dev"] = self._policy_std()
         return env_state, {**infos, **metrics}
 
     def _loss(self, obs_mb, action_mb, log_prob_mb, return_mb, advantage_mb):
@@ -212,11 +293,20 @@ class PPO:
         }
         return loss, metrics
 
+    def _minibatch_loss(self, obs_mb, action_mb, log_prob_mb, return_mb, adv_mb):
+        """One seed's minibatch loss, its advantages normalized first."""
+        adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
+        return self._loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
+
     def _optimize(self, batch_arrays, epoch_indices=None):
         """Minibatch-epochs PPO-Clip update over a flat batch.
 
         ``epoch_indices`` ([nr_epochs, batch]) are the per-epoch
-        permutations; drawn from ``self.generator`` when not given."""
+        permutations; drawn from ``self.generator`` when not given.  With
+        parallel seeds every array has a leading seed axis (``[S, batch,
+        ...]``, ``epoch_indices`` ``[S, nr_epochs, batch]``)."""
+        if self.parallel is not None:
+            return self._optimize_seeds(batch_arrays, epoch_indices)
         if epoch_indices is None:
             epoch_indices = torch.stack([
                 torch.randperm(self.batch_size, generator=self.generator, device=self.device)
@@ -227,11 +317,9 @@ class PPO:
         history = []
         lr = self.learning_rate
         for obs_mb, action_mb, log_prob_mb, return_mb, adv_mb in self._minibatches(batch_arrays, epoch_indices):
-            adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
-
             self.policy_optimizer.zero_grad(set_to_none=False)
             self.critic_optimizer.zero_grad(set_to_none=False)
-            loss, metrics = self._loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
+            loss, metrics = self._minibatch_loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
             loss.backward()
             with torch.no_grad():
                 metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
@@ -247,6 +335,45 @@ class PPO:
             self.nr_optimizer_steps += 1
             history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
+        out["lr/learning_rate"] = torch.tensor(lr)
+        return out
+
+    def _optimize_seeds(self, batch_arrays, epoch_indices=None):
+        """``_optimize`` over all seeds at once: each minibatch is every
+        seed's minibatch of its own permutation (from its own generator
+        unless given), the loss mapped over the seeds, the backward of their
+        sum, a per-seed clip and one Adam step of each net."""
+        P = self.parallel
+        if epoch_indices is None:
+            epoch_indices = P.draw(lambda g: torch.stack([
+                torch.randperm(self.batch_size, generator=g, device=self.device) for _ in range(self.nr_epochs)]))
+        history = []
+        lr = self.learning_rate
+        batch_observations = batch_arrays[0]
+        for e in range(self.nr_epochs):
+            idx_e = epoch_indices[:, e].to(self.device)
+            shuffled = None if batch_observations.ndim != 3 else tuple(P.take(x, idx_e) for x in batch_arrays)
+            for m in range(self.nr_minibatches):
+                rows = slice(m * self.minibatch_size, (m + 1) * self.minibatch_size)
+                if shuffled is None:
+                    mb = tuple(P.take(x, idx_e[:, rows]) for x in batch_arrays)
+                else:
+                    mb = tuple(x[:, rows] for x in shuffled)
+                self.policy_optimizer.zero_grad(set_to_none=False)
+                self.critic_optimizer.zero_grad(set_to_none=False)
+                loss, metrics = P.map(self._minibatch_loss, self._nets(), *mb)
+                loss.sum().backward()
+                with torch.no_grad():
+                    for name, module in (("policy", self.policy.module), ("critic", self.critic)):
+                        metrics[f"gradients/{name}_grad_norm"] = clip_by_global_norm_(
+                            [p.grad for p in module.parameters()], self.max_grad_norm, per_seed=True)
+                lr = self.learning_rate_at(self.nr_optimizer_steps)
+                for optimizer in (self.policy_optimizer, self.critic_optimizer):
+                    optimizer.param_groups[0]["lr"] = lr
+                    optimizer.step()
+                self.nr_optimizer_steps += 1
+                history.append({k: v.detach() for k, v in metrics.items()})
+        out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
         out["lr/learning_rate"] = torch.tensor(lr)
         return out
 
@@ -289,18 +416,16 @@ class PPO:
         ``rollout/*`` info key becomes ``eval/*`` (mean over envs), with
         ``eval/policy_std`` for continuous actions.  The train env state is
         not touched (the Ant's eval env is its train env)."""
-        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        seed = eval_reset_seed(self)
         with record_function("ppo/eval"):
             eval_env_state = self.eval_env.reset(seed, eval_mode=True)
             for _ in range(self.horizon):
-                action = self.policy.mode(eval_env_state.observation)
+                action = self._mode(eval_env_state.observation)
                 eval_env_state = self.eval_env.step(eval_env_state, self.policy.process_action(action))
-        eval_metrics = {
-            "eval/" + k.split("rollout/", 1)[1]: float(v.float().mean())
-            for k, v in eval_env_state.info.items() if k.startswith("rollout/")
-        }
+        eval_metrics = eval_means(self, eval_env_state.info)
         if self.continuous:
-            eval_metrics["eval/policy_std"] = float(torch.exp(self.policy.module.policy_logstd).mean())
+            std = self._policy_std()
+            eval_metrics["eval/policy_std"] = float(std) if self.parallel is None else std.cpu().numpy()
         if self.logging_active:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics
@@ -331,8 +456,9 @@ class PPO:
         eval_metrics, is_best = None, False
         if self.evaluation_active:
             eval_metrics = self._eval_iteration(eval_save_iteration)
-            is_best = eval_metrics["eval/episode_return"] > best_return
-            best_return = max(best_return, eval_metrics["eval/episode_return"])
+            # elementwise: with parallel seeds the return is one per seed
+            is_best = np.all(eval_metrics["eval/episode_return"] > best_return)
+            best_return = np.maximum(best_return, eval_metrics["eval/episode_return"])
         if self.save_model:
             self.save()
             if is_best:
@@ -342,6 +468,8 @@ class PPO:
     def train(self):
         start = self._last_log_time = time.time()
         (self.env_state, _), eval_history = run_training_program(self)
+        if self.parallel is not None:
+            finish(self, (self.policy.module, self.policy_optimizer), (self.critic, self.critic_optimizer))
         self.eval_history = None
         if eval_history is not None:
             steps = (np.arange(self.nr_eval_save_iterations) + 1) * self.eval_save_frequency

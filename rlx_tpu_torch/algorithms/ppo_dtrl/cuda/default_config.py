@@ -1,6 +1,6 @@
-"""PPO-DTRL defaults (the JAX package's ``ppo_dtrl.tpu`` values; its
-``nr_parallel_seeds`` key is left out with parallel seeds, so setting it
-raises ``KeyError``)."""
+"""PPO-DTRL defaults (the JAX package's ``ppo_dtrl.tpu`` values;
+``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -34,4 +34,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

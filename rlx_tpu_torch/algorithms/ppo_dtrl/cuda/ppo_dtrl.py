@@ -9,7 +9,8 @@ optionally followed by the entropy projection.  The clipped surrogate and
 the entropy are taken under the projected Gaussian, and
 ``trust_region_coef`` times a regularizer pulls the raw output towards the
 detached projection.  The projection's diagnostics are logged under
-``projection/*``.
+``projection/*``.  With parallel seeds the frozen copy is seed-stacked too
+and each seed projects onto its own old policy.
 """
 
 import copy
@@ -35,6 +36,12 @@ class PPODTRL(PPO):
         self.entropy_projection_active = a.entropy_projection_active
         self.min_entropy = a.min_entropy
         self.old_policy = None
+
+    def _nets(self):
+        nets = super()._nets()
+        if self.old_policy is not None:
+            nets["old_policy"] = self.old_policy
+        return nets
 
     def _optimize(self, batch_arrays, epoch_indices=None):
         """PPO's minibatch epochs against the policy frozen as it is now."""

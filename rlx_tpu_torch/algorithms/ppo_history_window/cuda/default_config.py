@@ -1,5 +1,6 @@
 """Defaults of PPO over its wrapper (the JAX package's ``ppo_history_window.tpu``
-values for the keys ported)."""
+values for the keys ported). ``nr_parallel_seeds`` (1 by default) trains that
+many seeds in one program, ``algorithms/parallel_seeds.py``."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -29,4 +30,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

@@ -1,5 +1,6 @@
 """LSTM PPO defaults (the JAX package's ``ppo_lstm.tpu`` values, every key;
-``nr_parallel_seeds`` above 1 raises ``NotImplementedError``)."""
+``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

@@ -22,6 +22,11 @@ follow the JAX package's PQN: an evaluation of ``horizon`` greedy steps
 from a fresh eval reset after each eval/save iteration, and with
 ``runner.save_model`` a ``latest.model`` holding the Q-network's
 parameters.
+
+With parallel seeds (``parallel_seeds.py``) the Q-network is seed-stacked:
+each seed's epsilon-greedy draws and permutations come from its own
+generator, the Q(lambda) targets run over ``[T, S * N]``, and each
+minibatch's loss is mapped over the seeds and clipped per seed.
 """
 
 import math
@@ -32,9 +37,14 @@ import torch
 from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
+from rlx_tpu_torch.algorithms.parallel_seeds import (
+    NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
+)
 from rlx_tpu_torch.algorithms.pqn.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
-from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
+from rlx_tpu_torch.algorithms.training_program import (
+    eval_reset_seed, run_training_program, train_reset_seed,
+)
 from rlx_tpu_torch.models.mlp import DiscreteQNet
 from rlx_tpu_torch.models.policy_factory import image_shape
 from rlx_tpu_torch.utils import checkpoint as ckpt
@@ -49,9 +59,12 @@ class PQN:
         self.device = train_env.device
 
         a = config.algorithm
+        check_config(config)
         self.save_model = config.runner.save_model
         self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
+        nr_seeds = nr_parallel_seeds(config)
+        self.parallel = ParallelSeeds(self.seed, nr_seeds, self.device) if nr_seeds > 1 else None
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
         self.learning_rate = a.learning_rate
@@ -82,20 +95,27 @@ class PQN:
         self.os_shape = tuple(train_env.single_observation_space.shape)
         self.nr_actions = train_env.single_action_space.n
 
-        self.logger = MetricsLogger(config.runner.track_console)
+        self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
 
         # parameters are initialized on the CPU from the seed, then moved
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(self.seed)
-            self.q_net = DiscreteQNet(math.prod(self.os_shape), self.nr_actions, tuple(a.critic_hidden_sizes),
-                                      a.activation, layer_norm_all=True, image_shape=image_shape(train_env))
+        build = lambda: DiscreteQNet(math.prod(self.os_shape), self.nr_actions, tuple(a.critic_hidden_sizes),
+                                     a.activation, layer_norm_all=True, image_shape=image_shape(train_env))
+        if self.parallel is None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(self.seed)
+                self.q_net = build()
+        else:
+            self.q_net = stack_modules(self.parallel.init(build))
         self.q_net.to(self.device)
         self.optimizer = torch.optim.Adam(self.q_net.parameters(), lr=self.learning_rate, eps=1e-8)
         self.nr_optimizer_steps = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        # seeds of the eval and test resets
-        self.host_generator = torch.Generator().manual_seed(self.seed)
+        if self.parallel is None:
+            self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            # seeds of the eval and test resets
+            self.host_generator = torch.Generator().manual_seed(self.seed)
+        else:
+            self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
         self.metrics_history = []  # per-iteration float metrics when logging is active
@@ -113,7 +133,23 @@ class PQN:
 
     @torch.no_grad()
     def greedy_action(self, observation):
+        if self.parallel is not None:
+            P = self.parallel
+            return P.merge(P.map(self.greedy_action_of, {"q_net": self.q_net}, P.split(observation)))
+        return self.greedy_action_of(observation)
+
+    def greedy_action_of(self, observation):
         return torch.argmax(self.q_net(observation), dim=-1).to(torch.int32)
+
+    def _exploration_draws(self):
+        """(random actions, uniform draws) of a rollout step, each seed's
+        from its own generator, in its one-seed order."""
+        P = self.parallel
+        draws = P.draw(lambda g: {
+            "random_action": torch.randint(0, self.nr_actions, (self.nr_envs,), generator=g, device=self.device,
+                                           dtype=torch.int32),
+            "draw": torch.rand((self.nr_envs,), generator=g, device=self.device)})
+        return P.merge(draws["random_action"]), P.merge(draws["draw"])
 
     # ------------------------------------------------------------------ train
 
@@ -124,9 +160,12 @@ class PQN:
         for _ in range(self.nr_steps):
             observation = env_state.observation
             greedy = self.greedy_action(observation)
-            random_action = torch.randint(0, self.nr_actions, greedy.shape, generator=self.generator,
-                                          device=self.device, dtype=torch.int32)
-            draw = torch.rand(greedy.shape, generator=self.generator, device=self.device)
+            if self.parallel is None:
+                random_action = torch.randint(0, self.nr_actions, greedy.shape, generator=self.generator,
+                                              device=self.device, dtype=torch.int32)
+                draw = torch.rand(greedy.shape, generator=self.generator, device=self.device)
+            else:
+                random_action, draw = self._exploration_draws()
             action = torch.where(draw < epsilon, random_action, greedy)
             env_state = self.train_env.step(env_state, action)
             observations.append(observation)
@@ -141,7 +180,7 @@ class PQN:
                     info_sums[k] = info_sums[k] + v.float().sum()
         batch = tuple(torch.stack(x) for x in (observations, final_observations, actions, rewards,
                                                terminations))
-        infos = {k: v / (self.nr_steps * self.nr_envs) for k, v in info_sums.items()}
+        infos = {k: v / (self.nr_steps * self.train_env.nr_envs) for k, v in info_sums.items()}
         return env_state, batch, infos
 
     def q_lambda_targets(self, rewards, terminations, next_values):
@@ -174,8 +213,18 @@ class PQN:
         observations, final_observations, actions, rewards, terminations = batch
         T, N = rewards.shape
         with torch.no_grad(), record_function("pqn/targets"):
-            next_values = self.q_net(final_observations.reshape((T * N,) + self.os_shape)).max(dim=-1).values
+            if self.parallel is None:
+                next_values = self.q_net(final_observations.reshape((T * N,) + self.os_shape)).max(dim=-1).values
+            else:
+                P = self.parallel
+                next_values = P.merge_time(P.map(lambda o: self.q_net(o).max(dim=-1).values, {"q_net": self.q_net},
+                                                 P.split_time(final_observations)), T)
             q_targets = self.q_lambda_targets(rewards, terminations, next_values.reshape(T, N))
+        if self.parallel is not None:
+            with record_function("pqn/update"):
+                P = self.parallel
+                return self._optimize_seeds((P.split_time(observations), P.split_time(actions),
+                                             P.split_time(q_targets)), epoch_indices)
         with record_function("pqn/update"):
             return self._optimize(
                 (observations.reshape((T * N,) + self.os_shape), actions.reshape(-1), q_targets.reshape(-1)),
@@ -215,19 +264,58 @@ class PQN:
         out["lr/learning_rate"] = torch.tensor(lr)
         return out
 
+    def _minibatch_loss(self, observations, actions, q_targets):
+        q = self.q_net(observations)
+        q_action = torch.gather(q, -1, actions.long()[:, None]).squeeze(-1)
+        return (0.5 * (q_action - q_targets) ** 2).mean(), q_action.detach().mean()
+
+    def _optimize_seeds(self, batch_arrays, epoch_indices=None):
+        """``_optimize`` for every seed at once: ``batch_arrays`` ``[S, batch,
+        ...]``, ``epoch_indices`` ``[S, nr_epochs, batch]`` (each seed's own
+        permutations, from its generator unless given)."""
+        P = self.parallel
+        if epoch_indices is None:
+            epoch_indices = P.draw(lambda g: torch.stack([
+                torch.randperm(self.batch_size, generator=g, device=self.device) for _ in range(self.nr_epochs)]))
+        minibatches = epoch_indices.to(self.device).reshape(P.nr_seeds, -1, self.minibatch_size)
+        params = list(self.q_net.parameters())
+        history = []
+        lr = self.learning_rate
+        for m in range(minibatches.shape[1]):
+            mb = tuple(P.take(x, minibatches[:, m]) for x in batch_arrays)
+            loss, q_mean = P.map(self._minibatch_loss, {"q_net": self.q_net}, *mb)
+            grads = torch.autograd.grad(loss.sum(), params)
+            with torch.no_grad():
+                grad_norm = clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+            lr = self.learning_rate_at(self.nr_optimizer_steps)
+            self.optimizer.param_groups[0]["lr"] = lr
+            self.optimizer.step()
+            self.nr_optimizer_steps += 1
+            history.append({"loss/q_loss": loss.detach(), "q_value/q_value": q_mean,
+                            "gradients/critic_grad_norm": grad_norm})
+        out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
+        out["lr/learning_rate"] = torch.tensor(lr)
+        return out
+
     # ------------------------------------------------------- eval/save loop
 
     @torch.no_grad()
     def _eval_iteration(self, eval_save_iteration):
         """``horizon`` greedy steps from a fresh eval reset -> the mean
         episode return and length."""
-        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        seed = eval_reset_seed(self)
         with record_function("pqn/eval"):
             eval_env_state = self.eval_env.reset(seed, eval_mode=True)
             for _ in range(self.horizon):
                 eval_env_state = self.eval_env.step(eval_env_state, self.greedy_action(eval_env_state.observation))
-        eval_metrics = {f"eval/{k}": float(eval_env_state.info[f"rollout/{k}"].mean())
-                        for k in ("episode_return", "episode_length")}
+        if self.parallel is None:
+            eval_metrics = {f"eval/{k}": float(eval_env_state.info[f"rollout/{k}"].mean())
+                            for k in ("episode_return", "episode_length")}
+        else:
+            eval_metrics = {f"eval/{k}": self.parallel.split(eval_env_state.info[f"rollout/{k}"]).mean(dim=1).cpu().numpy()
+                            for k in ("episode_return", "episode_length")}
         if self.logging_active:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics
@@ -259,6 +347,8 @@ class PQN:
     def train(self):
         start = self._last_log_time = time.time()
         self.env_state, eval_history = run_training_program(self)
+        if self.parallel is not None:
+            finish(self, (self.q_net, self.optimizer))
         self.eval_history = None
         if eval_history is not None:
             steps = ((np.arange(self.nr_eval_save_iterations) + 1) * self.nr_updates_per_eval_save_iteration

@@ -1,6 +1,7 @@
 """REPPO defaults (the JAX package's ``reppo.tpu`` values, every key;
-``nr_parallel_seeds`` above 1 raises ``NotImplementedError``;
-``policy_min_std`` and ``anneal_learning_rate`` are unread, as in JAX)."""
+``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``; ``policy_min_std`` and
+``anneal_learning_rate`` are unread, as in JAX)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

@@ -25,9 +25,13 @@ Evaluation, test mode and the checkpoint (``policy``, ``critic``,
 env gets the tanh action as it is (no rescaling).  Every draw can be given
 to ``learning_iteration``: the rollout's normals, the epochs'
 permutations, and per minibatch the reparameterized action's normals and
-the KL samples' normals.  Parallel seeds are not ported
-(``nr_parallel_seeds`` above 1 raises); the mesh keys of the runner are
-ignored on one device, as PPO ignores them.
+the KL samples' normals.  The mesh keys of the runner are ignored on one
+device, as PPO ignores them.
+
+With parallel seeds (``parallel_seeds.py``) the nets and the observation
+normalizer are seed-stacked; every draw of a seed comes from its own
+generator in its one-seed order, the rollout's net calls and the losses
+are mapped over the seeds, and the gradients are clipped per seed.
 
 The phases run under ``record_function`` spans ``reppo/rollout``,
 ``reppo/targets``, ``reppo/update`` and ``reppo/eval``.
@@ -44,9 +48,14 @@ from torch import nn
 from torch.profiler import record_function
 
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
+from rlx_tpu_torch.algorithms.parallel_seeds import (
+    NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
+)
 from rlx_tpu_torch.algorithms.reppo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
-from rlx_tpu_torch.algorithms.training_program import run_training_program, train_reset_seed
+from rlx_tpu_torch.algorithms.training_program import (
+    eval_reset_seed, run_training_program, train_reset_seed,
+)
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.mlp import MLP, _lecun_linear, observation_width, select_observations
 from rlx_tpu_torch.ops import normalizers
@@ -120,11 +129,12 @@ class REPPO:
         self.device = train_env.device
 
         a = config.algorithm
-        if int(a.nr_parallel_seeds) > 1:
-            raise NotImplementedError("nr_parallel_seeds > 1 is not ported (ROADMAP Queue A item 19, scale-out)")
+        check_config(config)
         self.save_model = config.runner.save_model
         self.save_path = ckpt.save_path_for(config, run_path)
         self.seed = config.environment.seed
+        nr_seeds = nr_parallel_seeds(config)
+        self.parallel = ParallelSeeds(self.seed, nr_seeds, self.device) if nr_seeds > 1 else None
         self.total_timesteps = int(a.total_timesteps)
         self.nr_envs = config.environment.nr_envs
         self.nr_steps = a.nr_steps
@@ -160,30 +170,42 @@ class REPPO:
         self.action_dim = math.prod(train_env.single_action_space.shape)
         self.target_entropy = -0.5 * a.target_entropy_multiplier * self.action_dim * 2
 
-        self.logger = MetricsLogger(config.runner.track_console)
+        self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
 
         # parameters are initialized on the CPU from the seed, then moved
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(self.seed)
-            self.policy = select_observations(
+        def build():
+            policy = select_observations(
                 ReppoPolicy(observation_width(self.os_shape, policy_indices), self.action_dim, a.policy_hidden_dim,
                             a.init_entropy_coefficient, a.init_kl_coefficient),
                 policy_indices,
             )
-            self.critic = select_observations(
+            critic = select_observations(
                 ReppoCritic(observation_width(self.os_shape, critic_indices), self.action_dim, a.critic_hidden_dim,
                             self.nr_bins),
                 critic_indices,
             )
+            return policy, critic
+
+        if self.parallel is None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(self.seed)
+                self.policy, self.critic = build()
+        else:
+            built = self.parallel.init(build)
+            self.policy, self.critic = (stack_modules([b[i] for b in built]) for i in range(2))
         self.policy.to(self.device)
         self.critic.to(self.device)
         self.policy_optimizer = torch.optim.Adam(self.policy.parameters(), lr=a.learning_rate, eps=1e-8)
         self.critic_optimizer = torch.optim.Adam(self.critic.parameters(), lr=a.learning_rate, eps=1e-8)
         self.obs_normalizer = normalizers.obs_normalizer_init(self.os_shape, self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        # seeds of the eval and test resets
-        self.host_generator = torch.Generator().manual_seed(self.seed)
+        if self.parallel is None:
+            self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            # seeds of the eval and test resets
+            self.host_generator = torch.Generator().manual_seed(self.seed)
+        else:
+            self.obs_normalizer = {k: torch.stack([v] * nr_seeds) for k, v in self.obs_normalizer.items()}
+            self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
         self.metrics_history = []
@@ -267,9 +289,11 @@ class REPPO:
         }
 
     def _step(self, module, optimizer, loss):
+        """One clipped Adam step; per-seed ``[S]`` losses are summed and
+        clipped per seed."""
         params = list(module.parameters())
-        grads = torch.autograd.grad(loss, params)
-        clip_by_global_norm_(list(grads), self.max_grad_norm)
+        grads = torch.autograd.grad(loss.sum(), params)
+        clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=self.parallel is not None)
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
@@ -305,6 +329,8 @@ class REPPO:
         does not hold is drawn from the generator."""
         draws = draws or {}
         old_policy = copy.deepcopy(self.policy).requires_grad_(False)
+        if self.parallel is not None:
+            return self._learning_iteration_seeds(env_state, old_policy)
         with record_function("reppo/rollout"):
             env_state, batch, infos = self._rollout(env_state, draws.get("act_noise"), draws.get("next_noise"))
         observations, actions, rewards, next_values, next_features, terminations, truncations = batch
@@ -318,22 +344,120 @@ class REPPO:
                                    draws.get("kl_noise"))
         return env_state, {**infos, **metrics}
 
+    # ----------------------------------------------------------- parallel seeds
+
+    def _nets(self, old_policy=None):
+        nets = {"policy": self.policy, "critic": self.critic}
+        if old_policy is not None:
+            nets["old_policy"] = old_policy
+        return nets
+
+    def _seed_map(self, fn, *xs, old_policy=None):
+        """``fn(normalizer, *xs_s)`` per seed over ``[S, ...]`` inputs, with
+        that seed's nets and observation normalizer."""
+        return self.parallel.map(fn, self._nets(old_policy), self.obs_normalizer, *xs)
+
+    def _normals(self, shape):
+        """``[S, *shape]`` standard normals, each seed's from its generator."""
+        return self.parallel.draw(lambda g: torch.randn(shape, generator=g, device=self.device))
+
+    @torch.no_grad()
+    def _rollout_seeds(self, env_state):
+        P = self.parallel
+        shape = (self.nr_envs, self.action_dim)
+
+        def act(normalizer, obs, noise):
+            observation = self._norm(obs, normalizer)
+            loc, log_std, _, _ = self.policy(observation)
+            return observation, D.tanh_gaussian_sample_and_log_prob(loc, log_std, noise=noise)[0]
+
+        def bootstrap(normalizer, final_obs, noise):
+            next_observation = self._norm(final_obs, normalizer)
+            n_loc, n_log_std, _, _ = self.policy(next_observation)
+            next_action, _ = D.tanh_gaussian_sample_and_log_prob(n_loc, n_log_std, noise=noise)
+            next_features, next_logits, _ = self.critic(next_observation, next_action)
+            return hl_gauss_expectation(next_logits, self.v_min, self.v_max), next_features
+
+        steps, info_sums = [], None
+        for t in range(self.nr_steps):
+            act_noise = self._normals(shape)
+            observation, action = self._seed_map(act, P.split(env_state.observation), act_noise)
+            env_state = self.train_env.step(env_state, P.merge(action))
+            if self.normalize_obs:
+                self.obs_normalizer = P.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
+                                            P.split(env_state.observation))
+            next_value, next_features = self._seed_map(bootstrap, P.split(env_state.final_observation),
+                                                       self._normals(shape))
+            steps.append((P.merge(observation), P.merge(action), env_state.reward, P.merge(next_value),
+                          P.merge(next_features), env_state.terminated.float(), env_state.truncated.float()))
+            sums = {k: v.float().sum() for k, v in env_state.info.items()}
+            info_sums = sums if info_sums is None else {k: info_sums[k] + v for k, v in sums.items()}
+        batch = tuple(torch.stack(x) for x in zip(*steps))
+        infos = {k: v / (self.nr_steps * self.train_env.nr_envs) for k, v in info_sums.items()}
+        return env_state, batch, infos
+
+    def _update_seeds(self, batch, old_policy):
+        """``_update`` for every seed at once: ``batch`` ``[S, batch, ...]``,
+        each seed's permutations and normals from its own generator."""
+        P = self.parallel
+        mb = self.minibatch_size
+        history = []
+        for e in range(self.nr_epochs):
+            perm = P.draw(lambda g: torch.randperm(self.batch_size, generator=g, device=self.device))
+            for m in range(self.nr_minibatches):
+                observations, actions, targets, next_features, terminations, truncations = (
+                    P.take(x, perm[:, m * mb:(m + 1) * mb]) for x in batch)
+                critic_loss, critic_metrics = self._seed_map(
+                    lambda n, *xs: self._critic_loss(*xs), observations, actions, targets, next_features,
+                    terminations, truncations)
+                self._step(self.critic, self.critic_optimizer, critic_loss)
+                draws = P.draw(lambda g: {
+                    "noise": torch.randn((mb, self.action_dim), generator=g, device=self.device),
+                    "samples": torch.randn((self.nr_kl_samples, mb, self.action_dim), generator=g,
+                                           device=self.device)})
+                policy_loss, policy_metrics = self._seed_map(
+                    lambda n, obs, d: self._policy_loss(obs, old_policy, d["noise"], d["samples"]),
+                    observations, draws, old_policy=old_policy)
+                self._step(self.policy, self.policy_optimizer, policy_loss)
+                history.append({**critic_metrics, **policy_metrics})
+        return {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
+
+    def _learning_iteration_seeds(self, env_state, old_policy):
+        P = self.parallel
+        with record_function("reppo/rollout"):
+            env_state, batch, infos = self._rollout_seeds(env_state)
+        observations, actions, rewards, next_values, next_features, terminations, truncations = batch
+        with torch.no_grad(), record_function("reppo/targets"):
+            targets = td_lambda_targets(rewards, terminations, next_values, self.gamma, self.gae_lambda)
+        with record_function("reppo/update"):
+            metrics = self._update_seeds(tuple(P.split_time(x) for x in (
+                observations, actions, targets, next_features, terminations, truncations)), old_policy)
+        return env_state, {**infos, **metrics}
+
     # ------------------------------------------------------- eval/save loop
 
     def _deterministic_action(self, observation):
+        if self.parallel is not None:
+            P = self.parallel
+            return P.merge(self._seed_map(lambda n, o: torch.tanh(self.policy(self._norm(o, n))[0]),
+                                          P.split(observation)))
         return torch.tanh(self.policy(self._norm(observation))[0])
 
     @torch.no_grad()
     def _eval_iteration(self, eval_save_iteration):
         """``horizon`` steps of the tanh mean from a fresh eval reset."""
-        seed = int(torch.randint(2**31 - 1, (), generator=self.host_generator))
+        seed = eval_reset_seed(self)
         with record_function("reppo/eval"):
             eval_env_state = self.eval_env.reset(seed, eval_mode=True)
             for _ in range(self.horizon):
                 eval_env_state = self.eval_env.step(eval_env_state,
                                                     self._deterministic_action(eval_env_state.observation))
-        eval_metrics = {k: float(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float().mean())
-                        for k in ("eval/episode_return", "eval/episode_length")}
+        if self.parallel is None:
+            eval_metrics = {k: float(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float().mean())
+                            for k in ("eval/episode_return", "eval/episode_length")}
+        else:
+            eval_metrics = {k: self.parallel.split(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float())
+                            .mean(dim=1).cpu().numpy() for k in ("eval/episode_return", "eval/episode_length")}
         if self.logging_active:
             self.logger.log_dict(eval_metrics, (eval_save_iteration + 1) * self.eval_save_frequency)
         return eval_metrics
@@ -363,6 +487,9 @@ class REPPO:
     def train(self):
         start = self._last_log_time = time.time()
         self.env_state, eval_history = run_training_program(self)
+        if self.parallel is not None:
+            finish(self, (self.policy, self.policy_optimizer), (self.critic, self.critic_optimizer))
+            self.obs_normalizer = {k: v[0].clone() for k, v in self.obs_normalizer.items()}
         self.eval_history = None
         if eval_history is not None:
             per_eval = self.nr_updates_per_eval_save_iteration * self.batch_size

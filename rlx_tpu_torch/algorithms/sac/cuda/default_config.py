@@ -1,6 +1,7 @@
 """SAC defaults (the JAX package's ``sac.tpu`` values; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``)."""
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` (1 by default) trains that many seeds in
+one program, ``algorithms/parallel_seeds.py``)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -29,4 +30,5 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        nr_parallel_seeds=1,
     )

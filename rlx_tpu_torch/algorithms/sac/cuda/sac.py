@@ -19,13 +19,18 @@ gradient of its own term only: the critic of ``q_loss``, the policy of
 ``torch.autograd.grad`` of its term with respect to its set, all taken at
 the parameters before the update, then the three optimizers step and the
 critic's target moves.
+
+With parallel seeds every seed has its own policy, critic and temperature
+(seed-stacked); one ``update_seeds`` maps the three losses over the seeds
+and differentiates their sums, so each seed's parameters get the gradient
+of its own losses.
 """
 
 import torch
 
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.sac.cuda.general_properties import GeneralProperties
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.mlp import EntropyCoefficient, SquashedGaussianPolicy, VectorQCritic, select_observations
 
@@ -34,6 +39,7 @@ class SAC(OffPolicyAlgorithm):
     # the JAX package's state names: the checkpoint tree holds policy,
     # critic, critic_target and alpha
     state_names = ("policy", "critic", "alpha")
+    parallel_seeds = True
 
     def _build_policy(self, a):
         """The policy network; the SAC variants with other trunks override it."""
@@ -88,12 +94,32 @@ class SAC(OffPolicyAlgorithm):
     def eval_act(self, observation):
         return D.tanh_gaussian_mode(self.policy.module(observation)[0])
 
+    def act_draws(self, generator):
+        return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}
+
     def update(self, batch, step, target_noise=None, current_noise=None):
         """One step of the policy, the critic and ``log_alpha``, then the
         critic's Polyak update.  ``target_noise`` / ``current_noise``
         (standard normal, ``[batch, action_dim]``) sample the next and the
         current action; each is drawn from the generator unless given.
         Returns the metrics as device scalars."""
+        return self._step(self._losses(batch, target_noise, current_noise), global_norm)
+
+    def update_seeds(self, batch, step, target_noise=None, current_noise=None):
+        """``update`` for every seed; the noises (``[S, batch, action_dim]``)
+        are each seed's from its generator unless given."""
+        shape = (self.batch_size, self.action_dim)
+        if target_noise is None:
+            draws = self.parallel.draw(lambda g: {
+                "target_noise": torch.randn(shape, generator=g, device=self.device),
+                "current_noise": torch.randn(shape, generator=g, device=self.device)})
+        else:
+            draws = {"target_noise": target_noise, "current_noise": current_noise}
+        losses = self.seed_map(lambda b, d: self._losses(b, **d), batch, draws)
+        return self._step(losses, per_seed_global_norm)
+
+    def _losses(self, batch, target_noise=None, current_noise=None):
+        """(q loss, policy loss, alpha loss, metrics) of one seed's batch."""
         obs, next_obs = batch["observation"], batch["next_observation"]
         alpha_with_grad = self.alpha.module()
         alpha = alpha_with_grad.detach()
@@ -116,10 +142,17 @@ class SAC(OffPolicyAlgorithm):
         min_q_pi = self.critic.module(obs, current_action).squeeze(-1).min(dim=0).values
         policy_loss = (alpha * current_log_prob - min_q_pi).mean()
         alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
+        return q_loss, policy_loss, alpha_loss, {
+            "entropy/entropy": entropy.mean(), "entropy/alpha": alpha, "q_value/q_value": min_q_pi.detach().mean()}
 
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
-        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
+    def _step(self, losses, norm):
+        """The three optimizer steps and the Polyak update from ``_losses``'
+        output (per-seed ``[S]`` losses are summed: each seed's parameters
+        get its own gradient); ``norm`` gives the grad-norm metrics."""
+        q_loss, policy_loss, alpha_loss, metrics = losses
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
+        alpha_grads = torch.autograd.grad(alpha_loss.sum(), list(self.alpha.module.parameters()))
 
         # the three optimizers step together, so their counts are equal
         learning_rate = self.learning_rate_at(self.policy.step_count())
@@ -133,13 +166,11 @@ class SAC(OffPolicyAlgorithm):
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
                 "loss/entropy_loss": alpha_loss.detach(),
-                "entropy/entropy": entropy.mean(),
-                "entropy/alpha": alpha,
-                "q_value/q_value": min_q_pi.detach().mean(),
+                **metrics,
                 "lr/learning_rate": torch.tensor(learning_rate),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
-                "gradients/entropy_grad_norm": global_norm(alpha_grads),
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
+                "gradients/entropy_grad_norm": norm(alpha_grads),
             }
 
     def general_properties():

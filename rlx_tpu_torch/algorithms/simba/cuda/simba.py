@@ -1,6 +1,7 @@
 """SimBa: simplicity-bias scaled networks over SAC (the JAX package's
 ``simba.tpu``): pre-LN residual encoders for the policy and the critics, a
-tanh-bounded state-dependent log-std; the update is SAC's."""
+tanh-bounded state-dependent log-std; the update is SAC's, parallel seeds
+included."""
 
 import torch
 from torch import nn
@@ -42,6 +43,8 @@ class SimbaVectorCritic(nn.Module):
 
 
 class SimBa(SAC):
+    parallel_seeds = True
+
     def _build_policy(self, a):
         return SimbaPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks,
                            a.log_std_min, a.log_std_max)

@@ -14,19 +14,23 @@ The same algorithm as the JAX package's ``td3.tpu``:
   and both targets move by Polyak averaging.  On the other updates the
   policy loss is still computed for the metrics, but the policy's optimizer
   (its Adam moments and step count) and both targets stay as they were.
+
+With parallel seeds the two losses are mapped over the seeds
+(``update_seeds``); each seed's smoothing noise comes from its generator.
 """
 
 import torch
 
 from rlx_tpu_torch.algorithms.offpolicy import OffPolicyAlgorithm
 from rlx_tpu_torch.algorithms.td3.cuda.general_properties import GeneralProperties
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models.mlp import DeterministicTanhPolicy, VectorQCritic, select_observations
 
 
 class TD3(OffPolicyAlgorithm):
     # the checkpoint tree holds policy, policy_target, critic, critic_target
     state_names = ("policy", "critic")
+    parallel_seeds = True
 
     def setup_states(self):
         a = self.config.algorithm
@@ -58,6 +62,9 @@ class TD3(OffPolicyAlgorithm):
             noise = torch.randn(action.shape, generator=self.generator, device=self.device)
         return torch.clamp(action + self.epsilon * noise, -1.0, 1.0)
 
+    def act_draws(self, generator):
+        return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}
+
     @torch.no_grad()
     def eval_act(self, observation):
         return self.policy.module(observation)
@@ -67,6 +74,15 @@ class TD3(OffPolicyAlgorithm):
         step and both Polyak updates.  ``smoothing_noise`` (standard normal,
         ``[batch, action_dim]``) is drawn from the generator unless given.
         Returns the metrics as device scalars."""
+        return self._step(batch, step, smoothing_noise, lambda fn, *xs: fn(*xs), global_norm)
+
+    def update_seeds(self, batch, step):
+        noise = self.parallel.draw(lambda g: torch.randn((self.batch_size, self.action_dim), generator=g,
+                                                         device=self.device))
+        return self._step(batch, step, noise, self.seed_map, per_seed_global_norm)
+
+    def _critic_loss(self, batch, smoothing_noise=None):
+        """(loss, mean Q) of one seed's batch against its clipped double-Q target."""
         obs, next_obs = batch["observation"], batch["next_observation"]
         with torch.no_grad():
             if smoothing_noise is None:
@@ -79,13 +95,23 @@ class TD3(OffPolicyAlgorithm):
             y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * next_q
 
         q = self.critic.module(obs, batch["action"]).squeeze(-1)
-        q_loss = ((q - y[None, :]) ** 2).mean()
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        return ((q - y[None, :]) ** 2).mean(), q.detach().mean()
+
+    def _policy_loss(self, batch):
+        obs = batch["observation"]
+        return -self.critic.module(obs, self.policy.module(obs))[0].mean()
+
+    def _step(self, batch, step, smoothing_noise, call, norm):
+        """The critic step, then the policy's on the updated critic;
+        ``call(fn, *xs)`` runs a loss (``seed_map`` with parallel seeds,
+        whose ``[S]`` losses are summed)."""
+        q_loss, q_value = call(self._critic_loss, batch, smoothing_noise)
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         self.critic.apply_gradients(critic_grads)
 
         # the policy loss on the updated critic; gradients to the policy only
-        policy_loss = -self.critic.module(obs, self.policy.module(obs))[0].mean()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
+        policy_loss = call(self._policy_loss, batch)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
         if step % self.policy_delay == 0:
             self.policy.apply_gradients(policy_grads)
             self.policy.polyak_update(self.tau)
@@ -95,9 +121,9 @@ class TD3(OffPolicyAlgorithm):
             return {
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
-                "q_value/q_value": q.detach().mean(),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "q_value/q_value": q_value,
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
 
     def general_properties():

@@ -14,13 +14,29 @@ def global_norm(tensors):
     return torch.sqrt(sum(torch.sum(t.to(torch.promote_types(t.dtype, torch.float32)) ** 2) for t in tensors))
 
 
-def clip_by_global_norm_(grads, max_norm):
+def per_seed_global_norm(grads):
+    """``[S]``: the global norm of each seed's slice of seed-stacked
+    ``[S, ...]`` tensors (``parallel_seeds.py``)."""
+    return torch.sqrt(sum(
+        torch.sum(t.to(torch.promote_types(t.dtype, torch.float32)).reshape(t.shape[0], -1) ** 2, dim=1)
+        for t in grads))
+
+
+def clip_by_global_norm_(grads, max_norm, per_seed=False):
     """In place: ``g / norm * max_norm`` where ``norm >= max_norm`` (as
-    ``optax.clip_by_global_norm``); returns the unclipped norm."""
-    norm = global_norm(grads)
-    keep = norm < max_norm
+    ``optax.clip_by_global_norm``); returns the unclipped norm.  With
+    ``per_seed`` the grads are seed-stacked ``[S, ...]`` and each seed is
+    clipped by its own norm (``[S]``), as the JAX package's vmapped clip."""
+    if not per_seed:
+        norm = global_norm(grads)
+        keep = norm < max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * max_norm))
+        return norm
+    norm = per_seed_global_norm(grads)
     for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+        n = norm.reshape((-1,) + (1,) * (g.ndim - 1))
+        g.copy_(torch.where(n < max_norm, g, g / n * max_norm))
     return norm
 
 

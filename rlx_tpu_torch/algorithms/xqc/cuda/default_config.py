@@ -1,8 +1,9 @@
-"""XQC defaults (the JAX package's ``xqc.tpu`` values: SAC's and SimBa trunks
-of 256 x 4 blocks (policy) and 512 x 4 blocks (critics), 101 HL-Gauss atoms
-over [-5, 5], policy delay 3 and the weight norm with the heads; its
-``shard_local_sampling`` and ``nr_parallel_seeds`` keys are left out with
-the mesh and parallel seeds, so setting one raises ``KeyError``)."""
+"""XQC defaults (the JAX package's ``xqc.tpu`` values: SAC's and SimBa trunks of
+256 x 4 blocks (policy) and 512 x 4 blocks (critics), 101 HL-Gauss atoms over
+[-5, 5], policy delay 3 and the weight norm with the heads; its
+``shard_local_sampling`` key is left out with the mesh, so setting it raises
+``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
+ROADMAP Queue A item 19c)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

@@ -17,6 +17,7 @@ import torch
 from rlx_tpu_torch.algorithms.algorithm_manager import (
     get_algorithm_config, get_algorithm_model_class, registered_algorithm_names,
 )
+from rlx_tpu_torch.algorithms.parallel_seeds import nr_parallel_seeds, refuse
 from rlx_tpu_torch.environments.environment_manager import (
     get_environment_config, get_environment_create_env, registered_environment_names,
 )
@@ -115,18 +116,55 @@ def apply_overrides(config, overrides):
         node.set_existing(parts[-1], cast_to_field(dotted_key, node.get(parts[-1]), value))
 
 
+# runner.matmul_precision (the JAX package's jax_default_matmul_precision
+# names) -> torch.set_float32_matmul_precision: float32 products, TF32
+# products, or bfloat16 products (torch's "medium")
+MATMUL_PRECISIONS = {
+    "float32": "highest", "highest": "highest",
+    "tensorfloat32": "high", "high": "high",
+    "bfloat16": "medium", "default": "medium", "fastest": "medium",
+}
+
+
+def set_matmul_precision(config):
+    """``torch.set_float32_matmul_precision`` from ``runner.matmul_precision``;
+    an unknown name raises ``ValueError``."""
+    name = config.runner.matmul_precision
+    if name not in MATMUL_PRECISIONS:
+        raise ValueError(f"runner.matmul_precision={name!r}: expected one of {sorted(MATMUL_PRECISIONS)}")
+    torch.set_float32_matmul_precision(MATMUL_PRECISIONS[name])
+
+
 def create_env(config):
     """(train env, eval env) on ``runner.device``; a CUDA device that is not
     there raises, it never falls back to the CPU.  On a CUDA device cuDNN's
     convolutions are held to float32 (PyTorch lets them run in TF32 by
     default, unlike its matrix products), so NatureCNN computes in the same
-    precision as the JAX reference and the port's Dense layers."""
+    precision as the JAX reference and the port's Dense layers.  The
+    products' precision is ``runner.matmul_precision``'s
+    (``set_matmul_precision``: float32 unless asked otherwise).
+
+    With ``algorithm.nr_parallel_seeds = S > 1`` each env holds ``S *
+    environment.nr_envs`` envs, seed-major; an env that cannot draw per
+    seed (``parallel_seeds`` not set) raises ``NotImplementedError``."""
     if config.runner.device.startswith("cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError(f"runner.device={config.runner.device!r} but no CUDA device is available; "
                                "pass runner.device=cpu to run on the CPU")
         torch.backends.cudnn.allow_tf32 = False
-    return get_environment_create_env(config.environment.name)(config)
+    set_matmul_precision(config)
+    nr_seeds = nr_parallel_seeds(config)
+    if nr_seeds == 1:
+        return get_environment_create_env(config.environment.name)(config)
+    seeded = ConfigDict(config, environment=ConfigDict(config.environment,
+                                                       nr_envs=config.environment.nr_envs * nr_seeds))
+    envs = get_environment_create_env(config.environment.name)(seeded)
+    for env in envs:
+        if not getattr(env, "parallel_seeds", False):
+            for e in envs:
+                e.close()
+            refuse(config, f"environment {config.environment.name}")
+    return envs
 
 
 def create_model(config, train_env=None, eval_env=None, run_path=None, writer=None):

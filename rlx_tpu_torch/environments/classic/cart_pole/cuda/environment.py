@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from rlx_tpu_torch.environments.env import DeviceEnv
+from rlx_tpu_torch.environments.env import DeviceEnv, draw
 from rlx_tpu_torch.environments.spaces import BoxSpace, DiscreteSpace
 
 
@@ -27,6 +27,7 @@ class CartPolePhysics(NamedTuple):
 
 
 class CartPole(DeviceEnv):
+    parallel_seeds = True
     gravity = 9.8
     masscart = 1.0
     masspole = 0.1
@@ -46,7 +47,7 @@ class CartPole(DeviceEnv):
         self.single_action_space = DiscreteSpace(2, device=self.device)
 
     def initial_physics(self, generator, eval_mode):
-        values = torch.rand(self.nr_envs, 4, generator=generator, device=self.device) * 0.1 - 0.05
+        values = draw(generator, torch.rand, (self.nr_envs, 4), device=self.device) * 0.1 - 0.05
         return CartPolePhysics(*values.unbind(1))
 
     def observe(self, physics):

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from rlx_tpu_torch.environments.env import DeviceEnv
+from rlx_tpu_torch.environments.env import DeviceEnv, draw
 from rlx_tpu_torch.environments.spaces import BoxSpace
 
 
@@ -23,6 +23,7 @@ class PendulumPhysics(NamedTuple):
 
 
 class Pendulum(DeviceEnv):
+    parallel_seeds = True
     g = 10.0
     m = 1.0
     l = 1.0
@@ -43,9 +44,7 @@ class Pendulum(DeviceEnv):
         )
 
     def initial_physics(self, generator, eval_mode):
-        uniform = lambda lo, hi: lo + (hi - lo) * torch.rand(
-            self.nr_envs, generator=generator, device=self.device
-        )
+        uniform = lambda lo, hi: lo + (hi - lo) * draw(generator, torch.rand, (self.nr_envs,), device=self.device)
         return PendulumPhysics(theta=uniform(-math.pi, math.pi), theta_dot=uniform(-1.0, 1.0))
 
     def observe(self, physics):

@@ -9,7 +9,11 @@ auto-reset.  Field meaning:
   episode_store      running return/length accumulators
 
 Randomness comes from one ``torch.Generator`` on the env's device, owned by
-the env state.
+the env state.  With parallel seeds (``algorithms/parallel_seeds.py``) the
+env holds ``S * N`` envs, ``reset`` takes one seed per seed and the state
+owns a list of S generators; an env whose draws all go through ``draw``
+sets ``parallel_seeds = True``, and ``draw`` takes each seed's ``N`` rows
+from that seed's generator, as its one-seed env of ``N`` envs would.
 """
 
 import dataclasses
@@ -33,6 +37,23 @@ class EnvState:
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
+
+
+def draw(generator, sample, shape, **kwargs):
+    """``sample(shape, generator=..., **kwargs)`` with ``shape[0]`` the env
+    axis; for a list of S generators (parallel seeds) each takes its
+    ``shape[0] // S`` rows, concatenated seed-major."""
+    if isinstance(generator, torch.Generator):
+        return sample(shape, generator=generator, **kwargs)
+    rows = (shape[0] // len(generator),) + tuple(shape[1:])
+    return torch.cat([sample(rows, generator=g, **kwargs) for g in generator])
+
+
+def make_generator(seed, device):
+    """A seeded generator, or for a list of seeds one per seed."""
+    if isinstance(seed, (list, tuple)):
+        return [torch.Generator(device=device).manual_seed(int(x)) for x in seed]
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def tree_where(pred, on_true, on_false):
@@ -61,6 +82,7 @@ class DeviceEnv:
     nr_envs: int
     horizon: int
     device: torch.device
+    parallel_seeds = False
 
     def initial_physics(self, generator, eval_mode):
         raise NotImplementedError
@@ -76,7 +98,7 @@ class DeviceEnv:
         return {}
 
     def reset(self, seed, eval_mode=False):
-        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        generator = make_generator(seed, self.device)
         physics = self.initial_physics(generator, eval_mode)
         observation = self.observe(physics)
         zeros = torch.zeros(self.nr_envs, device=self.device)

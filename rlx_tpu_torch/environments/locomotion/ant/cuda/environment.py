@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from rlx_tpu_torch.environments.env import DeviceEnv
+from rlx_tpu_torch.environments.env import DeviceEnv, draw
 from rlx_tpu_torch.environments.spaces import BoxSpace
 from rlx_tpu_torch.physics import engine, load_model
 from rlx_tpu_torch.physics.model import HINGE
@@ -36,6 +36,8 @@ class AntPhysics(NamedTuple):
 
 
 class Ant(DeviceEnv):
+    parallel_seeds = True
+
     def __init__(self, nr_envs, horizon=1000, action_scaling_factor=0.3, nr_substeps=4,
                  initial_state_noise=0.0, perturbation_chance=0.0, perturbation_velocity=0.5,
                  device="cuda"):
@@ -79,11 +81,9 @@ class Ant(DeviceEnv):
         qpos = self.qpos0[None].repeat(B, 1)
         qvel = torch.zeros((B, self.model.nv), device=self.device)
         if self.initial_state_noise > 0.0 and not eval_mode:
-            noise = torch.randn((B, self.nr_joints), generator=generator, device=self.device)
+            noise = draw(generator, torch.randn, (B, self.nr_joints), device=self.device)
             qpos[:, 7:] += self.initial_state_noise * noise
-            qvel = qvel + self.initial_state_noise * torch.randn(
-                qvel.shape, generator=generator, device=self.device
-            )
+            qvel = qvel + self.initial_state_noise * draw(generator, torch.randn, qvel.shape, device=self.device)
         ctrl = self.nominal_joint_positions[None].repeat(B, 1)
         return AntPhysics(qpos=qpos, qvel=qvel, ctrl=ctrl)
 
@@ -113,10 +113,8 @@ class Ant(DeviceEnv):
         ctrl = self.nominal_joint_positions[None] + action * self.action_scaling_factor
         qvel_in = physics.qvel
         if self.perturbation_chance > 0.0:
-            kicked = torch.rand((self.nr_envs,), generator=generator, device=self.device) < self.perturbation_chance
-            kick = self.perturbation_velocity * torch.randn(
-                (self.nr_envs, 2), generator=generator, device=self.device
-            )
+            kicked = draw(generator, torch.rand, (self.nr_envs,), device=self.device) < self.perturbation_chance
+            kick = self.perturbation_velocity * draw(generator, torch.randn, (self.nr_envs, 2), device=self.device)
             qvel_in = qvel_in.clone()
             qvel_in[:, :2] += torch.where(kicked[:, None], kick, 0.0)
         qpos, qvel = engine.step(self.model, physics.qpos, qvel_in, ctrl, nr_substeps=self.nr_substeps)

@@ -39,6 +39,12 @@ class _Wrapper:
         self.single_action_space = env.single_action_space
         self.general_properties = getattr(env, "general_properties", None)
 
+    @property
+    def parallel_seeds(self):
+        """Parallel seeds run where the inner env runs them (no wrapper here
+        draws, but the randomization one)."""
+        return getattr(self.env, "parallel_seeds", False)
+
     def _unbounded_observations(self, size):
         return BoxSpace(low=-math.inf, high=math.inf, shape=(size,), device=self.device)
 
@@ -95,6 +101,8 @@ class ObservationMaskWrapper(_Wrapper):
 
 
 class DomainRandomizationWrapper(_Wrapper):
+    parallel_seeds = False   # its draws are not per seed yet (ROADMAP Queue A item 19c)
+
     def __init__(self, env, observation_noise_std=0.0, action_delay_chance=0.0):
         super().__init__(env)
         self.observation_noise_std = observation_noise_std

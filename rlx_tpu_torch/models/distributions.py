@@ -56,9 +56,14 @@ def categorical_sample(logits, generator=None, noise=None):
     ``noise`` standard Gumbel, drawn from ``generator`` unless given.
     Returns int32 actions of shape ``logits.shape[:-1]``."""
     if noise is None:
-        uniform = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
-        noise = -torch.log(-torch.log(uniform.clamp_min(torch.finfo(logits.dtype).tiny)))
+        noise = gumbel_noise(torch.rand(logits.shape, generator=generator, device=logits.device,
+                                        dtype=logits.dtype))
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+
+
+def gumbel_noise(uniform):
+    """Standard Gumbel noise from uniform draws in [0, 1)."""
+    return -torch.log(-torch.log(uniform.clamp_min(torch.finfo(uniform.dtype).tiny)))
 
 
 def categorical_log_prob(logits, action):

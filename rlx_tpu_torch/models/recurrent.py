@@ -27,6 +27,11 @@ and ``hz`` without bias, flax's inits (lecun-normal input kernels,
 orthogonal recurrent kernels per gate, zero biases).  The attention's
 products are elementwise products and sums, f32 whatever the TF32 setting:
 the JAX package runs them at ``Precision.HIGHEST``.
+
+``torch.lstm_cell`` and ``torch.gru_cell`` have no ``vmap`` batching rule,
+so a cell whose ``fused`` is off (a seed-stacked policy, mapped over seeds
+by ``algorithms/parallel_seeds.py``) computes the same gates from its own
+products and elementwise ops.
 """
 
 import math
@@ -120,9 +125,17 @@ class LSTMCell(nn.Module):
         zeros = torch.zeros(nr_envs, self.features, **like)
         return (zeros, zeros.clone())
 
+    fused = True   # off: the cell's math without torch.lstm_cell (vmap-able)
+
     def forward(self, carry, x):
         c, h = carry
-        h, c = torch.lstm_cell(x, (h, c), self.weight_ih, self.weight_hh, self.zero_bias_ih, self.bias_hh)
+        if self.fused:
+            h, c = torch.lstm_cell(x, (h, c), self.weight_ih, self.weight_hh, self.zero_bias_ih, self.bias_hh)
+            return (c, h), h
+        gates = F.linear(x, self.weight_ih) + F.linear(h, self.weight_hh, self.bias_hh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
         return (c, h), h
 
     def sequence(self, init_carry, x_seq, done_prev):
@@ -156,9 +169,18 @@ class GRUCell(nn.Module):
     def _bias_hh(self):
         return torch.cat([self.bias_hn.new_zeros(2 * self.features), self.bias_hn])
 
+    fused = True   # off: the cell's math without torch.gru_cell (vmap-able)
+
     def forward(self, carry, x, bias_hh=None):
         bias_hh = self._bias_hh() if bias_hh is None else bias_hh
-        h = torch.gru_cell(x, carry, self.weight_ih, self.weight_hh, self.bias_ih, bias_hh)
+        if self.fused:
+            h = torch.gru_cell(x, carry, self.weight_ih, self.weight_hh, self.bias_ih, bias_hh)
+            return h, h
+        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, dim=-1)
+        h_r, h_z, h_n = F.linear(carry, self.weight_hh, bias_hh).chunk(3, dim=-1)
+        r, z = torch.sigmoid(i_r + h_r), torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        h = (1.0 - z) * n + z * carry
         return h, h
 
     def sequence(self, init_carry, x_seq, done_prev):

@@ -1,6 +1,9 @@
 """Runner config namespace (the JAX package's keys that the port runs;
-the trackers, rendering, the mesh and the JAX set-up keys are left out,
-so setting one raises ``KeyError``).
+wandb, rendering, the mesh and the JAX set-up keys are left out, so setting
+one raises ``KeyError``).  ``track_tb`` writes TensorBoard scalars under
+``<run path>/tb`` (``tensorboardX``, imported only then);
+``matmul_precision`` is the counterpart of the JAX package's
+``jax_default_matmul_precision`` (``config.MATMUL_PRECISIONS``).
 
 One default differs from the JAX package's on purpose: ``device`` is
 ``"cuda"``, where JAX's ``""`` means "the default backend".  The port runs
@@ -16,6 +19,7 @@ def get_config():
     return ConfigDict(
         mode="train",
         track_console=False,
+        track_tb=False,
         project_name="rlx_tpu_torch",
         exp_name="default",
         run_name="",
@@ -33,4 +37,8 @@ def get_config():
         # "cuda" (default; no fallback, see above) or "cpu"; a CUDA device
         # runs the hand-written kernels
         device="cuda",
+        # float32 matrix products: "float32" (the port's default, exact f32
+        # products, the precision the parity tests hold), "tensorfloat32" or
+        # "bfloat16" (the JAX package's default); see config.MATMUL_PRECISIONS
+        matmul_precision="float32",
     )

@@ -21,7 +21,8 @@ the default ``cuda`` runs the CUDA kernels and fails without a card
 
 Train and test mode make the run directory
 ``runs/<project_name>/<exp_name>/<run_name or "run">`` under the working
-directory, with ``provenance.json`` and ``diff.patch``, and build the model
+directory, with ``provenance.json``, ``diff.patch`` and, with
+``--runner.track_tb=True``, TensorBoard scalars under ``tb/``, and build the model
 or, with ``runner.load_model``, load it: the stored algorithm config wins
 over the defaults, the ``algorithm.*`` flags given here over both.  The
 ``runner.*`` and ``environment.*`` keys always come from this command line.
@@ -111,18 +112,29 @@ class Runner:
         log_run_provenance(run_path)
         return run_path
 
-    def _make_model(self, train_env, eval_env, run_path):
+    def _make_writer(self, run_path):
+        """A ``tensorboardX.SummaryWriter`` into ``<run_path>/tb`` with
+        ``runner.track_tb``, else None (``tensorboardX`` is imported only
+        then, as the JAX runner does)."""
+        if not self.config.runner.track_tb:
+            return None
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(os.path.join(run_path, "tb"))
+
+    def _make_model(self, train_env, eval_env, run_path, writer=None):
         model_class = get_algorithm_model_class(self.algorithm_name)()
         if self.config.runner.load_model:
-            return model_class.load(self.config, train_env, eval_env, run_path, None,
+            return model_class.load(self.config, train_env, eval_env, run_path, writer,
                                     self.explicitly_set_algorithm_params)
-        return model_class(self.config, train_env, eval_env, run_path, None)
+        return model_class(self.config, train_env, eval_env, run_path, writer)
 
     def _train(self):
         run_path = self._make_run_path()
         train_env, eval_env = create_env(self.config)
+        writer = self._make_writer(run_path)
         try:
-            self.model = self._make_model(train_env, eval_env, run_path)
+            self.model = self._make_model(train_env, eval_env, run_path, writer)
             profile_dir = self.config.runner.profile_dir
             if profile_dir:
                 with torch.profiler.profile() as profiler:
@@ -133,6 +145,8 @@ class Runner:
                 self.model.train()
         finally:
             close_envs(train_env, eval_env)
+            if writer is not None:
+                writer.close()
         return self.model
 
     def _test(self):

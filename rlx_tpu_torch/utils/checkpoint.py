@@ -45,7 +45,11 @@ def _to_cpu(tree):
 
 
 def save_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict):
-    """Write ``<save_path>/<file_name>`` (a zip) atomically."""
+    """Write ``<save_path>/<file_name>`` (a zip) atomically.  A checkpoint
+    holds one seed's states (seed 0's after a parallel-seed run), so its
+    config says ``nr_parallel_seeds = 1``."""
+    if "nr_parallel_seeds" in algorithm_config_dict:
+        algorithm_config_dict = {**algorithm_config_dict, "nr_parallel_seeds": 1}
     if save_path is None:
         raise ValueError("the model has no save path: create it with a run path")
     tmp_dir = os.path.join(save_path, "tmp")

@@ -133,12 +133,12 @@ def test_soft_projection_matches_jax():
 
 def test_defaults_match_jax():
     """Every key and value of the JAX package's defaults but the mesh's
-    ``shard_local_sampling`` and ``nr_parallel_seeds``."""
+    ``shard_local_sampling``."""
     import importlib
 
     for algorithm in ("bro", "mpo", "fastmpo"):
         ref = importlib.import_module(f"rlx_tpu.algorithms.{algorithm}.tpu.default_config").get_config("x").to_dict()
-        ref = {k: v for k, v in ref.items() if k not in ("shard_local_sampling", "nr_parallel_seeds", "name")}
+        ref = {k: v for k, v in ref.items() if k not in ("shard_local_sampling", "name")}
         ours = dict(make_config(f"{algorithm}.cuda", "classic.pendulum.cuda").algorithm)
         assert ours.pop("name") == f"{algorithm}.cuda"
         assert ours == ref, algorithm

@@ -111,7 +111,7 @@ def test_merge_loaded_algorithm_config_matches_jax(explicit):
         if key == "name":
             continue
         assert value == jax_algorithm[key] and type(value) is type(jax_algorithm[key]), key
-    assert "unknown_key" not in config.algorithm and "nr_parallel_seeds" not in config.algorithm
+    assert "unknown_key" not in config.algorithm and config.algorithm.nr_parallel_seeds == 3
 
 
 # --- model files ---------------------------------------------------------------

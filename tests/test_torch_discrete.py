@@ -387,9 +387,9 @@ def test_image_families_accepted_and_the_rest_refused(environment):
 
 
 def test_left_out_features_raise():
-    for algorithm in (*FAMILY, "pqn"):
-        with pytest.raises(KeyError):
-            make_config(f"{algorithm}.cuda", "classic.cart_pole.cuda", **{"algorithm.nr_parallel_seeds": 2})
+    for algorithm in (*FAMILY, "pqn"):   # parallel seeds are ported: the key is there
+        config = make_config(f"{algorithm}.cuda", "classic.cart_pole.cuda", **{"algorithm.nr_parallel_seeds": 2})
+        assert config.algorithm.nr_parallel_seeds == 2
     with pytest.raises(KeyError):
         make_config("dqn.cuda", "classic.cart_pole.cuda", **{"algorithm.shard_local_sampling": False})
 

@@ -223,10 +223,12 @@ def test_runner_trains_fasttd3(tmp_path, monkeypatch):
 
 
 def test_left_out_features_raise():
-    for key, value in (("nr_parallel_seeds", 2), ("anneal_learning_rate", True),
-                       ("learning_starts_per_env", 8), ("buffer_size_per_env", 256)):
+    for key, value in (("anneal_learning_rate", True), ("learning_starts_per_env", 8), ("buffer_size_per_env", 256)):
         with pytest.raises(KeyError):
             make_config("fasttd3.cuda", "locomotion.ant.cuda", **{f"algorithm.{key}": value})
+    # parallel seeds are ported: the key is there
+    assert make_config("fasttd3.cuda", "locomotion.ant.cuda", **{"algorithm.nr_parallel_seeds": 2}
+                       ).algorithm.nr_parallel_seeds == 2
     # the velocity-masked Pendulum is ported: FastTD3 sees its 2 channels
     masked = create_model(make_config("fasttd3.cuda", "classic.pendulum.cuda", **{
         "runner.device": "cpu", "environment.mask_velocity": True}))

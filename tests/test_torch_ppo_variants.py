@@ -264,13 +264,12 @@ def test_median_is_jnp_median():
 
 
 def test_defaults_match_jax():
-    """Every key and value of the JAX package's defaults but
-    ``nr_parallel_seeds``."""
+    """Every key and value of the JAX package's defaults."""
     import importlib
 
     for algorithm in ("espo", "ppo_dtrl"):
         ref = importlib.import_module(f"rlx_tpu.algorithms.{algorithm}.tpu.default_config").get_config("x").to_dict()
-        ref = {k: v for k, v in ref.items() if k not in ("nr_parallel_seeds", "name")}
+        ref = {k: v for k, v in ref.items() if k != "name"}
         ours = dict(make_config(f"{algorithm}.cuda", "classic.pendulum.cuda").algorithm)
         assert ours.pop("name") == f"{algorithm}.cuda"
         assert ours == ref, algorithm

@@ -141,7 +141,9 @@ def test_defaults_match_jax(algorithm):
 
 
 def test_parallel_seeds_raise():
-    with pytest.raises(NotImplementedError):
+    """Parallel seeds are ported; with logging on (the default) they raise
+    the JAX package's ``ValueError``."""
+    with pytest.raises(ValueError, match="requires algorithm.logging_active=False"):
         create_model(make_config("ppo_gru.cuda", "classic.pendulum.cuda", **{
             "runner.device": "cpu", "algorithm.nr_parallel_seeds": 2}))
 

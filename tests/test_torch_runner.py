@@ -129,8 +129,9 @@ def test_show_config_prints_the_three_namespaces():
     assert '"nr_steps": 7' in text and config.algorithm.nr_steps == 7
 
 
-@pytest.mark.parametrize("key", ["track_tb", "track_wandb", "wandb_entity", "notes", "render_video",
-                                 "render_interactive"])
+# track_tb is ported; jax_default_matmul_precision's counterpart is matmul_precision
+@pytest.mark.parametrize("key", ["jax_default_matmul_precision", "track_wandb", "wandb_entity", "notes",
+                                 "render_video", "render_interactive"])
 def test_left_out_runner_keys_raise(key):
     with pytest.raises(KeyError):
         Runner([f"--runner.{key}=True"])

@@ -264,6 +264,8 @@ def _same_tree(a, b):
 
 
 def test_left_out_features_raise():
-    for key, value in (("shard_local_sampling", False), ("nr_parallel_seeds", 2)):
-        with pytest.raises(KeyError):
-            make_config("sac.cuda", "classic.pendulum.cuda", **{f"algorithm.{key}": value})
+    with pytest.raises(KeyError):
+        make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False})
+    # parallel seeds are ported: the key is there
+    assert make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.nr_parallel_seeds": 2}
+                       ).algorithm.nr_parallel_seeds == 2

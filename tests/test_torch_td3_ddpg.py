@@ -189,8 +189,10 @@ def test_jax_checkpoint_carries_into_the_port(algorithm, tmp_path):
 
 @pytest.mark.parametrize("algorithm", ["td3", "ddpg"])
 def test_left_out_features_raise_and_anneal_is_accepted(algorithm):
-    for key, value in (("shard_local_sampling", False), ("nr_parallel_seeds", 2)):
-        with pytest.raises(KeyError):
-            make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{f"algorithm.{key}": value})
+    with pytest.raises(KeyError):
+        make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False})
+    # parallel seeds are ported: the key is there
+    assert make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.nr_parallel_seeds": 2}
+                       ).algorithm.nr_parallel_seeds == 2
     config = make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.anneal_learning_rate": "true"})
     assert config.algorithm.anneal_learning_rate is True
