@@ -209,15 +209,32 @@ Phases (each prints one line; any failure exits nonzero):
     SAC at ``OFFPOLICY_SHAPE`` with 4 seeds (4 x 1024 envs, batch 8192 a
     seed), B2 once a step; C51 on CartPole with 4 seeds, B3 once an update
     at ``[4 x 128, 51]``; B1 at [64, 16384], B2 at B = 16384 and B3 at
-    [512, 51] -> 51 against their plain versions.
+    [512, 51] -> 51 against their plain versions;
+43. parallel seeds for the last twelve off-policy families: FastSAC
+    (batch 8192), FlashSAC, CrossQ, REDQ, DroQ, AQE, TQC, XQC, SimbaV2,
+    BRO, MPO and FastMPO on the Ant at 4 seeds x 1024 envs at their phase
+    21-23 and 25 shapes, 1 prefill (FastMPO 10) + 16 learning steps and one
+    evaluation (horizon cut to 32) each through ``create_model`` /
+    ``train``: before the evaluation B2 exactly 17 (FastMPO 26) launches,
+    as one seed, B3 exactly 16 for FastSAC and FlashSAC with every launch
+    at ``[4 x batch, 101]`` and none for the others; every seed's eval
+    return finite; env-steps/s summed over seeds against one seed's from a
+    one-seed run of the same program just before (its launches alike);
+    seed 1 of a 3-seed f32 FlashSAC and REDQ run on the Ant (64 envs,
+    batch 128, 4 learning steps) against its one-seed run over every
+    parameter and running statistic (mean |err| within 1e-6, at most 1 %
+    of the values beyond 1e-5, max within 1e-3: Adam's steps at weights
+    whose gradient is rounding), seed 2's slice far from it; B3 at
+    [32768, 101] and [2048, 101] and B2 at B = 4096 against their plain
+    versions.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20, 27, 35, 36, 39, 40 and 42, B2's at the robots' of phase 29 and
-the 4-seed batch of phase 42), the
+shapes of phases 15, 19, 20, 27, 35, 36, 39, 40, 42 and 43, B2's at the robots' of phase 29 and
+the 4-seed batches of phases 42 and 43), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
@@ -2618,6 +2635,186 @@ def main():
           f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms) plain {t['plain_ms']:.3f} ms bound "
           f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
     print(f"phase 42 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 43. parallel seeds for the last twelve off-policy families: each at 4
+    # seeds x 1024 envs on the Ant at phases 21-23 and 25's shapes, 1 prefill
+    # (FastMPO: 10) + 16 learning steps and one evaluation through
+    # create_model / train(); B2 once an env step, B3 once an update for
+    # FastSAC and FlashSAC at [4 x batch, 101]; seed 1 of 3 against its
+    # one-seed run for FlashSAC and REDQ; B3 and B2 at the folded shapes
+    phase_t0 = time.perf_counter()
+    from rlx_tpu_torch.algorithms.fastsac.cuda import fastsac as fastsac_module
+    from rlx_tpu_torch.algorithms.flashsac.cuda import flashsac as flashsac_module
+    from rlx_tpu_torch.models.layers import running_buffers
+
+    eval_horizon = 32   # the Ant's episode cut from 1000 for the one evaluation; widths and batches stay
+    families = {   # name -> (overrides, prefill steps, B3 launches an update)
+        "fastsac": ({"algorithm.batch_size": 8192, "algorithm.learning_starts": 1024}, 1, 1),
+        "flashsac": ({"algorithm.learning_starts": 1024}, 1, 1),
+        **{name: ({"algorithm.learning_starts": 1024}, 1, 0)
+           for name in ("crossq", "redq", "droq", "aqe", "tqc", "xqc", "simbav2", "bro", "mpo")},
+        "fastmpo": ({}, 10, 0),
+    }
+    projection_shapes = []
+    projections = {m: m.categorical_projection_dense for m in (fastsac_module, flashsac_module)}
+    for m, projection in projections.items():
+        m.categorical_projection_dense = (lambda projection: lambda z, p, *a: projection_shapes.append(
+            tuple(z.shape)) or projection(z, p, *a))(projection)
+
+    def offpolicy_seeds_run(name, overrides, prefill, nr_seeds):
+        """Train ``name`` at ``nr_seeds`` seeds x 1024 envs with one
+        evaluation at the end: (model, train s without the evaluation,
+        launches before the evaluation, launches of the evaluation)."""
+        config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
+            "runner.device": "cuda", "environment.nr_envs": 1024, "environment.horizon": eval_horizon,
+            "algorithm.total_timesteps": (prefill + 16) * 1024, "algorithm.logging_frequency": 16 * 1024,
+            "algorithm.evaluation_active": True, "algorithm.logging_active": False,
+            "algorithm.nr_parallel_seeds": nr_seeds, **overrides})
+        model = create_model(config)
+        marks = {}
+        eval_iteration = model._eval_iteration
+
+        def timed_eval(i):
+            torch.cuda.synchronize()
+            marks["t"], marks["launches"] = time.perf_counter(), counts()
+            out = eval_iteration(i)
+            torch.cuda.synchronize()
+            marks["eval_s"] = time.perf_counter() - marks["t"]
+            return out
+
+        model._eval_iteration = timed_eval
+        zero_counts()
+        projection_shapes.clear()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        total = counts()
+        train_launches = marks["launches"]
+        eval_launches = {k: total[k] - train_launches[k] for k in total}
+        return model, marks["t"] - t0, train_launches, eval_launches
+
+    seeds43, rows43 = 4, {}
+    for name, (overrides, prefill, b3_an_update) in families.items():
+        # one seed first, the same program at the same shapes (its first run
+        # in phases 21-25 paid the shapes' first-call costs)
+        model, train_s, one_launches, _ = offpolicy_seeds_run(name, overrides, prefill, 1)
+        one_seed_rate = (prefill + 16) * 1024 / train_s
+        del model
+        model, train_s, train_launches, eval_launches = offpolicy_seeds_run(name, overrides, prefill, seeds43)
+        batch_size = model.batch_size
+        expected = {"engine_substep": prefill + 16, "gae": 0, "categorical_projection": 16 * b3_an_update}
+        if train_launches != expected or one_launches != expected:
+            fail(f"4-seed {name}: launches {train_launches}, one seed {one_launches}, expected {expected}")
+        if eval_launches != {"engine_substep": eval_horizon, "gae": 0, "categorical_projection": 0}:
+            fail(f"4-seed {name}: evaluation launches {eval_launches}, expected {eval_horizon} B2 only")
+        if b3_an_update and set(projection_shapes) != {(seeds43 * batch_size, 101)}:
+            fail(f"4-seed {name}: projection shapes {sorted(set(projection_shapes))}, expected "
+                 f"[{seeds43} x {batch_size}, 101]")
+        returns = model.eval_history["eval/episode_return"]
+        if returns.shape != (seeds43, 1) or not all(map(math.isfinite, returns.ravel())):
+            fail(f"4-seed {name}: eval history {returns}")
+        rate = seeds43 * (prefill + 16) * 1024 / train_s
+        launches_by_path[f"{name}_4_seeds"] = train_launches
+        rows43[name] = {"env_steps_per_s": rate, "one_seed_env_steps_per_s": one_seed_rate,
+                        "ratio": rate / one_seed_rate, "train_s": train_s, "launches": train_launches,
+                        "eval_returns": returns.ravel().tolist()}
+        print(f"parallel seeds {name}: {seeds43} seeds x 1024 envs, batch {batch_size} a seed, {prefill} prefill + 16 "
+              f"learning steps in {train_s:.2f} s (evaluation apart): {rate:.0f} env-steps/s summed over seeds "
+              f"against {one_seed_rate:.0f} of one seed, x{rate / one_seed_rate:.2f}; launches "
+              f"{train_launches}" + (f", every projection at [{seeds43 * batch_size}, 101]" if b3_an_update else "")
+              + f"; eval returns per seed {[float(f'{r:.3g}') for r in returns.ravel().tolist()]}")
+        del model
+    for m, projection in projections.items():
+        m.categorical_projection_dense = projection
+    print("parallel seeds, twelve families: " + json.dumps(rows43))
+
+    # seed 1 of a 3-seed f32 run is its one-seed run: FlashSAC (BatchNorm
+    # statistics, B3 on the folded rows) and REDQ (per-seed subsets).  f32
+    # with TF32 off: the 3-seed products are batched, the one-seed ones not,
+    # so they round apart, and where a gradient is ~0 but for rounding Adam
+    # turns that into a step of up to the learning rate (3e-4) in either
+    # run: a few isolated weights part by up to 2 x steps x rate.  So the
+    # check holds the mean |err| and the share of elements beyond 1e-5
+    # tight, the max to that bound, and seed 2's slice against the same
+    # one-seed run (another seed's run) must fail the mean by far
+    seed_mean_tol, seed_share_tol, seed_max_tol = 1e-6, 1e-2, 1e-3
+    for name, overrides in (("flashsac", {"algorithm.batch_size": 128}),
+                            ("redq", {"algorithm.batch_size": 128, "algorithm.q_update_steps": 10})):
+        small43 = {"runner.device": "cuda", "environment.nr_envs": 64, "algorithm.learning_starts": 64,
+                   "algorithm.total_timesteps": 64 * 5, "algorithm.logging_frequency": 64 * 4,
+                   "algorithm.evaluation_active": False, "algorithm.logging_active": False,
+                   "environment.initial_state_noise": 0.1, **overrides}
+        three = create_model(make_config(f"{name}.cuda", "locomotion.ant.cuda", **small43, **{
+            "algorithm.nr_parallel_seeds": 3, "environment.seed": 3}))
+        run_training_program(three)
+        one = create_model(make_config(f"{name}.cuda", "locomotion.ant.cuda", **small43, **{
+            "environment.seed": parallel_seeds.seed_for(3, 1)}))
+        one.train()
+        torch.cuda.synchronize()
+
+        def flat(model, s=None):
+            """Every parameter and running statistic of the policy, the
+            critic, its target and alpha, as one f32 vector (seed s's)."""
+            parts = []
+            for state_name in ("policy", "critic", "alpha"):
+                for attr in ("module", "target"):
+                    m = getattr(getattr(model, state_name), attr)
+                    if m is not None:
+                        parts += [(v if s is None else v[s]).detach().float().reshape(-1)
+                                  for v in list(m.parameters()) + list(running_buffers(m).values())]
+            return torch.cat(parts)
+
+        ref = flat(one)
+        diff, control = (flat(three, 1) - ref).abs(), (flat(three, 2) - ref).abs()
+        got = {"max": diff.max().item(), "mean": diff.mean().item(),
+               "share_beyond_1e-5": (diff > 1e-5).float().mean().item()}
+        if not (torch.isfinite(ref).all() and got["max"] <= seed_max_tol and got["mean"] <= seed_mean_tol
+                and got["share_beyond_1e-5"] <= seed_share_tol):
+            fail(f"{name}: seed 1 of 3 against its one-seed run {got} beyond max {seed_max_tol}, mean "
+                 f"{seed_mean_tol}, share {seed_share_tol}")
+        if control.mean().item() < 1e3 * seed_mean_tol:
+            fail(f"{name}: seed 2 stands within {control.mean().item():.3g} of seed 1's one-seed run")
+        nr_stats = sum(len(running_buffers(m)) for m in (one.policy.module, one.critic.module, one.critic.target))
+        print(f"parallel seeds {name}: seed 1 of 3 after 4 learning steps (64 envs, batch 128, f32) against its "
+              f"one-seed run at seed_for(3, 1), {ref.numel()} values ({nr_stats} running-statistics tensors): max|err| "
+              f"{got['max']:.3g} (limit {seed_max_tol}), mean {got['mean']:.3g} (limit {seed_mean_tol}), share beyond "
+              f"1e-5 {got['share_beyond_1e-5']:.3g} (limit {seed_share_tol}); seed 2 against the same run: mean "
+              f"{control.mean().item():.3g}")
+        del three, one
+
+    # B3 at FastSAC's and FlashSAC's 4-seed shapes, B2 at the 4 x 1024 envs
+    for label, (n, v_lo, v_hi, gamma) in {
+        f"[{seeds43 * 8192}, 101] -> 101 (FastSAC, {seeds43} seeds)": (seeds43 * 8192, -10.0, 10.0, 0.99),
+        f"[{seeds43 * 512}, 101] -> 101 (FlashSAC, {seeds43} seeds)": (seeds43 * 512, -5.0, 5.0, 0.99),
+    }.items():
+        z, p = entropy_shifted_targets(n, v_lo, v_hi, gamma)
+        project = lambda: categorical_projection_cuda(z, p, v_lo, v_hi, 101)
+        out, ref = project(), categorical_projection_reference(z, p, v_lo, v_hi, 101)
+        torch.cuda.synchronize()
+        err = max_err([out], [ref], 1e-6, 1e-6, f"projection {label}")
+        t = kernel_times(project, lambda: categorical_projection_reference(z, p, v_lo, v_hi, 101), "projection_kernel")
+        t["bound_ms"], t["bound_by"] = roofline(projection_bytes(n, 101, 101), projection_flops(n, 101))
+        kernels[2]["by_shape"][label] = {**t, "max_abs_err": err}
+        kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err)
+        print(f"B3 projection at {label}: max|err| {err:.3g} (rtol=atol=1e-6), kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.3f} ms bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    B = seeds43 * 1024
+    qpos, qvel, ctrl = ant_batch(ant, B)
+    out = step_cuda(ant, qpos, qvel, ctrl, nr_substeps=4)
+    ref = engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=4)
+    torch.cuda.synchronize()
+    err = max_err(out, ref, 1e-4, 1e-4, f"substep (Ant, B={B})")
+    t = kernel_times(lambda: step_cuda(ant, qpos, qvel, ctrl, nr_substeps=4),
+                     lambda: engine.step_reference(ant, qpos, qvel, ctrl, nr_substeps=4), "engine_substep_kernel",
+                     reps=100)
+    t["bound_ms"], t["bound_by"] = roofline(substep_bytes(ant, B, with_anchors=False), substep_flops(ant) * B * 4)
+    kernels[1]["by_shape"][f"Ant B={B} (off-policy, {seeds43} seeds x 1024)"] = {**t, "max_abs_err": err}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+    print(f"B2 engine_substep at B={B} ({seeds43} seeds x 1024), 4 substeps: max|err| {err:.3g} (rtol=atol=1e-4), "
+          f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain "
+          f"{t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    print(f"phase 43 took {time.perf_counter() - phase_t0:.1f} s")
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

@@ -9,6 +9,8 @@ from rlx_tpu_torch.algorithms.sac_ensembles import EnsembleSAC
 
 
 class AQE(EnsembleSAC):
+    parallel_seeds = True
+
     def setup_states(self):
         self.nr_dropped = int(self.config.algorithm.nr_dropped_q_values)
         super().setup_states()

@@ -36,7 +36,7 @@ from rlx_tpu_torch.algorithms.bro.cuda.general_properties import GeneralProperti
 from rlx_tpu_torch.algorithms.sac_ensembles import EnsembleSAC
 from rlx_tpu_torch.algorithms.simba.cuda.simba import bounded_log_std
 from rlx_tpu_torch.algorithms.tqc.cuda.tqc import quantile_huber_loss
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.layers import BroNetEncoder, Linear, orthogonal_
 from rlx_tpu_torch.models.mlp import select_observations
@@ -112,6 +112,7 @@ class BRO(EnsembleSAC):
     # flat as ``<net>.<parameter>``)
     state_names = ("policy", "critic", "alpha", "optimistic_policy", "optimism", "regularizer", "init_copy")
     q_update_steps_key = "updates_per_step"
+    parallel_seeds = True
 
     def _build_policy(self, a):
         return BroPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
@@ -165,8 +166,22 @@ class BRO(EnsembleSAC):
         ``spread_coeff`` times half their absolute difference."""
         return z.mean(dim=0) + spread_coeff * torch.abs(z[0] - z[1]) / 2.0
 
-    def critic_update(self, batch, target_noise=None):
-        """One quantile critic step on ``batch`` and the target's Polyak update."""
+    def _q(self, module, obs, action, masks=None):
+        return module(obs, action)
+
+    def policy_q_aggregate(self, z):
+        """The pessimistic aggregate's mean over the quantiles, ``[B]``."""
+        return self._aggregate(z, -self.pessimism).mean(dim=-1)
+
+    def policy_draws(self, generator):
+        """The current action's normal, then the optimistic actor's."""
+        draws = {"current_noise": self._normal(generator)}
+        if self.use_optimism:
+            draws["optimistic_noise"] = self._normal(generator)
+        return draws
+
+    def _critic_loss(self, batch, target_noise=None):
+        """(quantile Huber loss, mean quantile) of one seed's batch."""
         with torch.no_grad():
             next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
                 *self.policy.module(batch["next_observation"]), generator=self.generator, noise=target_noise)
@@ -175,38 +190,15 @@ class BRO(EnsembleSAC):
             y = batch["reward"][:, None] + self.gamma * (1.0 - batch["terminated"][:, None]) * (
                 agg - alpha * next_log_prob[:, None])
         z = self.critic.module(batch["observation"], batch["action"])
-        q_loss = quantile_huber_loss(z, y, self.taus)
-        grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
-        self.critic.apply_gradients(grads, self.learning_rate_at(self.critic.step_count()))
-        self.critic.polyak_update(self.tau)
-        return {"loss/q_loss": q_loss.detach(), "q_value/q_value": z.detach().mean(),
-                "gradients/critic_grad_norm": global_norm(grads)}
+        return quantile_huber_loss(z, y, self.taus), z.detach().mean()
 
     def policy_alpha_update(self, batch, current_noise=None, optimistic_noise=None):
         """One step of the policy and ``log_alpha`` on ``batch``, then (with
         optimism) the optimistic actor's and the two adjustments'."""
-        obs = batch["observation"]
-        alpha_with_grad = self.alpha.module()
-        alpha = alpha_with_grad.detach()
-        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
-            *self.policy.module(obs), generator=self.generator, noise=current_noise)
-        entropy = -current_log_prob.detach()
-        q_pi = self._aggregate(self.critic.module(obs, current_action), -self.pessimism).mean(dim=-1)
-        policy_loss = (alpha * current_log_prob - q_pi).mean()
-        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
-        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
-        learning_rate = self.learning_rate_at(self.policy.step_count())
-        self.policy.apply_gradients(policy_grads, learning_rate)
-        self.alpha.apply_gradients(alpha_grads, self.learning_rate_at(self.alpha.step_count()))
-        metrics = {
-            "loss/policy_loss": policy_loss.detach(),
-            "loss/entropy_loss": alpha_loss.detach(),
-            "entropy/entropy": entropy.mean(),
-            "entropy/alpha": alpha,
-            "gradients/policy_grad_norm": global_norm(policy_grads),
-            "lr/learning_rate": torch.tensor(learning_rate),
-        }
+        _, _, draws = self._seed_draws({"current_noise": current_noise, "optimistic_noise": optimistic_noise},
+                                       self.policy_draws)
+        optimistic_noise = draws.pop("optimistic_noise", None)
+        metrics = super().policy_alpha_update(batch, **draws)
         if self.use_optimism:
             metrics.update(self.optimistic_update(batch, optimistic_noise))
         return metrics
@@ -214,7 +206,33 @@ class BRO(EnsembleSAC):
     def optimistic_update(self, batch, noise=None):
         """The optimistic actor's step against the upper bound less the
         regularized KL to the (updated) policy, then one step of each
-        adjustment towards ``kl_target``; their values before the step."""
+        adjustment towards ``kl_target``; their values before the step.
+        With parallel seeds ``noise`` (``[S, batch, action_dim]``) is given."""
+        call = self.plain_call if self.parallel is None else self.seed_map
+        opt_loss, kl_mean = call(self._optimistic_loss, batch, noise)
+        grads = torch.autograd.grad(opt_loss.sum(), list(self.optimistic_policy.module.parameters()))
+        self.optimistic_policy.apply_gradients(grads)
+
+        # the adjustments are elementwise in their (seed-stacked) scalar
+        empirical_kl = kl_mean.detach() / self.action_dim
+        optimism_value = self.optimism.module()
+        (optimism_grad,) = torch.autograd.grad(
+            ((optimism_value - self.pessimism) * (empirical_kl - self.kl_target)).sum(), [self.optimism.module.raw])
+        self.optimism.apply_gradients([optimism_grad])
+        regularizer_value = self.regularizer.module()
+        (regularizer_grad,) = torch.autograd.grad((-regularizer_value * (empirical_kl - self.kl_target)).sum(),
+                                                  [self.regularizer.module.raw])
+        self.regularizer.apply_gradients([regularizer_grad])
+        return {
+            "loss/optimistic_policy_loss": opt_loss.detach(),
+            "optimism/value": optimism_value.detach(),
+            "regularizer/value": regularizer_value.detach(),
+            "kl/empirical_kl": empirical_kl,
+        }
+
+    def _optimistic_loss(self, batch, noise=None):
+        """(the optimistic actor's loss, its mean KL to the policy) of one
+        seed's batch; ``noise`` is drawn from the generator unless given."""
         obs = batch["observation"]
         with torch.no_grad():
             pessimistic_mean, pessimistic_log_std = self.policy.module(obs)
@@ -232,29 +250,12 @@ class BRO(EnsembleSAC):
               + (effective_std ** 2 + (opt_mean - pessimistic_mean) ** 2) / (2.0 * pessimistic_std ** 2)
               - 0.5).sum(dim=-1)
         kl_mean = kl.mean()
-        opt_loss = (-q_ub).mean() + regularizer * kl_mean
-        grads = torch.autograd.grad(opt_loss, list(self.optimistic_policy.module.parameters()))
-        self.optimistic_policy.apply_gradients(grads)
-
-        empirical_kl = kl_mean.detach() / self.action_dim
-        optimism_value = self.optimism.module()
-        (optimism_grad,) = torch.autograd.grad((optimism_value - self.pessimism) * (empirical_kl - self.kl_target),
-                                               [self.optimism.module.raw])
-        self.optimism.apply_gradients([optimism_grad])
-        regularizer_value = self.regularizer.module()
-        (regularizer_grad,) = torch.autograd.grad(-regularizer_value * (empirical_kl - self.kl_target),
-                                                  [self.regularizer.module.raw])
-        self.regularizer.apply_gradients([regularizer_grad])
-        return {
-            "loss/optimistic_policy_loss": opt_loss.detach(),
-            "optimism/value": optimism_value.detach(),
-            "regularizer/value": regularizer_value.detach(),
-            "kl/empirical_kl": empirical_kl,
-        }
+        return (-q_ub).mean() + regularizer * kl_mean, kl_mean
 
     def update_with_buffer(self, buffer, step):
         """``EnsembleSAC``'s critic and policy updates, then the periodic
-        reset of the three nets' parameters to ``init_copy``."""
+        reset of the three nets' parameters to ``init_copy`` (the same step
+        for every seed; each seed resets to its own copy)."""
         metrics = super().update_with_buffer(buffer, step)
         do_reset = step >= self.first_reset_step and (step - self.first_reset_step) % self.reset_interval == 0
         if do_reset:

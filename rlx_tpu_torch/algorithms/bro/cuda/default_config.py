@@ -1,9 +1,9 @@
 """BRO defaults (the JAX package's ``bro.tpu`` values; its
 ``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
-ROADMAP Queue A item 19c). The BroNet widths are ``*_hidden_dim`` /
-``*_nr_blocks``; ``*_hidden_sizes``, ``log_std_*``, ``activation`` and
-``layer_norm`` are kept as JAX keeps them, unread."""
+``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program). The
+BroNet widths are ``*_hidden_dim`` / ``*_nr_blocks``; ``*_hidden_sizes``,
+``log_std_*``, ``activation`` and ``layer_norm`` are kept as JAX keeps them,
+unread."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

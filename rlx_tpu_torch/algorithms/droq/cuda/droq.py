@@ -7,4 +7,4 @@ from rlx_tpu_torch.algorithms.sac_ensembles import EnsembleSAC
 
 
 class DroQ(EnsembleSAC):
-    pass
+    parallel_seeds = True

@@ -1,7 +1,7 @@
-"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC flavor
-of the recipe; its ``shard_local_sampling`` key is left out with the mesh, so
-setting it raises ``KeyError``; ``nr_parallel_seeds`` above 1 raises
-``NotImplementedError``, ROADMAP Queue A item 19c)."""
+"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC
+flavor of the recipe; its ``shard_local_sampling`` key is left out with the
+mesh, so setting it raises ``KeyError``; ``nr_parallel_seeds`` above 1 runs the
+seeds in one program)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

@@ -41,6 +41,8 @@ NETWORK_SHAPES = {
 
 
 class FastMPO(MPO):
+    parallel_seeds = True
+
     def setup_states(self):
         a = self.config.algorithm
         self.critic_tau = a.critic_tau
@@ -87,24 +89,46 @@ class FastMPO(MPO):
     def _sample(self, buffer):
         """One sample for every critic update of the env step."""
         total = self.nr_critic_updates_per_step * self.batch_size
+        if self.parallel is not None:
+            return self._sample_seeds(buffer, total)
         if self.n_step > 1:
             return rb.sample_nstep(buffer, self.generator, total, self.n_step, self.gamma)
         return rb.sample(buffer, self.generator, total)
 
+    def _update_draws(self, generator):
+        """One seed's normals of an env step's updates, in its one-seed
+        order: each policy update's critic updates', then its own.  (critic
+        normals per update, {index of the policy update's last critic
+        update: its normals})."""
+        critic_noises, policy_noises, idx = [], {}, 0
+        for _ in range(self.nr_policy_updates_per_step):
+            for _ in range(self.nr_critic_updates_per_policy_update):
+                critic_noises.append(self._noise((self.action_samples, self.batch_size, self.action_dim), generator))
+                idx += 1
+            policy_noises[idx - 1] = self._noise((self.action_samples, 2 * self.batch_size, self.action_dim),
+                                                 generator)
+        return tuple(critic_noises), policy_noises
+
     def update_with_buffer(self, buffer, step, batch=None, critic_noises=None, policy_noises=None):
         """The env step's updates on one sample (``batch``, drawn unless
         given); ``critic_noises[i]`` ``[S, B, A]`` and ``policy_noises[i]``
-        ``[S, 2B, A]`` are update i's normals, drawn unless given."""
+        ``[S, 2B, A]`` are update i's normals, drawn unless given.  With
+        parallel seeds every input has a leading seed axis and each seed's
+        normals are drawn from its generator (``_update_draws``)."""
         if batch is None:
             batch = self.sample_batch(buffer)
+        if self.parallel is not None and critic_noises is None:
+            critic_noises, policy_noises = self.parallel.draw(self._update_draws)
         next_obs_all, reward_all, terminated_all, discount_all = self._targets(batch)
         obs_all, action_all = batch["observation"], batch["action"]
         if self.normalize_obs:
-            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer,
-                                                                    torch.cat([obs_all, next_obs_all], dim=0))
-            obs_all, next_obs_all = self._norm(obs_all), self._norm(next_obs_all)
+            self.obs_normalizer = self._call()(
+                lambda state, o, n: normalizers.obs_normalizer_update(state, torch.cat([o, n], dim=0)),
+                self.obs_normalizer, obs_all, next_obs_all)
+            obs_all, next_obs_all = self._call()(lambda o, n: (self._norm(o), self._norm(n)), obs_all, next_obs_all)
         n_up = self.nr_critic_updates_per_step
-        slices = [x.reshape((n_up, self.batch_size) + x.shape[1:])
+        seed_axis = 0 if self.parallel is None else 1
+        slices = [x.reshape(x.shape[:seed_axis] + (n_up, self.batch_size) + x.shape[seed_axis + 1:])
                   for x in (obs_all, next_obs_all, action_all, reward_all, terminated_all, discount_all)]
         critic_noises = critic_noises if critic_noises is not None else [None] * n_up
         policy_noises = policy_noises if policy_noises is not None else [None] * n_up
@@ -112,12 +136,13 @@ class FastMPO(MPO):
         idx = 0
         for _ in range(self.nr_policy_updates_per_step):
             for _ in range(self.nr_critic_updates_per_policy_update):
-                obs, next_obs, action, reward, terminated, discount = (x[idx] for x in slices)
+                obs, next_obs, action, reward, terminated, discount = (x.select(seed_axis, idx) for x in slices)
                 critic_metrics = self._critic_step(obs, next_obs, action, reward, terminated, discount,
                                                    critic_noises[idx])
                 self.critic.polyak_update(self.critic_tau)
                 idx += 1
-            policy_metrics = self._policy_dual_step(slices[0][idx - 1], slices[1][idx - 1], policy_noises[idx - 1])
+            policy_metrics = self._policy_dual_step(slices[0].select(seed_axis, idx - 1),
+                                                    slices[1].select(seed_axis, idx - 1), policy_noises[idx - 1])
             self.policy.polyak_update(self.policy_tau)
         return {**critic_metrics, **policy_metrics}
 

@@ -1,7 +1,6 @@
 """FastSAC defaults (the JAX package's ``fastsac.tpu`` values; its
 ``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
-ROADMAP Queue A item 19c)."""
+``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from rlx_tpu_torch.algorithms.sac.cuda.sac import SAC
-from rlx_tpu_torch.algorithms.train_state import global_norm
+from rlx_tpu_torch.algorithms.train_state import global_norm, per_seed_global_norm
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.mlp import VectorQCritic
 from rlx_tpu_torch.ops import normalizers
@@ -31,6 +31,7 @@ class FastSAC(SAC):
     # the JAX package's state names: the checkpoint tree holds policy,
     # critic, critic_target, alpha and obs_normalizer
     state_names = ("policy", "critic", "alpha", "obs_normalizer")
+    parallel_seeds = True
 
     def _build_critic(self, a):
         return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
@@ -51,7 +52,7 @@ class FastSAC(SAC):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            self.obs_normalizer = self.updated_obs_normalizer(observation)
 
     @torch.no_grad()
     def act(self, observation, step=0, noise=None):
@@ -69,46 +70,34 @@ class FastSAC(SAC):
         and ``log_alpha``.  ``target_noise`` / ``current_noise`` (standard
         normal, ``[batch, action_dim]``) are drawn from the generator unless
         given.  Returns the metrics as device scalars."""
-        obs = self._norm(batch["observation"])
-        if self.n_step > 1:
-            next_obs = self._norm(batch["n_step_next_observation"])
-            reward, terminated = batch["n_step_reward"], batch["n_step_terminated"]
-            discount = batch["n_step_gamma"]
-        else:
-            next_obs = self._norm(batch["next_observation"])
-            reward, terminated = batch["reward"], batch["terminated"]
-            discount = torch.full_like(reward, self.gamma)
+        return self._update(batch, target_noise, current_noise, self.plain_call, global_norm)
+
+    def update_seeds(self, batch, step, target_noise=None, current_noise=None):
+        """``update`` for every seed (``[S, batch, ...]``), each seed's
+        normals from its generator unless given; one projection for all
+        seeds' targets (kernel B3 at ``[S * batch, atoms]``)."""
+        draws = self.seed_noises(target_noise, current_noise)
+        return self._update(batch, draws["target_noise"], draws["current_noise"], self.seed_map,
+                            per_seed_global_norm)
+
+    def _update(self, batch, target_noise, current_noise, call, norm):
+        """The update through ``call`` (``plain_call`` or ``seed_map``,
+        whose ``[S]`` losses are summed), the projection between the mapped
+        target and loss; ``norm`` gives the grad norms."""
         learning_rate = self.learning_rate_at(self.policy.step_count())
-
         with torch.no_grad():
-            next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
-                *self.policy.module(next_obs), generator=self.generator, noise=target_noise)
-            alpha = self.alpha.module()
-            next_probs = torch.softmax(self.critic.target(next_obs, next_action), dim=-1)   # [2, B, atoms]
-            lower = torch.argmin((next_probs * self.atoms).sum(-1), dim=0)
-            chosen_probs = torch.where(lower[:, None] == 0, next_probs[0], next_probs[1])
-            # the entropy bonus shifts the support before the projection
-            target_z = reward[:, None] + discount[:, None] * (1.0 - terminated[:, None]) * (
-                self.atoms[None] - alpha * next_log_prob[:, None])
-            target_dist = categorical_projection_dense(target_z, chosen_probs, self.v_min, self.v_max,
-                                                       self.nr_atoms)
+            target_z, chosen_probs = call(self._target_inputs, batch, target_noise)
+            projection = lambda z, p: categorical_projection_dense(z, p, self.v_min, self.v_max, self.nr_atoms)
+            target_dist = self.fold_seeds(projection, target_z, chosen_probs)
 
-        logits = self.critic.module(obs, batch["action"])
-        q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+        q_loss, q_value = call(self._critic_loss, batch, target_dist)
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         self.critic.apply_gradients(critic_grads, learning_rate)
         self.critic.polyak_update(self.tau)
 
-        alpha_with_grad = self.alpha.module()
-        alpha = alpha_with_grad.detach()
-        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
-            *self.policy.module(obs), generator=self.generator, noise=current_noise)
-        entropy = -current_log_prob.detach()
-        q_pi = self.expected_value(self.critic.module(obs, current_action)).min(dim=0).values
-        policy_loss = (alpha * current_log_prob - q_pi).mean()
-        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
-        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
+        policy_loss, alpha_loss, entropy, alpha = call(self._policy_losses, batch, current_noise)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
+        alpha_grads = torch.autograd.grad(alpha_loss.sum(), list(self.alpha.module.parameters()))
         self.policy.apply_gradients(policy_grads, learning_rate)
         self.alpha.apply_gradients(alpha_grads, learning_rate)
 
@@ -117,10 +106,55 @@ class FastSAC(SAC):
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
                 "loss/entropy_loss": alpha_loss.detach(),
-                "entropy/entropy": entropy.mean(),
+                "entropy/entropy": entropy,
                 "entropy/alpha": alpha,
-                "q_value/q_value": self.expected_value(logits.detach()).mean(),
+                "q_value/q_value": q_value,
                 "lr/learning_rate": torch.tensor(learning_rate),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
+
+    def _targets(self, batch):
+        """(next observation, reward, terminated, discount) of a 1-step or
+        n-step batch, the observation normalized."""
+        if self.n_step > 1:
+            return (self._norm(batch["n_step_next_observation"]), batch["n_step_reward"],
+                    batch["n_step_terminated"], batch["n_step_gamma"])
+        return (self._norm(batch["next_observation"]), batch["reward"], batch["terminated"],
+                torch.full_like(batch["reward"], self.gamma))
+
+    @torch.no_grad()
+    def _target_inputs(self, batch, target_noise=None):
+        """(target atoms ``[B, atoms]``, the chosen target critic's
+        probabilities ``[B, atoms]``) of one seed's batch: what the
+        projection takes.  The entropy bonus shifts the support."""
+        next_obs, reward, terminated, discount = self._targets(batch)
+        next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
+            *self.policy.module(next_obs), generator=self.generator, noise=target_noise)
+        alpha = self.alpha.module()
+        next_probs = torch.softmax(self.critic.target(next_obs, next_action), dim=-1)   # [2, B, atoms]
+        lower = torch.argmin((next_probs * self.atoms).sum(-1), dim=0)
+        chosen_probs = torch.where(lower[:, None] == 0, next_probs[0], next_probs[1])
+        target_z = reward[:, None] + discount[:, None] * (1.0 - terminated[:, None]) * (
+            self.atoms[None] - alpha * next_log_prob[:, None])
+        return target_z, chosen_probs
+
+    def _critic_loss(self, batch, target_dist):
+        """(cross-entropy loss, expected Q) of one seed's batch."""
+        logits = self.critic.module(self._norm(batch["observation"]), batch["action"])
+        q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
+        return q_loss, self.expected_value(logits.detach()).mean()
+
+    def _policy_losses(self, batch, current_noise=None):
+        """(policy loss, alpha loss, entropy, alpha) of one seed's batch on
+        the updated critic's smaller expectation."""
+        obs = self._norm(batch["observation"])
+        alpha_with_grad = self.alpha.module()
+        alpha = alpha_with_grad.detach()
+        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
+            *self.policy.module(obs), generator=self.generator, noise=current_noise)
+        entropy = -current_log_prob.detach()
+        q_pi = self.expected_value(self.critic.module(obs, current_action)).min(dim=0).values
+        policy_loss = (alpha * current_log_prob - q_pi).mean()
+        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
+        return policy_loss, alpha_loss, entropy.mean(), alpha

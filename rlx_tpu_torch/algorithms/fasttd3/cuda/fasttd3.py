@@ -79,11 +79,7 @@ class FastTD3(OffPolicyAlgorithm):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            if self.parallel is None:
-                self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
-            else:
-                self.obs_normalizer = self.parallel.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
-                                                        self.parallel.split(observation))
+            self.obs_normalizer = self.updated_obs_normalizer(observation)
 
     def act_draws(self, generator):
         return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}

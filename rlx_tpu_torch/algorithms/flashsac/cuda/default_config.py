@@ -1,8 +1,7 @@
-"""FlashSAC defaults (the JAX package's ``flashsac.tpu`` values: the warmup-cosine
-learning-rate band, the categorical critic's grid and the zeta noise; its
+"""FlashSAC defaults (the JAX package's ``flashsac.tpu`` values: the warmup-
+cosine learning-rate band, the categorical critic's grid and the zeta noise; its
 ``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 raises ``NotImplementedError``,
-ROADMAP Queue A item 19c)."""
+``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 

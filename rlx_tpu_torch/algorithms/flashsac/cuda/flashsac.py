@@ -41,7 +41,7 @@ import torch
 
 from rlx_tpu_torch.algorithms.flashsac.cuda.layers import FlashSACDoubleCritic, FlashSACPolicy, project_params
 from rlx_tpu_torch.algorithms.sac.cuda.sac import SAC
-from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm
+from rlx_tpu_torch.algorithms.train_state import TrainState, global_norm, per_seed_global_norm
 from rlx_tpu_torch.models.layers import commit_batch_stats, discard_batch_stats
 from rlx_tpu_torch.models.mlp import EntropyCoefficient, select_observations
 from rlx_tpu_torch.ops import normalizers
@@ -68,6 +68,8 @@ def sample_and_log_prob(mean, std, noise):
 
 
 class FlashSAC(SAC):
+    parallel_seeds = True
+
     def setup_states(self):
         a = self.config.algorithm
         self.policy_delay = a.policy_delay
@@ -130,15 +132,29 @@ class FlashSAC(SAC):
         """Advance the repeated-noise stream: once the held noise has served
         its ``n`` steps, a fresh normal (``fresh_noise``, ``[nr_envs,
         action_dim]``) and a fresh zeta-distributed ``n`` (from ``uniform``
-        in [0, 1)); each is drawn from the generator unless given."""
-        noise = self.noise
+        in [0, 1)); each is drawn from the generator unless given (with
+        parallel seeds, each seed's from its own)."""
+        if self.parallel is not None:
+            P = self.parallel
+            draws = P.draw(self._pre_act_draws) if fresh_noise is None else {
+                "fresh_noise": fresh_noise, "uniform": uniform}
+            self.noise = P.map(self._next_noise, {}, self.noise, draws["fresh_noise"], draws["uniform"])
+            return
         if fresh_noise is None:
-            fresh_noise = torch.randn(noise["noise"].shape, generator=self.generator, device=self.device)
-        if uniform is None:
-            uniform = torch.rand((), generator=self.generator, device=self.device)
+            draws = self._pre_act_draws(self.generator)
+            fresh_noise, uniform = draws["fresh_noise"], draws["uniform"]
+        self.noise = self._next_noise(self.noise, fresh_noise, uniform)
+
+    def _pre_act_draws(self, generator):
+        """One seed's draws of a ``pre_act``: the normal, then the uniform."""
+        return {"fresh_noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device),
+                "uniform": torch.rand((), generator=generator, device=self.device)}
+
+    def _next_noise(self, noise, fresh_noise, uniform):
+        """One seed's noise state after a ``pre_act``."""
         fresh_n = (torch.argmax((uniform < self.zeta_cdf).to(torch.int32)) + 1).to(torch.int32)
         reinit = (noise["count"] == 0) | (noise["count"] >= noise["n"])
-        self.noise = {
+        return {
             "noise": torch.where(reinit, fresh_noise, noise["noise"]),
             "n": torch.where(reinit, fresh_n, noise["n"]),
             "count": torch.where(reinit, torch.zeros_like(noise["count"]), noise["count"]) + 1,
@@ -149,14 +165,17 @@ class FlashSAC(SAC):
         mean, std = self.policy.module(observation, False)
         return torch.tanh(mean + std * self.noise["noise"])
 
+    def act_draws(self, generator):
+        """None: the exploration noise is ``pre_act``'s."""
+        return {}
+
     @torch.no_grad()
     def eval_act(self, observation):
         return torch.tanh(self.policy.module(observation, False)[0])
 
     def observe_transition(self, observation, env_state):
         if self.normalize_rewards:
-            self.reward_normalizer = normalizers.reward_normalizer_update(
-                self.reward_normalizer, env_state.reward, env_state.terminated, env_state.truncated, self.gamma)
+            self.reward_normalizer = self.updated_reward_normalizer(env_state)
 
     # --- update ------------------------------------------------------------
     def update(self, batch, step, policy_noise=None, target_noise=None):
@@ -164,31 +183,32 @@ class FlashSAC(SAC):
         policy loss's actions, ``target_noise`` the next actions (standard
         normal, ``[batch, action_dim]``); each is drawn from the generator
         unless given.  Returns the metrics as device scalars."""
-        obs = batch["observation"]
-        if self.n_step > 1:
-            next_obs, reward = batch["n_step_next_observation"], batch["n_step_reward"]
-            discount = batch["n_step_gamma"] * (1.0 - batch["n_step_terminated"])
-        else:
-            next_obs, reward = batch["next_observation"], batch["reward"]
-            discount = self.gamma * (1.0 - batch["terminated"])
-        if self.normalize_rewards:
-            reward = normalizers.reward_normalize(self.reward_normalizer, reward, self.normalized_g_max)
-        B = obs.shape[0]
-        draw = lambda: torch.randn((B, self.action_dim), generator=self.generator, device=self.device)
+        shape = (batch["observation"].shape[0], self.action_dim)
+        draw = lambda: torch.randn(shape, generator=self.generator, device=self.device)
         policy_noise = draw() if policy_noise is None else policy_noise
         target_noise = draw() if target_noise is None else target_noise
+        return self._update(batch, step, policy_noise, target_noise, self.plain_call, global_norm)
 
-        # policy and log_alpha (delayed): one train-mode forward of (s, s')
-        mean_all, std_all = self.policy.module(torch.cat([obs, next_obs]), True)
-        action, log_prob = sample_and_log_prob(mean_all[:B], std_all[:B], policy_noise)
-        q = self.critic.module(obs, action, False)[0].min(dim=0).values
-        alpha = self.alpha.module().detach()
-        policy_loss = (alpha * log_prob - q).mean()
-        entropy = -log_prob.mean().detach()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
-        alpha_with_grad = self.alpha.module()
-        alpha_loss = alpha_with_grad * (entropy - self.target_entropy)
-        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
+    def update_seeds(self, batch, step, policy_noise=None, target_noise=None):
+        """``update`` for every seed (``[S, batch, ...]``), each seed's
+        normals from its generator unless given.  The three BatchNorm
+        streams take each seed's statistics over its own rows; one
+        projection for all seeds' targets (kernel B3 at ``[S * batch,
+        atoms]``)."""
+        if policy_noise is None:
+            shape = (self.batch_size, self.action_dim)
+            policy_noise, target_noise = self.parallel.draw(lambda g: (
+                torch.randn(shape, generator=g, device=self.device), torch.randn(shape, generator=g, device=self.device)))
+        return self._update(batch, step, policy_noise, target_noise, self.seed_map, per_seed_global_norm)
+
+    def _update(self, batch, step, policy_noise, target_noise, call, norm):
+        """The update through ``call`` (``plain_call`` or ``seed_map``,
+        whose ``[S]`` losses are summed), the batch statistics committed
+        between the mapped parts; ``norm`` gives the grad norms."""
+        # policy and log_alpha (delayed)
+        policy_loss, alpha_loss, entropy, alpha, policy_q = call(self._policy_losses, batch, policy_noise)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
+        alpha_grads = torch.autograd.grad(alpha_loss.sum(), list(self.alpha.module.parameters()))
         if step % self.policy_delay == 0:
             self.policy.apply_gradients(policy_grads, self.learning_rate_at(self.policy.step_count()))
             project_params(self.policy.module)
@@ -198,22 +218,12 @@ class FlashSAC(SAC):
             discard_batch_stats(self.policy.module)
 
         # the critic's target from the policy after its (possibly skipped) update
-        joint_obs = torch.cat([obs, next_obs])
         with torch.no_grad():
-            next_action, next_log_prob = sample_and_log_prob(*self.policy.module(next_obs, False), target_noise)
-            new_alpha = self.alpha.module()
-            joint_action = torch.cat([batch["action"], next_action])
-            next_log_probs = self.critic.target(joint_obs, joint_action, True)[1][:, B:]    # [n, B, atoms]
-            next_values = (torch.exp(next_log_probs) * self.bins).sum(-1)                  # [n, B]
-            lower = torch.argmin(next_values, dim=0)
-            selected = torch.take_along_dim(next_log_probs, lower[None, :, None], dim=0)[0]
-            target_bins = reward[:, None] + discount[:, None] * (
-                self.bins[None, :] - (new_alpha * next_log_prob)[:, None])
-            target_probs = categorical_projection_dense(target_bins, torch.exp(selected), self.v_min, self.v_max,
-                                                        self.nr_atoms)
-        predicted = self.critic.module(joint_obs, joint_action, True)[1][:, :B]
-        q_loss = -(target_probs[None] * predicted).sum(-1).mean()
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+            target_bins, selected, target_q, next_action = call(self._target_inputs, batch, target_noise)
+            projection = lambda z, p: categorical_projection_dense(z, p, self.v_min, self.v_max, self.nr_atoms)
+            target_probs = self.fold_seeds(projection, target_bins, selected)
+        q_loss = call(self._critic_loss, batch, next_action, target_probs)
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         critic_learning_rate = self.learning_rate_at(self.critic.step_count())
         self.critic.apply_gradients(critic_grads, critic_learning_rate)
         self.critic.polyak_update(self.tau)     # the unprojected parameters, as the JAX package
@@ -228,9 +238,66 @@ class FlashSAC(SAC):
                 "loss/entropy_loss": alpha_loss.detach(),
                 "entropy/entropy": entropy,
                 "entropy/alpha": alpha,
-                "q_value/policy_q_mean": q.detach().mean(),
-                "q_value/target_q_mean": next_values.mean(),
+                "q_value/policy_q_mean": policy_q,
+                "q_value/target_q_mean": target_q,
                 "lr/learning_rate": torch.tensor(critic_learning_rate),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
+
+    def _targets(self, batch):
+        """(next observation, reward, discount) of one seed's 1-step or
+        n-step batch, the reward normalized."""
+        if self.n_step > 1:
+            next_obs, reward = batch["n_step_next_observation"], batch["n_step_reward"]
+            discount = batch["n_step_gamma"] * (1.0 - batch["n_step_terminated"])
+        else:
+            next_obs, reward = batch["next_observation"], batch["reward"]
+            discount = self.gamma * (1.0 - batch["terminated"])
+        if self.normalize_rewards:
+            reward = normalizers.reward_normalize(self.reward_normalizer, reward, self.normalized_g_max)
+        return next_obs, reward, discount
+
+    def _policy_losses(self, batch, policy_noise):
+        """(policy loss, alpha loss, entropy, alpha, mean policy Q) of one
+        seed's batch: one train-mode policy forward of (s, s'), whose
+        statistics stay pending, on the critic before its step."""
+        obs, (next_obs, _, _) = batch["observation"], self._targets(batch)
+        B = obs.shape[0]
+        mean_all, std_all = self.policy.module(torch.cat([obs, next_obs]), True)
+        action, log_prob = sample_and_log_prob(mean_all[:B], std_all[:B], policy_noise)
+        q = self.critic.module(obs, action, False)[0].min(dim=0).values
+        alpha = self.alpha.module().detach()
+        policy_loss = (alpha * log_prob - q).mean()
+        entropy = -log_prob.mean().detach()
+        alpha_loss = self.alpha.module() * (entropy - self.target_entropy)
+        return policy_loss, alpha_loss, entropy, alpha, q.detach().mean()
+
+    @torch.no_grad()
+    def _target_inputs(self, batch, target_noise):
+        """(target atoms ``[B, atoms]``, the lower target critic's
+        probabilities ``[B, atoms]``, the target's mean value, the next
+        action) of one seed's batch: what the projection takes.  The target critic's train-mode
+        forward over the joint batch leaves its statistics pending."""
+        obs = batch["observation"]
+        next_obs, reward, discount = self._targets(batch)
+        B = obs.shape[0]
+        next_action, next_log_prob = sample_and_log_prob(*self.policy.module(next_obs, False), target_noise)
+        new_alpha = self.alpha.module()
+        joint_action = torch.cat([batch["action"], next_action])
+        next_log_probs = self.critic.target(torch.cat([obs, next_obs]), joint_action, True)[1][:, B:]  # [n, B, atoms]
+        next_values = (torch.exp(next_log_probs) * self.bins).sum(-1)                                # [n, B]
+        lower = torch.argmin(next_values, dim=0)
+        selected = torch.take_along_dim(next_log_probs, lower[None, :, None], dim=0)[0]
+        target_bins = reward[:, None] + discount[:, None] * (self.bins[None, :] - (new_alpha * next_log_prob)[:, None])
+        return target_bins, torch.exp(selected), next_values.mean(), next_action
+
+    def _critic_loss(self, batch, next_action, target_probs):
+        """The cross-entropy of one seed's batch from the online critic's
+        train-mode forward over the joint (s|s', a|a') batch, whose
+        statistics stay pending."""
+        obs = batch["observation"]
+        next_obs, _, _ = self._targets(batch)
+        joint_action = torch.cat([batch["action"], next_action])
+        predicted = self.critic.module(torch.cat([obs, next_obs]), joint_action, True)[1][:, :obs.shape[0]]
+        return -(target_probs[None] * predicted).sum(-1).mean()

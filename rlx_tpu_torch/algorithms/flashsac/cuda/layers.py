@@ -49,6 +49,8 @@ class UnitLinear(nn.Module):
 
 
 class BatchNorm(nn.Module):
+    running_buffers = ("mean", "var")
+
     def __init__(self, features, nr=None, momentum=0.99, eps=1e-5):
         super().__init__()
         self.nr, self.momentum, self.eps = nr, momentum, eps

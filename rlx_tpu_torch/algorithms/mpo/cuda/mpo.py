@@ -27,7 +27,9 @@
 
 Every draw is an argument that defaults to the generator: the acting
 noise, the critic's target samples ``[S, B, A]`` and the E-step's samples
-``[S, 2B, A]``.
+``[S, 2B, A]``.  With parallel seeds the losses are mapped over the seeds,
+each with its own samples and duals, and each seed's gradients are clipped
+by its own norm; the soft projection stays plain torch inside the map.
 """
 
 import math
@@ -93,6 +95,7 @@ class DualVariables(nn.Module):
 
 class MPO(OffPolicyAlgorithm):
     EPS = 1e-8
+    parallel_seeds = True
 
     def _build_policy(self, a):
         return MPOGaussianPolicy(self.policy_obs_dim, self.action_dim, tuple(a.policy_hidden_sizes), a.activation,
@@ -157,10 +160,10 @@ class MPO(OffPolicyAlgorithm):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            self.obs_normalizer = self.updated_obs_normalizer(observation)
 
-    def _noise(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+    def _noise(self, shape, generator=None):
+        return torch.randn(shape, generator=self.generator if generator is None else generator, device=self.device)
 
     @torch.no_grad()
     def act(self, observation, step=0, noise=None):
@@ -171,16 +174,25 @@ class MPO(OffPolicyAlgorithm):
             noise = self._noise(mean.shape)
         return torch.clamp(mean + std * noise, -1.0, 1.0)
 
+    def act_draws(self, generator):
+        return {"noise": self._noise((self.nr_envs, self.action_dim), generator)}
+
     @torch.no_grad()
     def eval_act(self, observation):
         return torch.clamp(self.policy.module(self._norm(observation))[0], -1.0, 1.0)
 
     def _step(self, state, grads):
-        """Global-norm clip, then the optimizer's step; returns the norm
-        before the clip."""
-        norm = clip_by_global_norm_(list(grads), self.max_grad_norm)
+        """Global-norm clip (each seed's by its own norm with parallel
+        seeds), then the optimizer's step; returns the norm before the clip."""
+        norm = clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=self.parallel is not None)
         state.apply_gradients(grads)
         return norm
+
+    def _call(self):
+        """``plain_call``, or ``seed_map`` with parallel seeds: the losses of
+        ``_critic_step`` and ``_policy_dual_step`` are mapped over the seeds
+        (their inputs ``[S, ...]``, every draw given) and summed."""
+        return self.plain_call if self.parallel is None else self.seed_map
 
     def soft_projection(self, next_pmf, reward, terminated, discount):
         """The target pmf ``[N, B, atoms]`` of the shifted atoms
@@ -195,6 +207,13 @@ class MPO(OffPolicyAlgorithm):
     def _critic_step(self, obs, next_obs, action, reward, terminated, discount, noise=None):
         """One categorical critic step (its target is not refreshed here);
         ``noise`` ``[S, B, A]`` samples the target policy's actions."""
+        q_loss, q_mean = self._call()(self._critic_loss, obs, next_obs, action, reward, terminated, discount, noise)
+        grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
+        norm = self._step(self.critic, grads)
+        return {"loss/critic_loss": q_loss.detach(), "q_value/q_value": q_mean, "gradients/critic_grad_norm": norm}
+
+    def _critic_loss(self, obs, next_obs, action, reward, terminated, discount, noise=None):
+        """(cross-entropy loss, expected Q) of one seed's batch."""
         B, S, N = obs.shape[0], self.action_samples, self.nr_critics
         with torch.no_grad():
             t_mean, t_std = self.policy.target(next_obs)
@@ -211,16 +230,30 @@ class MPO(OffPolicyAlgorithm):
                 target_pmf = torch.where(use_first, target_pmf[0][None], target_pmf[1][None]).expand_as(target_pmf)
         logits = self.critic.module(obs, action)                                  # [N, B, atoms]
         q_loss = -(target_pmf * F.log_softmax(logits, dim=-1)).sum(-1).sum(0).mean()
-        grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
-        norm = self._step(self.critic, grads)
         with torch.no_grad():
             q_mean = (torch.softmax(logits, dim=-1) * self.atoms).sum(-1).mean()
-        return {"loss/critic_loss": q_loss.detach(), "q_value/q_value": q_mean, "gradients/critic_grad_norm": norm}
+        return q_loss, q_mean
 
     def _policy_dual_step(self, obs, next_obs, noise=None):
         """One decoupled E/M step of the policy and the duals against the
         critic's target; ``noise`` ``[S, 2B, A]`` samples the target
         policy's actions on the stacked (s, s') states."""
+        actor_loss, dual_loss, metrics = self._call()(self._policy_dual_losses, obs, next_obs, noise)
+        policy_params, dual_params = list(self.policy.module.parameters()), list(self.duals.module.parameters())
+        # without action_penalization log_penalty_temperature takes no part:
+        # its gradient is zero, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            policy_params + dual_params,
+            torch.autograd.grad((actor_loss + dual_loss).sum(), policy_params + dual_params, allow_unused=True))]
+        policy_norm = self._step(self.policy, grads[:len(policy_params)])
+        dual_norm = self._step(self.duals, grads[len(policy_params):])
+        self._clamp_duals()
+        return {"loss/actor_loss": actor_loss.detach(), "loss/dual_loss": dual_loss.detach(), **metrics,
+                "gradients/policy_grad_norm": policy_norm, "gradients/dual_grad_norm": dual_norm}
+
+    def _policy_dual_losses(self, obs, next_obs, noise=None):
+        """(actor loss, dual loss, metrics) of one seed's E-step over its
+        sampled actions and M-step against its target policy."""
         stacked = torch.cat([obs, next_obs], dim=0)                              # [2B, obs]
         S = self.action_samples
         with torch.no_grad():
@@ -270,26 +303,13 @@ class MPO(OffPolicyAlgorithm):
 
         actor_loss = loss_pg_mean + loss_pg_std + loss_kl_mean + loss_kl_std
         dual_loss = loss_alpha_mean + loss_alpha_std + loss_eta
-        policy_params, dual_params = list(self.policy.module.parameters()), list(self.duals.module.parameters())
-        # without action_penalization log_penalty_temperature takes no part:
-        # its gradient is zero, as jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            policy_params + dual_params,
-            torch.autograd.grad(actor_loss + dual_loss, policy_params + dual_params, allow_unused=True))]
-        policy_norm = self._step(self.policy, grads[:len(policy_params)])
-        dual_norm = self._step(self.duals, grads[len(policy_params):])
-        self._clamp_duals()
-        return {
-            "loss/actor_loss": actor_loss.detach(),
-            "loss/dual_loss": dual_loss.detach(),
+        return actor_loss, dual_loss, {
             "dual/eta": eta.detach(),
             "dual/alpha_mean": alpha_mean.detach().mean(),
             "dual/alpha_std": alpha_std.detach().mean(),
             "kl/mean_kl_mean": mean_kl_mean.detach().mean(),
             "kl/mean_kl_std": mean_kl_std.detach().mean(),
             "policy/std_mean": online_std.detach().mean(),
-            "gradients/policy_grad_norm": policy_norm,
-            "gradients/dual_grad_norm": dual_norm,
         }
 
     @torch.no_grad()
@@ -313,7 +333,7 @@ class MPO(OffPolicyAlgorithm):
         """One critic step, one policy and dual step, then the periodic hard
         target refreshes.  Returns the metrics as device scalars."""
         next_obs, reward, terminated, discount = self._targets(batch)
-        obs, next_obs = self._norm(batch["observation"]), self._norm(next_obs)
+        obs, next_obs = self._call()(lambda o, n: (self._norm(o), self._norm(n)), batch["observation"], next_obs)
         critic_metrics = self._critic_step(obs, next_obs, batch["action"], reward, terminated, discount, critic_noise)
         metrics = self._policy_dual_step(obs, next_obs, estep_noise)
         if step % self.target_update_period == 0:
@@ -322,6 +342,16 @@ class MPO(OffPolicyAlgorithm):
             self.policy.hard_update()
         metrics.update(critic_metrics)
         return metrics
+
+    def update_seeds(self, batch, step, critic_noise=None, estep_noise=None):
+        """``update`` for every seed (``[S, batch, ...]``); the critic's and
+        the E-step's samples are each seed's from its generator, in that
+        order, unless given."""
+        if critic_noise is None:
+            critic_noise, estep_noise = self.parallel.draw(
+                lambda g: (self._noise((self.action_samples, self.batch_size, self.action_dim), g),
+                           self._noise((self.action_samples, 2 * self.batch_size, self.action_dim), g)))
+        return self.update(batch, step, critic_noise, estep_noise)
 
     def general_properties():
         return GeneralProperties

@@ -50,15 +50,19 @@ turns them back into float32 on the way in.
 
 Parallel seeds (``algorithm.nr_parallel_seeds = S > 1``,
 ``parallel_seeds.py``): ``setup_states`` runs once per seed under that
-seed (as the JAX package's), and every state is seed-stacked; the buffer
-holds the ``S * N`` env rows, each seed samples only its own rows from its
-own generator (the prefill's random actions likewise), and an algorithm
-that declares ``parallel_seeds = True`` in its own class body supplies
-``act_draws(generator)`` (the act's draws of one seed, in its one-seed
-order) and ``update_seeds(batch, step)``, which maps its losses over the
-seeds (``seed_map``) and steps the stacked optimizers.  Any other family
-raises ``NotImplementedError`` at S > 1.  Not ported yet (a config that asks
-for it has no such key, so it raises): the device mesh.
+seed with that seed's generator (as the JAX package's), and every state is
+seed-stacked; the buffer holds the ``S * N`` env rows, each seed samples
+only its own rows from its own generator (the prefill's random actions
+likewise), and an algorithm that declares ``parallel_seeds = True`` in its
+own class body supplies ``act_draws(generator)`` (the act's draws of one
+seed, in its one-seed order) and ``update_seeds(batch, step)`` (or, with
+``update_with_buffer``, maps its own updates), which maps its losses over
+the seeds (``seed_map``; ``plain_call`` is its one-seed counterpart, so one
+update serves both), runs a kernel between the mapped parts on the seeds'
+folded rows (``fold_seeds``) and steps the stacked optimizers.  Every
+family declares it; a class that does not raises ``NotImplementedError``
+at S > 1.  Not ported yet (a config that asks for it has no such key, so
+it raises): the device mesh.
 """
 
 import math
@@ -79,6 +83,7 @@ from rlx_tpu_torch.algorithms.training_program import (
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models.mlp import observation_width
 from rlx_tpu_torch.models.policy_factory import image_shape
+from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops import replay_buffer as rb
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
@@ -165,7 +170,10 @@ class OffPolicyAlgorithm:
         self.critic_obs_dim = observation_width(self.os_shape, self.critic_observation_indices)
         # [H, W, C] of an IMAGES env (the nets' NatureCNN input), else None
         self.image_shape = image_shape(train_env)
-        self.obs_store_dtype = torch.float32 if self.image_shape is None else torch.uint8
+        # the replay's floats: torch's default float type (float32 but where
+        # a test runs a whole program in float64)
+        self.float_dtype = torch.get_default_dtype()
+        self.obs_store_dtype = self.float_dtype if self.image_shape is None else torch.uint8
         self.discrete = train_env.general_properties.action_space_type == ActionSpaceType.DISCRETE
         if self.discrete:
             # int32 actions, stored as they are and neither clipped nor rescaled
@@ -228,13 +236,14 @@ class OffPolicyAlgorithm:
 
     # --- parallel seeds ----------------------------------------------------
     def _setup_seed_states(self, parallel):
-        """``setup_states`` once per seed under that seed, each state then
-        seed-stacked; the one-seed generators stand aside until ``train()``
-        hands seed 0's back (``_keep_first_seed``)."""
+        """``setup_states`` once per seed under that seed and with its
+        generator (FlashSAC draws its first exploration noise there), each
+        state then seed-stacked; the one-seed generators stand aside until
+        ``train()`` hands seed 0's back (``_keep_first_seed``)."""
         seed = self.seed
         per_seed = []
         for s in range(parallel.nr_seeds):
-            self.seed = parallel.seeds[s]
+            self.seed, self.generator = parallel.seeds[s], parallel.generators[s]
             self.setup_states()
             per_seed.append({name: getattr(self, name) for name in self.state_names})
         self.seed = seed
@@ -272,6 +281,37 @@ class OffPolicyAlgorithm:
 
         return self.parallel.map(with_dicts, modules, dicts, *xs)
 
+    @staticmethod
+    def plain_call(fn, *xs):
+        """``fn(*xs)``: the one-seed counterpart of ``seed_map``, for an
+        update written once for both."""
+        return fn(*xs)
+
+    def updated_obs_normalizer(self, observation):
+        """``obs_normalizer`` after the rows ``observation`` (with parallel
+        seeds each seed's after its own ``N`` of the ``S * N`` rows)."""
+        if self.parallel is None:
+            return normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+        return self.parallel.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
+                                 self.parallel.split(observation))
+
+    def updated_reward_normalizer(self, env_state):
+        """``reward_normalizer`` after an env step's rewards and done flags
+        (per seed, as ``updated_obs_normalizer``)."""
+        rows = (env_state.reward, env_state.terminated, env_state.truncated)
+        if self.parallel is None:
+            return normalizers.reward_normalizer_update(self.reward_normalizer, *rows, self.gamma)
+        return self.parallel.map(lambda state, *xs: normalizers.reward_normalizer_update(state, *xs, self.gamma),
+                                 {}, self.reward_normalizer, *(self.parallel.split(x) for x in rows))
+
+    def fold_seeds(self, kernel, *xs):
+        """``kernel(*xs)``; with parallel seeds the inputs are ``[S, B,
+        ...]`` and the kernel, which has no batching rule, runs once on the
+        seeds' rows folded into ``[S * B, ...]``, its output split back."""
+        if self.parallel is None:
+            return kernel(*xs)
+        return self.parallel.split(kernel(*(self.parallel.merge(x) for x in xs)))
+
     def _act(self, observation, step):
         if self.parallel is None:
             return self.act(observation, step=step)
@@ -284,19 +324,21 @@ class OffPolicyAlgorithm:
             return self.eval_act(observation)
         return self.parallel.merge(self.seed_map(self.eval_act, self.parallel.split(observation)))
 
-    def _sample_seeds(self, buffer):
-        """Each seed's batch from its own env rows and generator, drawn as its
-        one-seed run draws it; one gather for all seeds -> ``[S, B, ...]``."""
+    def _sample_seeds(self, buffer, batch_size=None):
+        """Each seed's batch of ``batch_size`` (the config's unless given)
+        from its own env rows and generator, drawn as its one-seed run draws
+        it; one gather for all seeds -> ``[S, batch_size, ...]``."""
         P = self.parallel
+        batch_size = self.batch_size if batch_size is None else batch_size
         if self.n_step > 1:
             high = max(buffer.size - self.n_step + 1, 1)
         else:
             high = buffer.size
-        idx = P.draw(lambda g: torch.stack([rb._randint(g, high, self.batch_size, self.device),
-                                            rb._randint(g, self.nr_envs, self.batch_size, self.device)]))
+        idx = P.draw(lambda g: torch.stack([rb._randint(g, high, batch_size, self.device),
+                                            rb._randint(g, self.nr_envs, batch_size, self.device)]))
         t_idx = idx[:, 0].reshape(-1)
         e_idx = P.rows(idx[:, 1], self.nr_envs)
-        total = P.nr_seeds * self.batch_size
+        total = P.nr_seeds * batch_size
         if self.n_step > 1:
             flat = rb.sample_nstep(buffer, None, total, self.n_step, self.gamma, t0=t_idx, e_idx=e_idx)
         else:
@@ -309,10 +351,10 @@ class OffPolicyAlgorithm:
         return rb.create(self.capacity, nr_env_rows, {
             "observation": (self.os_shape, self.obs_store_dtype),
             "next_observation": (self.os_shape, self.obs_store_dtype),
-            "action": ((), torch.int32) if self.discrete else ((self.action_dim,), torch.float32),
-            "reward": ((), torch.float32),
-            "terminated": ((), torch.float32),
-            "truncated": ((), torch.float32),
+            "action": ((), torch.int32) if self.discrete else ((self.action_dim,), self.float_dtype),
+            "reward": ((), self.float_dtype),
+            "terminated": ((), self.float_dtype),
+            "truncated": ((), self.float_dtype),
             **self.extra_buffer_fields(),
         }, device=self.device)
 
@@ -322,8 +364,8 @@ class OffPolicyAlgorithm:
             "next_observation": env_state.final_observation.to(self.obs_store_dtype),
             "action": action,
             "reward": env_state.reward,
-            "terminated": env_state.terminated.to(torch.float32),
-            "truncated": env_state.truncated.to(torch.float32),
+            "terminated": env_state.terminated.to(self.float_dtype),
+            "truncated": env_state.truncated.to(self.float_dtype),
         })
 
     def sample_batch(self, buffer):

@@ -18,8 +18,16 @@ With ``algorithm.nr_parallel_seeds = S > 1``:
   the nets over ``[S, B, ...]`` inputs as ONE batched call
   (``torch.func.vmap`` of ``functional_call``: each seed sees its own slice
   of every parameter).  Reductions inside the mapped function (loss means,
-  advantage normalization, medians) are per seed; the summed per-seed
-  losses give each seed its own gradient;
+  advantage normalization, medians, batch statistics) are per seed; the
+  summed per-seed losses give each seed its own gradient;
+- running statistics (CrossQ's BatchRenorm, FlashSAC's BatchNorm) are
+  seed-stacked buffers beside the parameters: a train-mode forward under
+  the map takes each seed's batch statistics over its own rows, the map
+  hands them out, and ``commit_batch_stats`` applies them outside it;
+- the kernels have no batching rule: they run between mapped functions,
+  on the seeds' rows folded into one batch (``merge`` / ``split``), and a
+  draw inside an update is taken outside the map from each seed's
+  generator (``draw``) and passed in;
 - the env holds all ``S * N`` envs, seed-major (rows ``s * N .. (s+1) * N``
   are seed s's), and draws each seed's rows from that seed's generator
   (``environments/env.py::draw``), so kernel B2 steps them in one launch;
@@ -38,6 +46,7 @@ from torch import nn
 from torch.func import functional_call, vmap
 
 from rlx_tpu_torch.algorithms.train_state import TrainState
+from rlx_tpu_torch.models.layers import running_buffers
 
 # seed_for(seed, s) = seed + SEED_STRIDE * s: seed 0 keeps the run's seed,
 # and the seeds of one run stay apart from the runs of nearby seeds
@@ -92,25 +101,35 @@ def _owner(module, name):
 
 def stack_modules(modules):
     """``modules[0]`` with every parameter replaced by the ``[S, ...]`` stack
-    of the S modules' parameters (same ``requires_grad``).  Buffers stay
-    ``modules[0]``'s: they must be equal across seeds (observation indices)."""
+    of the S modules' parameters (same ``requires_grad``), and every buffer
+    of running statistics (``models/layers.running_buffers``: BatchRenorm's,
+    FlashSAC's BatchNorm's) by the stack of theirs, so each seed keeps its
+    own.  The other buffers stay ``modules[0]``'s: they are equal across
+    seeds (observation indices, bins)."""
     first = modules[0]
     for name, param in list(first.named_parameters()):
         owner, leaf = _owner(first, name)
         stacked = torch.stack([dict(m.named_parameters())[name].detach() for m in modules])
         owner._parameters[leaf] = nn.Parameter(stacked, requires_grad=param.requires_grad)
+    for name in running_buffers(first):
+        owner, leaf = _owner(first, name)
+        owner._buffers[leaf] = torch.stack([running_buffers(m)[name] for m in modules])
     return first
 
 
 def unstack_module(module, s=0):
     """Replace every ``[S, ...]`` parameter of ``module`` by its slice ``s``,
-    in place; returns ``[(stacked, new)]`` parameter pairs."""
+    in place, and every running-statistics buffer likewise; returns
+    ``[(stacked, new)]`` parameter pairs."""
     pairs = []
     for name, param in list(module.named_parameters()):
         owner, leaf = _owner(module, name)
         new = nn.Parameter(param.detach()[s].clone(), requires_grad=param.requires_grad)
         owner._parameters[leaf] = new
         pairs.append((param, new))
+    for name, buffer in running_buffers(module).items():
+        owner, leaf = _owner(module, name)
+        owner._buffers[leaf] = buffer[s].clone()
     return pairs
 
 
@@ -218,6 +237,15 @@ def masked_adam_step(optimizer, active, learning_rates):
             state["step"] = step
 
 
+def _stack(trees):
+    """One tree of ``[S, ...]`` tensors from S trees of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(_stack(list(leaves)) for leaves in zip(*trees))
+    return torch.stack(trees)
+
+
 class NoGenerator:
     """Stands for a one-seed generator while a parallel-seed run trains: a
     draw from it fails (torch takes no such generator) instead of sharing
@@ -266,23 +294,39 @@ class ParallelSeeds:
         """``fn(*xs_s)`` for every seed s in one batched call, where ``xs``
         are tensors (or dicts / tuples of them) with a leading seed axis and
         ``fn`` reads the nets ``modules`` ({name: seed-stacked module}) as
-        one seed's nets.  Returns ``fn``'s outputs with a leading seed axis."""
+        one seed's nets, their running statistics included.  Returns
+        ``fn``'s outputs with a leading seed axis.
+
+        A train-mode forward of a norm layer leaves its batch statistics
+        pending on the layer; under the map they are one seed's, over its
+        own rows.  They leave the map as outputs and are set on the layer
+        stacked ``[S, ...]``, so ``commit_batch_stats`` applies each seed's
+        to its own running statistics, outside the map."""
         holder = _Holder(modules)
-        params = dict(holder.named_parameters())
+        tensors = {**dict(holder.named_parameters()), **running_buffers(holder)}
+        norms = [m for m in holder.modules() if hasattr(m, "pending")]
+        kept = [m.pending for m in norms]
+        for m in norms:
+            m.pending = None
 
         def one(p, args):
-            return functional_call(holder, p, (fn,) + tuple(args))
+            out = functional_call(holder, p, (fn,) + tuple(args))
+            pending = {}
+            for i, m in enumerate(norms):
+                if m.pending is not None:
+                    pending[i], m.pending = m.pending, None
+            return out, pending
 
-        return vmap(one)(params, xs)
+        out, pending = vmap(one)(tensors, xs)
+        for i, m in enumerate(norms):
+            m.pending = pending.get(i, kept[i])
+        return out
 
     def draw(self, sample):
         """``[S, ...]``: ``sample(generator)`` for each seed's generator, so
         seed s takes the draw its one-seed run takes.  ``sample`` may return
-        a dict of tensors, stacked key by key."""
-        out = [sample(g) for g in self.generators]
-        if isinstance(out[0], dict):
-            return {k: torch.stack([o[k] for o in out]) for k in out[0]}
-        return torch.stack(out)
+        dicts, tuples or lists of tensors, stacked leaf by leaf."""
+        return _stack([sample(g) for g in self.generators])
 
     def host_seeds(self):
         """One reset seed per seed from its host generator (the one-seed

@@ -108,15 +108,20 @@ class SAC(OffPolicyAlgorithm):
     def update_seeds(self, batch, step, target_noise=None, current_noise=None):
         """``update`` for every seed; the noises (``[S, batch, action_dim]``)
         are each seed's from its generator unless given."""
-        shape = (self.batch_size, self.action_dim)
-        if target_noise is None:
-            draws = self.parallel.draw(lambda g: {
-                "target_noise": torch.randn(shape, generator=g, device=self.device),
-                "current_noise": torch.randn(shape, generator=g, device=self.device)})
-        else:
-            draws = {"target_noise": target_noise, "current_noise": current_noise}
+        draws = self.seed_noises(target_noise, current_noise)
         losses = self.seed_map(lambda b, d: self._losses(b, **d), batch, draws)
         return self._step(losses, per_seed_global_norm)
+
+    def seed_noises(self, target_noise=None, current_noise=None):
+        """``{"target_noise", "current_noise"}``, ``[S, batch, action_dim]``
+        each: the given ones, else each seed's from its generator in its
+        one-seed update's order (the next action's, then the current's)."""
+        if target_noise is not None:
+            return {"target_noise": target_noise, "current_noise": current_noise}
+        shape = (self.batch_size, self.action_dim)
+        return self.parallel.draw(lambda g: {
+            "target_noise": torch.randn(shape, generator=g, device=self.device),
+            "current_noise": torch.randn(shape, generator=g, device=self.device)})
 
     def _losses(self, batch, target_noise=None, current_noise=None):
         """(q loss, policy loss, alpha loss, metrics) of one seed's batch."""

@@ -59,6 +59,8 @@ class SimbaV2VectorCritic(nn.Module):
 
 
 class SimbaV2(XQC):
+    parallel_seeds = True
+
     def _build_policy(self, a):
         return SimbaV2Policy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
 
@@ -86,7 +88,7 @@ class SimbaV2(XQC):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            self.obs_normalizer = self.updated_obs_normalizer(observation)
 
     @torch.no_grad()
     def act(self, observation, step=0, noise=None):
@@ -96,19 +98,21 @@ class SimbaV2(XQC):
     def eval_act(self, observation):
         return super().eval_act(self._norm(observation))
 
-    def update(self, batch, step, target_noise=None, current_noise=None):
+    def _update(self, batch, step, target_noise, current_noise, call, norm):
+        return super()._update(call(self._normalized, batch), step, target_noise, current_noise, call, norm)
+
+    def _normalized(self, batch):
+        """One seed's batch with its observations and rewards normalized."""
         batch = dict(batch)
         batch["observation"] = self._norm(batch["observation"])
         batch["next_observation"] = self._norm(batch["next_observation"])
         if self.normalize_rewards:
             batch["reward"] = normalizers.reward_normalize(self.reward_normalizer, batch["reward"])
-        return super().update(batch, step, target_noise, current_noise)
+        return batch
 
     def _learning_step(self, buffer, env_state, step):
         env_state, metrics = super()._learning_step(buffer, env_state, step)
         if self.normalize_rewards:
             with torch.no_grad():
-                self.reward_normalizer = normalizers.reward_normalizer_update(
-                    self.reward_normalizer, env_state.reward, env_state.terminated, env_state.truncated,
-                    self.gamma)
+                self.reward_normalizer = self.updated_reward_normalizer(env_state)
         return env_state, metrics

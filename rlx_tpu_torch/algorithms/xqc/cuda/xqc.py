@@ -22,7 +22,7 @@ from torch import nn
 
 from rlx_tpu_torch.algorithms.sac.cuda.sac import SAC
 from rlx_tpu_torch.algorithms.simba.cuda.simba import bounded_log_std
-from rlx_tpu_torch.algorithms.train_state import global_norm
+from rlx_tpu_torch.algorithms.train_state import global_norm, per_seed_global_norm
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.layers import Linear, SimbaEncoder
 from rlx_tpu_torch.models.weight_norm import weight_norm_
@@ -67,6 +67,8 @@ class XQCVectorCritic(nn.Module):
 
 
 class XQC(SAC):
+    parallel_seeds = True
+
     def _build_policy(self, a):
         return XQCPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
 
@@ -95,33 +97,28 @@ class XQC(SAC):
         ``step % policy_delay == 0`` one step of the policy (and its
         projection) and ``log_alpha``; the normals are drawn from the
         generator unless given.  Returns the metrics as device scalars."""
-        obs = batch["observation"]
-        with torch.no_grad():
-            next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
-                *self.policy.module(batch["next_observation"]), generator=self.generator, noise=target_noise)
-            alpha = self.alpha.module()
-            next_q = self._expectation(self.critic.target(batch["next_observation"], next_action))   # [n, B]
-            y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * (
-                next_q.min(dim=0).values - alpha * next_log_prob)
-            target_dist = hl_gauss_targets(torch.clamp(y, self.v_min, self.v_max), self.v_min, self.v_max,
-                                           self.nr_atoms)
+        return self._update(batch, step, target_noise, current_noise, self.plain_call, global_norm)
 
-        logits = self.critic.module(obs, batch["action"])
-        q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
-        critic_grads = torch.autograd.grad(q_loss, list(self.critic.module.parameters()))
+    def update_seeds(self, batch, step, target_noise=None, current_noise=None):
+        """``update`` for every seed (``[S, batch, ...]``), each seed's
+        normals from its generator unless given.  The projection normalizes
+        over the last axis, so the seed axis passes through it."""
+        draws = self.seed_noises(target_noise, current_noise)
+        return self._update(batch, step, draws["target_noise"], draws["current_noise"], self.seed_map,
+                            per_seed_global_norm)
+
+    def _update(self, batch, step, target_noise, current_noise, call, norm):
+        """The update through ``call`` (``plain_call`` or ``seed_map``,
+        whose ``[S]`` losses are summed); ``norm`` gives the grad norms."""
+        q_loss, q_value, alpha = call(self._critic_loss, batch, target_noise)
+        critic_grads = torch.autograd.grad(q_loss.sum(), list(self.critic.module.parameters()))
         self.critic.apply_gradients(critic_grads, self.learning_rate_at(self.critic.step_count()))
         self._weight_norm(self.critic.module)
         self.critic.polyak_update(self.tau)
 
-        alpha_with_grad = self.alpha.module()
-        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
-            *self.policy.module(obs), generator=self.generator, noise=current_noise)
-        entropy = -current_log_prob.detach()
-        q_pi = self._expectation(self.critic.module(obs, current_action)).min(dim=0).values
-        policy_loss = (alpha * current_log_prob - q_pi).mean()
-        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
-        policy_grads = torch.autograd.grad(policy_loss, list(self.policy.module.parameters()))
-        alpha_grads = torch.autograd.grad(alpha_loss, list(self.alpha.module.parameters()))
+        policy_loss, alpha_loss, entropy = call(self._policy_losses, batch, current_noise)
+        policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
+        alpha_grads = torch.autograd.grad(alpha_loss.sum(), list(self.alpha.module.parameters()))
         count = self.policy.step_count()
         if step % self.policy_delay == 0:
             learning_rate = self.learning_rate_at(count)
@@ -137,10 +134,39 @@ class XQC(SAC):
                 "loss/q_loss": q_loss.detach(),
                 "loss/policy_loss": policy_loss.detach(),
                 "loss/entropy_loss": alpha_loss.detach(),
-                "entropy/entropy": entropy.mean(),
+                "entropy/entropy": entropy,
                 "entropy/alpha": alpha,
-                "q_value/q_value": self._expectation(logits.detach()).mean(),
+                "q_value/q_value": q_value,
                 "lr/learning_rate": torch.tensor(learning_rate),
-                "gradients/policy_grad_norm": global_norm(policy_grads),
-                "gradients/critic_grad_norm": global_norm(critic_grads),
+                "gradients/policy_grad_norm": norm(policy_grads),
+                "gradients/critic_grad_norm": norm(critic_grads),
             }
+
+    def _critic_loss(self, batch, target_noise=None):
+        """(cross-entropy loss, expected Q, alpha) of one seed's batch
+        against the HL-Gauss histogram of its target."""
+        with torch.no_grad():
+            next_action, next_log_prob = D.tanh_gaussian_sample_and_log_prob(
+                *self.policy.module(batch["next_observation"]), generator=self.generator, noise=target_noise)
+            alpha = self.alpha.module()
+            next_q = self._expectation(self.critic.target(batch["next_observation"], next_action))   # [n, B]
+            y = batch["reward"] + self.gamma * (1.0 - batch["terminated"]) * (
+                next_q.min(dim=0).values - alpha * next_log_prob)
+            target_dist = hl_gauss_targets(torch.clamp(y, self.v_min, self.v_max), self.v_min, self.v_max,
+                                           self.nr_atoms)
+        logits = self.critic.module(batch["observation"], batch["action"])
+        q_loss = -(target_dist[None] * F.log_softmax(logits, dim=-1)).sum(-1).mean()
+        return q_loss, self._expectation(logits.detach()).mean(), alpha
+
+    def _policy_losses(self, batch, current_noise=None):
+        """(policy loss, alpha loss, entropy) of one seed's batch on the
+        updated critic."""
+        alpha_with_grad = self.alpha.module()
+        alpha = alpha_with_grad.detach()
+        current_action, current_log_prob = D.tanh_gaussian_sample_and_log_prob(
+            *self.policy.module(batch["observation"]), generator=self.generator, noise=current_noise)
+        entropy = -current_log_prob.detach()
+        q_pi = self._expectation(self.critic.module(batch["observation"], current_action)).min(dim=0).values
+        policy_loss = (alpha * current_log_prob - q_pi).mean()
+        alpha_loss = (alpha_with_grad * (entropy - self.target_entropy)).mean()
+        return policy_loss, alpha_loss, entropy.mean()

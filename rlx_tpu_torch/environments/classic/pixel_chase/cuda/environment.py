@@ -13,7 +13,8 @@ or more frames.
 The frame stack is kept as uint8 ``[B, 84, 84, frame_stack]``, the newest
 frame last; a fresh episode repeats its first frame.  ``observe`` returns it
 as float32 in 0..255.  Every draw comes from the env state's
-``torch.Generator``.
+``torch.Generator`` (with parallel seeds, each seed's envs from that
+seed's, through ``env.draw``).
 """
 
 from typing import NamedTuple
@@ -23,7 +24,7 @@ import torch
 from rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment import (
     GRID_SIZE, IMAGE_SIZE, MOVES, move, render_frame, spawn,
 )
-from rlx_tpu_torch.environments.env import DeviceEnv
+from rlx_tpu_torch.environments.env import DeviceEnv, draw
 from rlx_tpu_torch.environments.spaces import BoxSpace, DiscreteSpace
 
 
@@ -36,6 +37,7 @@ class ChasePhysics(NamedTuple):
 
 
 class PixelChase(DeviceEnv):
+    parallel_seeds = True
     grid_size = GRID_SIZE
     image_size = IMAGE_SIZE
 
@@ -51,7 +53,8 @@ class PixelChase(DeviceEnv):
 
     def initial_physics(self, generator, eval_mode):
         agent, goal = spawn(generator, self.nr_envs, self.device)
-        direction = torch.randint(0, len(MOVES), (self.nr_envs,), generator=generator, device=self.device)
+        direction = draw(generator, lambda shape, **kw: torch.randint(0, len(MOVES), shape, **kw), (self.nr_envs,),
+                         device=self.device)
         frame = render_frame(agent, goal, torch.uint8)
         frames = frame[..., None].repeat(1, 1, 1, self.frame_stack)
         step = torch.zeros(self.nr_envs, dtype=torch.long, device=self.device)

@@ -8,14 +8,15 @@ for every other step.  The observation is the grid rendered as one
 cell bright (255; written after the goal, so an agent on the goal shows
 255), each cell replicated to 10 x 10 pixels and the 80 x 80 picture padded
 with zeros to 84 x 84 at the bottom and right, NatureCNN's input size.
-Every draw comes from the env state's ``torch.Generator``.
+Every draw comes from the env state's ``torch.Generator`` (with parallel
+seeds, each seed's envs from that seed's, through ``env.draw``).
 """
 
 from typing import NamedTuple
 
 import torch
 
-from rlx_tpu_torch.environments.env import DeviceEnv
+from rlx_tpu_torch.environments.env import DeviceEnv, draw
 from rlx_tpu_torch.environments.spaces import BoxSpace, DiscreteSpace
 
 GRID_SIZE = 8
@@ -46,11 +47,17 @@ def render_frame(agent, goal, dtype):
     return frame
 
 
+def cells(shape, generator, device):
+    """Grid indices uniform in [0, GRID_SIZE), ``shape``."""
+    return torch.randint(0, GRID_SIZE, shape, generator=generator, device=device)
+
+
 def spawn(generator, nr_envs, device):
     """(agent, goal) uniform on the grid, ``[B, 2]`` each; a goal drawn on the
-    agent's cell moves one row down, wrapping."""
-    agent = torch.randint(0, GRID_SIZE, (nr_envs, 2), generator=generator, device=device)
-    goal = torch.randint(0, GRID_SIZE, (nr_envs, 2), generator=generator, device=device)
+    agent's cell moves one row down, wrapping.  With parallel seeds each
+    seed's rows come from its generator (``env.draw``)."""
+    agent = draw(generator, cells, (nr_envs, 2), device=device)
+    goal = draw(generator, cells, (nr_envs, 2), device=device)
     same = (agent == goal).all(dim=-1)
     goal[:, 0] = torch.where(same, (goal[:, 0] + 1) % GRID_SIZE, goal[:, 0])
     return agent, goal
@@ -63,6 +70,7 @@ def move(agent, action):
 
 
 class PixelGrid(DeviceEnv):
+    parallel_seeds = True
     grid_size = GRID_SIZE
     image_size = IMAGE_SIZE
 

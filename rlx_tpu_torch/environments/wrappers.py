@@ -19,13 +19,15 @@ wrapper: ``final_observation`` is built from the window or memory as it was
 before the reset.  A wrapper's state keeps the inner env's physics under
 ``physics["inner"]``.  Where the JAX package draws from the env state's key,
 the port draws from the env state's ``torch.Generator``; ``reset`` and
-``step`` of the randomization wrapper also take the draws explicitly.
+``step`` of the randomization wrapper also take the draws explicitly, and
+with parallel seeds draw each seed's rows from its generator (``env.draw``).
 """
 
 import math
 
 import torch
 
+from rlx_tpu_torch.environments.env import draw
 from rlx_tpu_torch.environments.spaces import BoxSpace
 
 
@@ -41,8 +43,8 @@ class _Wrapper:
 
     @property
     def parallel_seeds(self):
-        """Parallel seeds run where the inner env runs them (no wrapper here
-        draws, but the randomization one)."""
+        """Parallel seeds run where the inner env runs them (the
+        randomization wrapper's own draws go through ``env.draw``)."""
         return getattr(self.env, "parallel_seeds", False)
 
     def _unbounded_observations(self, size):
@@ -101,8 +103,6 @@ class ObservationMaskWrapper(_Wrapper):
 
 
 class DomainRandomizationWrapper(_Wrapper):
-    parallel_seeds = False   # its draws are not per seed yet (ROADMAP Queue A item 19c)
-
     def __init__(self, env, observation_noise_std=0.0, action_delay_chance=0.0):
         super().__init__(env)
         self.observation_noise_std = observation_noise_std
@@ -115,7 +115,7 @@ class DomainRandomizationWrapper(_Wrapper):
         if self.observation_noise_std <= 0.0:
             return observation
         if noise is None:
-            noise = torch.randn(observation.shape, generator=generator, device=self.device)
+            noise = draw(generator, torch.randn, observation.shape, device=self.device)
         return observation + self.observation_noise_std * noise
 
     def reset(self, seed, eval_mode=False, noise=None):
@@ -131,7 +131,7 @@ class DomainRandomizationWrapper(_Wrapper):
         last_action = state.physics["last_action"]
         if self.action_delay_chance > 0.0:
             if delay_draw is None:
-                delay_draw = torch.rand(self.nr_envs, generator=state.generator, device=self.device)
+                delay_draw = draw(state.generator, torch.rand, (self.nr_envs,), device=self.device)
             action = torch.where((delay_draw < self.action_delay_chance)[:, None], last_action, action)
         inner = self.env.step(state.replace(physics=state.physics["inner"]), action)
         return inner.replace(physics={"inner": inner.physics, "last_action": action},

@@ -20,7 +20,10 @@ and of every checkpoint, and a ``TrainState``'s Polyak update (parameters
 only) leaves a target's statistics to its own forward passes.  A
 train-mode forward leaves the batch statistics pending, as flax returns
 its mutated ``batch_stats`` beside the output; ``commit_batch_stats``
-applies them, ``discard_batch_stats`` drops them.
+applies them, ``discard_batch_stats`` drops them.  Such a layer names its
+statistics' buffers in ``running_buffers`` (``running_buffers(module)``
+finds them all): with parallel seeds they are seed-stacked beside the
+parameters, where constant buffers (observation indices, bins) stay shared.
 """
 
 import math
@@ -264,6 +267,8 @@ class BatchRenorm(nn.Module):
     biased batch variance feeds the running variance.  ``train=False``
     normalizes with the running statistics."""
 
+    running_buffers = ("mean", "var", "steps")
+
     def __init__(self, features, nr=None, momentum=0.99, eps=1e-3, r_max=3.0, d_max=5.0):
         super().__init__()
         self.nr, self.momentum, self.eps, self.r_max, self.d_max = nr, momentum, eps, r_max, d_max
@@ -302,6 +307,13 @@ class BatchRenorm(nn.Module):
         self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * batch_var)
         self.steps.add_(1)
         self.pending = None
+
+
+def running_buffers(module):
+    """``{name: buffer}`` of the running statistics of every layer of
+    ``module`` that keeps them (``running_buffers`` of its class)."""
+    return {f"{prefix}.{name}" if prefix else name: getattr(m, name)
+            for prefix, m in module.named_modules() for name in getattr(m, "running_buffers", ())}
 
 
 def commit_batch_stats(module):
