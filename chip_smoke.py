@@ -224,16 +224,30 @@ Phases (each prints one line; any failure exits nonzero):
     batch 128, 4 learning steps) against its one-seed run over every
     parameter and running statistic (mean |err| within 1e-6, at most 1 %
     of the values beyond 1e-5, max within 1e-3: Adam's steps at weights
-    whose gradient is rounding), seed 2's slice far from it; B3 at
-    [32768, 101] and [2048, 101] and B2 at B = 4096 against their plain
-    versions.
+    whose gradient is rounding), seed 2's slice far from it; suspect C3
+    (``c3_checks``): REDQ's seed 1 of 3 in float64 on the Pendulum after 4
+    learning steps within 1e-9 of its one-seed run, FlashSAC's first-update
+    policy and alpha gradients (f32, before any Adam step) within 1e-5 of
+    the one-seed run's relative to their largest; B3 at [32768, 101] and
+    [2048, 101] and B2 at B = 4096 against their plain versions;
+44. parallel seeds on the robot and soccer envs (``robot_parallel_seeds``):
+    PPO-LSTM on the plane quadruped and on soccer (the Booster T1) at
+    phases 28 and 31's widths, 4 seeds x 1024 envs x 32 steps, 2 iterations
+    each through ``create_model`` / ``train``, B2 exactly 64 and B1 exactly
+    2 launches (one seed's), env-steps/s summed over seeds against one seed
+    at 1024 envs just before; 8 eval-mode steps of the 4-seed env, seed 1's
+    rows against the one-seed env within 1e-5; B2 at both robots' 4 x 1024
+    shapes with the env's own DomainParams against ``step_reference`` in
+    float64, within twice the f32 plain version's own max |err| (the two
+    f32 versions part by up to ~5e-4 in a few envs there, both as far from
+    float64).
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20, 27, 35, 36, 39, 40, 42 and 43, B2's at the robots' of phase 29 and
+shapes of phases 15, 19, 20, 27, 35, 36, 39, 40, 42 and 43, B2's at the robots' of phases 29 and 44 and
 the 4-seed batches of phases 42 and 43), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
@@ -395,11 +409,11 @@ def device_idle(fn, span_prefix):
             "device_events": len(events), "read_s": time.perf_counter() - t0}
 
 
-def kernel_times(fn, plain, kernel_name, reps=200):
+def kernel_times(fn, plain, kernel_name, reps=200, plain_reps=20):
     """ms (CUDA events), device_ms (the profiler's kernel time), host_us
     and plain_ms of one kernel call ``fn`` and its plain version ``plain``."""
     return dict(ms=time_ms(fn, reps), device_ms=kernel_device_ms(fn, reps, kernel_name), host_us=host_us(fn),
-                plain_ms=time_ms(plain, 20))
+                plain_ms=time_ms(plain, plain_reps))
 
 
 def roofline(nbytes, flops):
@@ -457,6 +471,229 @@ def same_tree(a, b):
     if a != b:
         fail(f"a loaded value {b!r} differs from the saved {a!r}")
     return 0
+
+
+def seed_one_of_three(name, environment, overrides, device):
+    """(seed-stacked model after a 3-seed run from seed 3, the one-seed model
+    at ``seed_for(3, 1)`` after its run) of off-policy ``name``."""
+    from rlx_tpu_torch.algorithms.parallel_seeds import seed_for
+    from rlx_tpu_torch.algorithms.training_program import run_training_program
+    from rlx_tpu_torch.config import create_model, make_config
+
+    config = lambda **seeds: make_config(f"{name}.cuda", environment, **{
+        "runner.device": device, "algorithm.evaluation_active": False, "algorithm.logging_active": False,
+        **overrides, **seeds})
+    three = create_model(config(**{"algorithm.nr_parallel_seeds": 3, "environment.seed": 3}))
+    one = create_model(config(**{"environment.seed": seed_for(3, 1)}))
+    return three, one
+
+
+def first_gradients(model):
+    """Record the gradients of the first ``apply_gradients`` of each of the
+    policy's, the critic's and alpha's train states: ``{name: [grad, ...]}``,
+    filled as ``model`` trains."""
+    grads = {}
+    for name in ("policy", "critic", "alpha"):
+        state = getattr(model, name)
+        apply = state.apply_gradients
+
+        def recording(g, *args, name=name, apply=apply, **kwargs):
+            grads.setdefault(name, [x.detach().clone() for x in g])
+            return apply(g, *args, **kwargs)
+
+        state.apply_gradients = recording
+    return grads
+
+
+def c3_checks(device):
+    """Suspect C3 (seed 1 of a 3-seed off-policy run on the card 2.2e-4
+    (FlashSAC) and 2.6e-4 (REDQ) from its one-seed run after 4 Adam steps):
+
+    - REDQ in float64 on ``classic.pendulum.cuda`` (no kernel on that path;
+      64 envs, batch 128, 10 critic updates a step, 4 learning steps): the
+      max |err| of seed 1's parameters against its one-seed run;
+    - FlashSAC on the Ant in f32 (B3 takes f32 only; phase 43's 64 envs and
+      batch 128): seed 1's gradients of the first update against the
+      one-seed run's, the policy's and alpha's before any Adam step, the
+      critic's after the policy's first step: max |err| over max |grad|
+      for each.
+
+    Rounding that Adam amplifies leaves the float64 run at ~1e-12 and the
+    f32 gradients at f32 rounding; a seed path that computed something else
+    (another batch, draw or statistic) would part both by far more."""
+    from rlx_tpu_torch.algorithms.training_program import run_training_program
+
+    out = {}
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        three, one = seed_one_of_three("redq", "classic.pendulum.cuda", {
+            "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 5,
+            "algorithm.logging_frequency": 64 * 4, "algorithm.batch_size": 128, "algorithm.q_update_steps": 10},
+            device)
+        run_training_program(three)
+        one.train()
+        pairs = [(a[1], b) for state in ("policy", "critic", "alpha")
+                 for m in ("module", "target") if getattr(getattr(one, state), m) is not None
+                 for a, b in zip(getattr(getattr(three, state), m).parameters(), getattr(getattr(one, state), m).parameters())]
+        if not all(b.dtype == torch.float64 for _, b in pairs):
+            fail("C3: REDQ's float64 run holds parameters of another type")
+        out["redq_float64_max_abs_err"] = max((a - b).abs().max().item() for a, b in pairs)
+        out["redq_float64_values"] = sum(b.numel() for _, b in pairs)
+    finally:
+        torch.set_default_dtype(default)
+
+    three, one = seed_one_of_three("flashsac", "locomotion.ant.cuda", {
+        "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 2,
+        "algorithm.logging_frequency": 64, "algorithm.batch_size": 128, "environment.initial_state_noise": 0.1},
+        device)
+    grads3, grads1 = first_gradients(three), first_gradients(one)
+    run_training_program(three)
+    one.train()
+    for name in ("policy", "alpha", "critic"):
+        ref = torch.cat([g.reshape(-1) for g in grads1[name]])
+        got = torch.cat([g[1].reshape(-1) for g in grads3[name]])
+        control = torch.cat([g[2].reshape(-1) for g in grads3[name]])
+        scale = ref.abs().max().item()
+        out[f"flashsac_first_{name}_grad_rel_err"] = (got - ref).abs().max().item() / scale
+        out[f"flashsac_first_{name}_grad_seed2_rel_err"] = (control - ref).abs().max().item() / scale
+    return out
+
+
+def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_steps=32):
+    """Phase 44: 4-seed PPO-LSTM on the plane robot (the quadruped) and on
+    soccer (the Booster T1) at phases 28 and 31's widths, ``seeds`` x
+    ``nr_envs`` envs, 2 iterations each through ``create_model`` /
+    ``train``: B2 exactly ``2 x nr_steps`` launches and B1 2, one seed's
+    counts; env-steps/s summed over seeds against one seed at ``nr_envs``
+    envs in the same program just before; 8 env steps (eval mode: every
+    randomization axis drawn) of the 4-seed env against the one-seed env
+    at seed 1's seed under the same actions; B2 at both robots' folded
+    shapes (the 4-seed env's own DomainParams and delayed targets) against
+    ``engine.step_reference`` in float64, as accurate as the f32 plain
+    version.  Returns the rates a path."""
+    from rlx_tpu_torch.algorithms.parallel_seeds import seed_for
+    from rlx_tpu_torch.config import create_model, make_config
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
+    from rlx_tpu_torch.environments.locomotion.soccer.cuda.environment import SoccerEnv
+    from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda, substep_bytes, substep_flops
+    from rlx_tpu_torch.physics import engine
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(44)
+    lstm_shape = {"runner.device": "cuda", "algorithm.nr_steps": nr_steps, "algorithm.nr_minibatches": 4,
+                  "algorithm.nr_epochs": 4, "algorithm.rnn_hidden_dim": 128, "algorithm.learning_rate": 3e-4,
+                  "algorithm.evaluation_active": False, "algorithm.logging_active": False}
+    paths = {"robot_plane": (LocomotionEnv, "locomotion.robot.cuda", {"environment.terrain.type": "plane"}),
+             "soccer": (SoccerEnv, "locomotion.soccer.cuda", {})}
+    rates = {}
+    for path, (env_class, env_name, overrides) in paths.items():
+        def train(nr_seeds):
+            model = create_model(make_config("ppo_lstm.cuda", env_name, **{
+                **lstm_shape, **overrides, "environment.nr_envs": nr_envs,
+                "algorithm.total_timesteps": 2 * nr_envs * nr_steps, "algorithm.nr_parallel_seeds": nr_seeds}))
+            if model.train_env.nr_envs != nr_seeds * nr_envs:
+                fail(f"{path} at {nr_seeds} seeds: the env holds {model.train_env.nr_envs} envs")
+            zero_counts()
+            t0 = time.perf_counter()
+            model.train()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = counts()
+            expected = {"engine_substep": 2 * nr_steps, "gae": 2, "categorical_projection": 0}
+            if launches != expected:
+                fail(f"{path} PPO-LSTM at {nr_seeds} seeds: launches {launches} != {expected} (one seed's counts)")
+            for p in list(model.policy.parameters()) + list(model.critic.parameters()):
+                if not torch.isfinite(p).all():
+                    fail(f"{path} PPO-LSTM at {nr_seeds} seeds: non-finite parameters")
+            return nr_seeds * 2 * nr_envs * nr_steps / elapsed, elapsed, launches
+
+        one_rate, one_s, _ = train(1)
+        rate, train_s, launches = train(seeds)
+        launches_by_path[f"{path}_lstm_{seeds}_seeds"] = launches
+        rates[path] = {"env_steps_per_s": rate, "one_seed_env_steps_per_s": one_rate, "ratio": rate / one_rate,
+                       "train_s": train_s, "one_seed_train_s": one_s}
+        print(f"parallel seeds {path} PPO-LSTM: {seeds} seeds x {nr_envs} envs x {nr_steps} steps, 2 iterations in "
+              f"{train_s:.2f} s, {rate:.0f} env-steps/s summed over seeds against {one_rate:.0f} of one seed at "
+              f"{nr_envs} envs ({one_s:.2f} s), x{rate / one_rate:.2f}; launches {launches} (one seed's)")
+
+        # seed 1's rows of the 4-seed env against its one-seed env, eval mode
+        config = make_config("ppo_lstm.cuda", env_name, **{"runner.device": "cuda", **overrides})
+        env = env_class(config.environment, seeds * nr_envs, device="cuda")
+        single = env_class(config.environment, nr_envs, device="cuda")
+        seed_list = [seed_for(5, s) for s in range(seeds)]
+        state, ref = env.reset(seed_list, eval_mode=True), single.reset(seed_list[1], eval_mode=True)
+        rows = slice(nr_envs, 2 * nr_envs)
+        errs = {}
+        for t in range(8):
+            action = 2.0 * torch.rand(seeds * nr_envs, env.nr_actuator_joints, device=dev, generator=g) - 1.0
+            state, ref = env.step(state, action), single.step(ref, action[rows])
+            for field, got, want in (("observation", state.observation, ref.observation),
+                                     ("reward", state.reward, ref.reward),
+                                     ("terminated", state.terminated, ref.terminated),
+                                     ("truncated", state.truncated, ref.truncated),
+                                     ("qpos", state.physics["qpos"], ref.physics["qpos"]),
+                                     ("qvel", state.physics["qvel"], ref.physics["qvel"])):
+                err = (got[rows].double() - want.double()).abs().max().item()
+                errs[field] = max(errs.get(field, 0.0), err)
+        torch.cuda.synchronize()
+        if max(errs.values()) > 1e-5:
+            fail(f"{path}: seed 1's rows of the {seeds}-seed env against its one-seed env {errs} beyond 1e-5")
+        print(f"parallel seeds {path} env: 8 eval-mode steps of {seeds} x {nr_envs} envs, seed 1's rows against the "
+              f"one-seed env at seed_for(5, 1): max|err| " + json.dumps(errs)
+              + (" (bit for bit)" if max(errs.values()) == 0.0 else ""))
+
+        # B2 at the folded shape: the 4-seed env's own DomainParams and
+        # delayed targets, on the envs the last step did not reset.  After
+        # 8 eval-mode steps the stiff contacts leave the f32 plain version
+        # itself up to ~5e-4 from the float64 one in a few of the 4096 envs,
+        # and the kernel's rounding as far in others, so the two f32
+        # versions part by more than 1e-4 there: the kernel is held against
+        # the float64 plain version at twice the f32 plain version's own
+        # max |err| (the kernel as accurate as the plain f32 version), and
+        # its max |err| against the f32 plain version is reported
+        internal = state.physics["internal"]
+        action = 2.0 * torch.rand(seeds * nr_envs, env.nr_actuator_joints, device=dev, generator=g) - 1.0
+        delayed, _ = env.action_delay.delay_action(action, internal)
+        targets = env.control_function.process_action(delayed, internal).contiguous()
+        args = (env.model, state.physics["qpos"], state.physics["qvel"], targets[0])
+        kw = dict(nr_substeps=env.nr_substeps, dr=env._domain_params(internal), ctrl_sequence=targets,
+                  contact_state=state.physics["contact_anchor"])
+        kept = ~(state.terminated | state.truncated)
+        out, ref_out = step_cuda(*args, **kw), engine.step_reference(*args, **kw)
+        to64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+        ref64 = engine.step_reference(
+            env.model, *(to64(a) for a in args[1:]), nr_substeps=env.nr_substeps,
+            dr=type(kw["dr"])(*(to64(f) for f in kw["dr"])), ctrl_sequence=to64(targets),
+            contact_state=to64(kw["contact_state"]))
+        torch.cuda.synchronize()
+        B = seeds * nr_envs
+        robot = env.env_config.robot
+        worst = lambda outs: max((o[kept].double() - r[kept]).abs().max().item() for o, r in zip(outs, ref64))
+        kernel64, plain64 = worst(out), worst(ref_out)
+        if not (all(torch.isfinite(o[kept]).all() for o in out) and kernel64 <= 2.0 * plain64):
+            fail(f"substep ({robot}, {seeds} seeds x {nr_envs}): max|err| {kernel64:.3g} against the float64 plain "
+                 f"version, beyond twice the f32 plain version's {plain64:.3g}")
+        err = max((o[kept] - r[kept]).abs().max().item() for o, r in zip(out, ref_out))
+        model = env.model
+        nbytes = (substep_bytes(model, B, with_anchors=True)
+                  + 4 * (targets.numel() - B * len(model.act_dof))
+                  + 4 * sum(f.numel() for f in kw["dr"] if f is not None))
+        t = kernel_times(lambda: step_cuda(*args, **kw), lambda: engine.step_reference(*args, **kw),
+                         "engine_substep_kernel", reps=50, plain_reps=3)
+        t["bound_ms"], t["bound_by"] = roofline(nbytes, substep_flops(model, dr=True) * B * env.nr_substeps)
+        kernels[1]["by_shape"] = {**kernels[1].get("by_shape", {}),
+                                  f"{robot} B={B} ({path} PPO-LSTM, {seeds} seeds x {nr_envs})": {
+                                      **t, "max_abs_err": err, "max_abs_err_float64": kernel64,
+                                      "plain_max_abs_err_float64": plain64}}
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+        print(f"B2 engine_substep on the {robot} at B={B} ({seeds} seeds x {nr_envs}), {env.nr_substeps} substeps, "
+              f"over the {int(kept.sum())} envs not just reset: max|err| {err:.3g} against engine.step_reference, "
+              f"{kernel64:.3g} against it in float64, where the f32 plain version stands {plain64:.3g} from it (limit "
+              f"twice that); kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a "
+              f"call) plain {t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        del env, single, state, ref, args, kw, out, ref_out
+    return rates
 
 
 def main():
@@ -2740,15 +2977,10 @@ def main():
     seed_mean_tol, seed_share_tol, seed_max_tol = 1e-6, 1e-2, 1e-3
     for name, overrides in (("flashsac", {"algorithm.batch_size": 128}),
                             ("redq", {"algorithm.batch_size": 128, "algorithm.q_update_steps": 10})):
-        small43 = {"runner.device": "cuda", "environment.nr_envs": 64, "algorithm.learning_starts": 64,
-                   "algorithm.total_timesteps": 64 * 5, "algorithm.logging_frequency": 64 * 4,
-                   "algorithm.evaluation_active": False, "algorithm.logging_active": False,
-                   "environment.initial_state_noise": 0.1, **overrides}
-        three = create_model(make_config(f"{name}.cuda", "locomotion.ant.cuda", **small43, **{
-            "algorithm.nr_parallel_seeds": 3, "environment.seed": 3}))
+        three, one = seed_one_of_three(name, "locomotion.ant.cuda", {
+            "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 5,
+            "algorithm.logging_frequency": 64 * 4, "environment.initial_state_noise": 0.1, **overrides}, "cuda")
         run_training_program(three)
-        one = create_model(make_config(f"{name}.cuda", "locomotion.ant.cuda", **small43, **{
-            "environment.seed": parallel_seeds.seed_for(3, 1)}))
         one.train()
         torch.cuda.synchronize()
 
@@ -2781,6 +3013,27 @@ def main():
               f"1e-5 {got['share_beyond_1e-5']:.3g} (limit {seed_share_tol}); seed 2 against the same run: mean "
               f"{control.mean().item():.3g}")
         del three, one
+
+    # suspect C3: REDQ's seed 1 of 3 in float64 on the Pendulum, FlashSAC's
+    # first gradients in f32 (B3 takes f32 only); rounding amplified by
+    # Adam leaves the first at ~1e-12 and the second at f32 rounding
+    t0 = time.perf_counter()
+    c3 = c3_checks("cuda")
+    if not c3["redq_float64_max_abs_err"] <= 1e-9:
+        fail(f"C3: REDQ's seed 1 of 3 in float64 is {c3['redq_float64_max_abs_err']:.3g} from its one-seed run")
+    for name in ("policy", "alpha"):
+        if not c3[f"flashsac_first_{name}_grad_rel_err"] <= 1e-5:
+            fail(f"C3: FlashSAC's first {name} gradients of seed 1 of 3 are "
+                 f"{c3[f'flashsac_first_{name}_grad_rel_err']:.3g} (relative) from its one-seed run's")
+        if not c3[f"flashsac_first_{name}_grad_seed2_rel_err"] >= 1e-3:
+            fail(f"C3: FlashSAC's first {name} gradients of seed 2 stand near seed 1's one-seed run's")
+    print(f"C3: REDQ seed 1 of 3 in float64 on the Pendulum after 4 learning steps (10 critic updates each) against "
+          f"its one-seed run: max|err| {c3['redq_float64_max_abs_err']:.3g} over {c3['redq_float64_values']} values "
+          f"(limit 1e-9); FlashSAC seed 1 of 3 on the Ant (f32), the first update's gradients against the one-seed "
+          f"run's, max|err| / max|grad|: policy {c3['flashsac_first_policy_grad_rel_err']:.3g}, alpha "
+          f"{c3['flashsac_first_alpha_grad_rel_err']:.3g} (before any Adam step; limit 1e-5), critic "
+          f"{c3['flashsac_first_critic_grad_rel_err']:.3g} (after the policy's first step); seed 2 against the same "
+          f"run: policy {c3['flashsac_first_policy_grad_seed2_rel_err']:.3g}; {time.perf_counter() - t0:.1f} s")
 
     # B3 at FastSAC's and FlashSAC's 4-seed shapes, B2 at the 4 x 1024 envs
     for label, (n, v_lo, v_hi, gamma) in {
@@ -2815,6 +3068,13 @@ def main():
           f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain "
           f"{t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
     print(f"phase 43 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 44. parallel seeds on the robot and soccer envs: 4-seed PPO-LSTM on the
+    # plane quadruped and on soccer at 4 x 1024 envs x 32 steps
+    phase_t0 = time.perf_counter()
+    rows44 = robot_parallel_seeds(kernels, launches_by_path)
+    print("parallel seeds, robot and soccer: " + json.dumps(rows44))
+    print(f"phase 44 took {time.perf_counter() - phase_t0:.1f} s")
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

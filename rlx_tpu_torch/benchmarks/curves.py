@@ -14,12 +14,18 @@
     python -m rlx_tpu_torch.benchmarks.curves pixel_chase_dqn pixel_chase_dqn_stack1 --seeds 0 1 2
     python -m rlx_tpu_torch.benchmarks.curves hopper_ppo --seeds 1 2 3
     python -m rlx_tpu_torch.benchmarks.curves dmc_walker_walk_sac --seeds 1 2 3
+    python -m rlx_tpu_torch.benchmarks.curves pendulum_spot_sac --parallel-seeds 3 --seeds 0 \
+        --out chiprun_out/pendulum_spot_sac_parallel3_seed0.json
 
 Each recipe is the JAX package's (``benchmarks/curves.py``): the same
 budget, evaluation points, overrides and threshold (an on-policy run's evaluation
 interval rounded down to a multiple of its rollout batch, as there), so the
 outcome reads against ``benchmarks/results/<name>.json``.  Each seed trains on its own in
-turn; its final return is the mean of its last three evaluations of the
+turn, or with ``--parallel-seeds N`` the N seeds ``seed_for(seed, s)`` of the
+one ``--seeds`` value train as one program (the JAX package's flag; its
+record carries ``"parallel_seeds": N`` and the shared wall time, and is
+kept beside the one-seed records, as ``<name>_parallel<N>_seed<seed>.json``);
+a seed's final return is the mean of its last three evaluations of the
 recipe's metric (the episode return, or for the locomotion family the
 episode's velocity tracking, ``eval/episode_tracking``), and the
 check passes when every seed's final return clears the threshold (or, for a
@@ -252,7 +258,9 @@ for name in ("dqn", "ddqn", "dqn_hl_gauss"):
     RUNS[f"cartpole_spot_{name}"]["overrides"]["algorithm.epsilon_decay_steps"] = 200_000
 
 
-def run_seed(spec, seed):
+def _train(spec, seed, **extra):
+    """Train the recipe from ``environment.seed = seed`` (``extra`` overrides
+    on top): (model, eval history, wall s of ``train()``)."""
     from rlx_tpu_torch.config import create_model, make_config
 
     budget, overrides, device = spec["budget"], spec["overrides"], spec.get("device", "cuda")
@@ -274,24 +282,48 @@ def run_seed(spec, seed):
         "algorithm.evaluation_active": True,
         "algorithm.logging_active": False,
         "environment.seed": seed,
+        **extra,
     })
     model = create_model(config)
     start = time.perf_counter()
     model.train()
     if device == "cuda":
         torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
     model.train_env.close()
     model.eval_env.close()
-    history = model.eval_history
-    returns = [float(r) for r in history[spec.get("metric", "eval/episode_return")]]
+    return model, model.eval_history, wall_s
+
+
+def _curve(spec, seed, steps, returns, wall_s):
+    returns = [float(r) for r in returns]
     return {
         "seed": seed,
         "metric": spec.get("metric", "eval/episode_return"),
-        "steps": [int(s) for s in history["steps"]],
+        "steps": [int(s) for s in steps],
         "returns": returns,
         "final_return": sum(returns[-3:]) / len(returns[-3:]),
-        "wall_s": time.perf_counter() - start,
+        "wall_s": wall_s,
     }
+
+
+def run_seed(spec, seed):
+    _, history, wall_s = _train(spec, seed)
+    return _curve(spec, seed, history["steps"], history[spec.get("metric", "eval/episode_return")], wall_s)
+
+
+def run_parallel_seeds(spec, seed, nr_seeds):
+    """``nr_seeds`` seeds trained as ONE program (``algorithm.nr_parallel_seeds``,
+    with the JAX package's overrides: logging, saving and the chunked program
+    off), seed s being the one-seed run at ``seed_for(seed, s)``: one curve
+    per seed from its row of ``eval_history``, each with the shared wall
+    time."""
+    from rlx_tpu_torch.algorithms.parallel_seeds import seed_for
+
+    _, history, wall_s = _train(spec, seed, **{
+        "algorithm.nr_parallel_seeds": nr_seeds, "runner.save_model": False, "runner.chunked_train": False})
+    returns = history[spec.get("metric", "eval/episode_return")]
+    return [_curve(spec, seed_for(seed, s), history["steps"], returns[s], wall_s) for s in range(nr_seeds)]
 
 
 def passes(spec, final_return):
@@ -300,14 +332,39 @@ def passes(spec, final_return):
     return final_return >= spec["threshold"]
 
 
+def record(name, spec, seeds, card, parallel_seeds=1):
+    """The record of one recipe's seeds: each seed's curve, final return and
+    pass, and with parallel seeds the program's seed count and shared wall
+    time."""
+    device = spec.get("device", "cuda")
+    result = {
+        "name": name, "algorithm": spec["algorithm"], "environment": spec["environment"],
+        "budget": spec["budget"], "threshold": spec["threshold"], "device": device,
+        "card": card if device == "cuda" else None, "torch_threads": torch.get_num_threads(),
+        "seeds": seeds,
+        "expect": spec.get("expect", "above"),
+        "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],
+    }
+    if parallel_seeds > 1:
+        result["parallel_seeds"] = parallel_seeds
+        result["wall_s"] = seeds[0]["wall_s"]
+    result["passed"] = all(result["per_seed_passed"])
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("names", nargs="+", choices=sorted(RUNS), metavar="name")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    parser.add_argument("--parallel-seeds", type=int, default=1, metavar="N",
+                        help="train N seeds as one program (algorithm.nr_parallel_seeds) from the first of --seeds, "
+                             "seed s at seed_for(seed, s)")
     parser.add_argument("--out", default=None, help="the record's path (one recipe)")
     args = parser.parse_args(argv)
     if args.out and len(args.names) > 1:
         parser.error("--out takes the record of one recipe")
+    if args.parallel_seeds > 1 and len(args.seeds) > 1:
+        parser.error("--parallel-seeds takes one --seeds value: the run's seed")
     card = None
     if any(RUNS[name].get("device", "cuda") == "cuda" for name in args.names):
         if not torch.cuda.is_available():
@@ -316,17 +373,11 @@ def main(argv=None):
                               capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     for name in args.names:
         spec = RUNS[name]
-        seeds = [run_seed(spec, seed) for seed in args.seeds]
-        device = spec.get("device", "cuda")
-        result = {
-            "name": name, "algorithm": spec["algorithm"], "environment": spec["environment"],
-            "budget": spec["budget"], "threshold": spec["threshold"], "device": device,
-            "card": card if device == "cuda" else None, "torch_threads": torch.get_num_threads(),
-            "seeds": seeds,
-            "expect": spec.get("expect", "above"),
-            "per_seed_passed": [passes(spec, s["final_return"]) for s in seeds],
-        }
-        result["passed"] = all(result["per_seed_passed"])
+        if args.parallel_seeds > 1:
+            seeds = run_parallel_seeds(spec, args.seeds[0], args.parallel_seeds)
+        else:
+            seeds = [run_seed(spec, seed) for seed in args.seeds]
+        result = record(name, spec, seeds, card, args.parallel_seeds)
         print(json.dumps(result))
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -17,14 +17,17 @@ the asymmetric ``policy_observation_indices`` /
 ``critic_observation_indices`` follow the JAX package.  Every random draw
 comes from the env state's ``torch.Generator`` in the JAX package's
 program order, and ``reset`` / ``step`` take any other ``Draws`` in its
-place (``draws.py``).  The model is read from the robot's ``.npz``
+place (``draws.py``).  With parallel seeds the env holds ``S * N`` envs,
+seed-major, and the state S generators: seed s's rows draw from its own,
+so they step as its one-seed env of N envs (the curriculum, terrain and
+randomization state are per env already).  The model is read from the robot's ``.npz``
 (``robots/configs.py``), so the env needs no MuJoCo bindings.
 """
 
 import numpy as np
 import torch
 
-from rlx_tpu_torch.environments.env import EnvState
+from rlx_tpu_torch.environments.env import EnvState, make_generator
 from rlx_tpu_torch.environments.locomotion.robot.cuda import components as comp
 from rlx_tpu_torch.environments.locomotion.robot.cuda import randomization as dr
 from rlx_tpu_torch.environments.locomotion.robot.cuda.draws import GeneratorDraws
@@ -53,6 +56,10 @@ def einsum(equation, *operands):
 
 
 class LocomotionEnv:
+    # every draw goes through a Draws whose rows come from each seed's own
+    # generator (draws.py): an env of S * N envs runs S seeds
+    parallel_seeds = True
+
     def __init__(self, env_config, nr_envs, device="cuda"):
         self.env_config = env_config
         self.nr_envs = nr_envs
@@ -278,9 +285,11 @@ class LocomotionEnv:
     # --- protocol --------------------------------------------------------------
 
     def reset(self, seed, eval_mode=False, draws=None):
-        """``draws`` (a ``Draws``) replaces the new generator's draws."""
+        """``seed`` is one seed, or with parallel seeds a list of S (seed
+        s's ``nr_envs // S`` rows from its own generator); ``draws`` (a
+        ``Draws``) replaces the new generators' draws."""
         B, dev = self.nr_envs, self.device
-        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        generator = make_generator(seed, dev)
         if draws is None:
             draws = GeneratorDraws(generator, dev)
 

@@ -420,3 +420,34 @@ def test_curve_recipes_match_jax():
     assert {f"pendulum_spot_{n}" for n in ("fastsac", "flashsac", "redq", "droq", "aqe", "tqc", "simba", "xqc",
                                            "simbav2", "crossq", "bro", "mpo", "fastmpo", "espo", "ppo_dtrl",
                                            "reppo")} <= set(RUNS)
+
+
+def test_curves_parallel_seeds_are_the_one_seed_runs():
+    """``curves.py --parallel-seeds 2`` on a tiny Pendulum SAC recipe (the
+    JAX package's flag): one curve per seed, seed s's equal to ``run_seed``
+    at ``seed_for(seed, s)`` within 1e-4, and a record with the seed count,
+    each seed's final return and pass, and the shared wall time."""
+    from rlx_tpu_torch.algorithms.parallel_seeds import seed_for
+    from rlx_tpu_torch.benchmarks import curves
+
+    spec = {
+        "algorithm": "sac.cuda", "environment": "classic.pendulum.cuda", "device": "cpu",
+        "budget": 256, "threshold": -2000.0, "eval_points": 2,
+        "overrides": {"environment.nr_envs": 4, "environment.horizon": 32, "algorithm.learning_starts": 64,
+                      "algorithm.batch_size": 16, "algorithm.buffer_size": 256, "algorithm.logging_frequency": 64,
+                      "algorithm.policy_hidden_sizes": (16, 16), "algorithm.critic_hidden_sizes": (16, 16)},
+    }
+    seed = 5
+    seeds = curves.run_parallel_seeds(spec, seed, 2)
+    assert [c["seed"] for c in seeds] == [seed_for(seed, 0), seed_for(seed, 1)]
+    for curve in seeds:
+        one = curves.run_seed(spec, curve["seed"])
+        assert curve["steps"] == one["steps"] and len(one["steps"]) == 2
+        np.testing.assert_allclose(curve["returns"], one["returns"], rtol=1e-4, atol=1e-4, err_msg=str(curve["seed"]))
+        np.testing.assert_allclose(curve["final_return"], one["final_return"], rtol=1e-4, atol=1e-4)
+    assert seeds[0]["returns"] != seeds[1]["returns"]
+    result = curves.record("tiny", spec, seeds, None, parallel_seeds=2)
+    assert result["parallel_seeds"] == 2 and result["wall_s"] == seeds[0]["wall_s"] == seeds[1]["wall_s"] > 0
+    assert result["per_seed_passed"] == [c["final_return"] >= -2000.0 for c in seeds]
+    assert result["passed"] == all(result["per_seed_passed"])
+    assert [c["final_return"] for c in result["seeds"]] == [c["final_return"] for c in seeds]

@@ -14,7 +14,8 @@ parity of single updates is in ``test_torch_parallel_seeds_parity.py``):
   seeds differ, and logging, saving and the chunked program refuse S > 1;
 - every registered family builds at S = 2 (never ``KeyError``, none
   raises ``NotImplementedError`` any more), and an env either runs
-  parallel seeds or raises naming the ROADMAP item;
+  parallel seeds (every device env, the robot and soccer included) or, a
+  host env, raises naming the ROADMAP item;
 - per-seed running statistics: seed-stacked BatchRenorm and BatchNorm under
   ``ParallelSeeds.map`` give each seed the batch statistics of its own rows;
 - the pieces: per-seed env draws, ``seed_for``, the per-seed clip and the
@@ -263,12 +264,13 @@ def test_every_family_runs_or_refuses():
         assert model.parallel.nr_seeds == 2 and model.train_env.nr_envs == 8, algorithm
 
 
-@pytest.mark.parametrize("environment", ["locomotion.robot.cuda", "locomotion.soccer.cuda", "native.pendulum.host"])
+@pytest.mark.parametrize("environment", ["native.pendulum.host"])
 def test_envs_without_per_seed_draws_refuse(environment):
+    """The host envs are the only ones left that refuse S > 1."""
     config = make_config("ppo.cuda", environment, **{
         "runner.device": "cpu", "algorithm.nr_parallel_seeds": 2, "algorithm.logging_active": False,
         "environment.nr_envs": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 19c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 19e"):
         create_env(config)
 
 
@@ -282,11 +284,16 @@ def _randomized(env):
     ("locomotion.ant.cuda", {"environment.initial_state_noise": 0.1, "environment.perturbation_chance": 0.5}, None),
     (PENDULUM, {}, None), (CARTPOLE, {}, None), (PENDULUM, {"environment.mask_velocity": True}, None),
     ("classic.pixel_grid.cuda", {}, None), ("classic.pixel_chase.cuda", {}, None), (PENDULUM, {}, _randomized),
+    # the robot's every draw (terrain, randomization, commands, pushes,
+    # noise, initial state; the soccer gait) per seed
+    ("locomotion.robot.cuda", {"environment.terrain.type": "plane"}, None), ("locomotion.robot.cuda", {}, None),
+    ("locomotion.soccer.cuda", {}, None),
 ])
 def test_env_rows_of_a_seed_are_its_one_seed_env(environment, overrides, wrap):
     """An env of S * N envs reset with S seeds steps seed s's rows as the
     env of N envs reset with seed s's seed, under the same actions (the
-    randomization wrapper's noise and delays included)."""
+    randomization wrapper's noise and delays included; the robot on its
+    plane and its default heightfield, and soccer)."""
     seeded = lambda S: make_config("ppo.cuda", environment, **{
         **overrides, "runner.device": "cpu", "environment.nr_envs": 3, "algorithm.nr_parallel_seeds": S,
         "algorithm.logging_active": False})
@@ -301,8 +308,10 @@ def test_env_rows_of_a_seed_are_its_one_seed_env(environment, overrides, wrap):
     assert torch.equal(state.observation, torch.cat([st.observation for st in states]))
     rng = np.random.default_rng(0)
     nr_actions = getattr(env.single_action_space, "n", None)
-    # the Ant's plain engine is slow on the CPU: its 4 steps each draw kicks
-    for _ in range(4 if "ant" in environment else 12):
+    # the plain engine is slow on the CPU: the Ant's 4 steps each draw
+    # kicks, the robots' draw pushes and in-episode randomization
+    locomotion = environment.startswith("locomotion.")
+    for _ in range(4 if locomotion else 12):
         if nr_actions is not None:
             action = torch.tensor(rng.integers(0, nr_actions, size=6), dtype=torch.int32)
         else:
@@ -311,11 +320,12 @@ def test_env_rows_of_a_seed_are_its_one_seed_env(environment, overrides, wrap):
         state = env.step(state, action)
         states = [single.step(st, action[3 * s:3 * s + 3]) for s, st in enumerate(states)]
         for field in ("observation", "reward", "terminated", "truncated"):
-            # the Ant's plain engine solves its batch at once, so 6 envs and
-            # 3 round apart in the last bits, which its contacts amplify over
-            # the steps (a draw of another seed's would be off by ~0.1); the
-            # classic envs are exact
-            tol = 1e-4 if "ant" in environment else 0.0
+            # the plain engine solves its batch at once, so 6 envs and 3
+            # round apart in the last bits, which the Ant's contacts amplify
+            # over the steps (a draw of another seed's would be off by
+            # ~0.1; the robots' rows stay within ~3e-7); the classic envs
+            # are exact
+            tol = (1e-4 if "ant" in environment else 1e-5) if locomotion else 0.0
             torch.testing.assert_close(getattr(state, field), torch.cat([getattr(st, field) for st in states]),
                                        rtol=tol, atol=tol, msg=lambda m: f"{field}: {m}")
 
