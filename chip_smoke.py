@@ -189,8 +189,8 @@ Phases (each prints one line; any failure exits nonzero):
     steps, minibatch 64, 10 epochs, (256, 256)): 2 iterations each, B1
     exactly 2; the same on ``classic.pendulum.cuda``; for the bridge's
     cost each Pendulum's rollout timed alone and one more iteration's
-    device idle share, the host Pendulum's iteration also profiled (``ppo/``
-    spans, top kernels); B1 against
+    device idle share (the host Pendulum's ``ppo/`` span profile, ~50 s
+    of event parsing, was cut when phases 45-46 came in); B1 against
     its plain version at [256, 8] on each host path's inputs;
 40. C51 on ``native.cart_pole.host`` at the ``cartpole_spot_c51`` recipe
     and FastTD3 on ``native.pendulum.host`` at ``pendulum_spot_fasttd3``'s:
@@ -240,7 +240,30 @@ Phases (each prints one line; any failure exits nonzero):
     shapes with the env's own DomainParams against ``step_reference`` in
     float64, within twice the f32 plain version's own max |err| (the two
     f32 versions part by up to ~5e-4 in a few envs there, both as far from
-    float64).
+    float64);
+45. rendering's device half (``render_device_half``): PPO's
+    ``render/offscreen.rollout_qpos`` on the Ant at 64 envs x 50 steps on
+    the card, through B2 (exactly 50 launches), against the CPU rollout of
+    the same parameters (env 0's poses, f32, max |err| printed and held
+    within 1e-4); the frames
+    are rendered only where ``mujoco`` imports (the line says which half
+    ran);
+46. the dp mesh (``mesh_phase``, ``rlx_tpu_torch/benchmarks/mesh_phase.py``):
+    2 gloo ranks on the one card (NCCL refuses two ranks on one device):
+    PPO on the Ant at 2 x 2048 envs against 1 x 4096 (16 steps, f32
+    512/256/128 ELU+LayerNorm, shard-local off): the first update's
+    gradients as PPO's own ``_clip_gradients`` leaves them (averaged over
+    dp, clipped) within 1e-5 of the dp = 1 run's relative to their
+    largest, their norms before the clip within 1e-5 relative, and the
+    parameters after the iteration within 1e-5; the rank-step ms, the
+    gradients' all_reduce ms and both env-steps/s (the two ranks share one
+    card: a gain there is the host's two processes issuing launches, not
+    more card); SAC and FastTD3 at dp = 2 (2 x 512 envs, batch 8192),
+    every parameter equal on both ranks; B1, B2 and B3 launches per rank;
+    then a one-rank NCCL group: the PPO iteration's gradients through
+    NCCL's all_reduce and broadcast on the card, back bit for bit, and the
+    iteration equal bit for bit to the run with no group (a mesh of one
+    rank makes no collective: NCCL at dp > 1 needs a card a rank).
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -694,6 +717,122 @@ def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_st
               f"call) plain {t['plain_ms']:.2f} ms bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
         del env, single, state, ref, args, kw, out, ref_out
     return rates
+
+
+def render_device_half(launches_by_path, workdir, nr_envs=64, nr_steps=50):
+    """Phase 45: ``rollout_qpos`` of PPO (random flagship-width nets, f32) on
+    the Ant at ``nr_envs`` envs on the card, B2 exactly ``nr_steps``
+    launches, against the same parameters' rollout on the CPU; the frames
+    of the card's poses where ``mujoco`` imports."""
+    from rlx_tpu_torch.config import create_model, make_config
+    from rlx_tpu_torch.render.offscreen import render_qpos, rollout_qpos
+
+    overrides = {"environment.nr_envs": nr_envs, "algorithm.nr_steps": 8, "algorithm.minibatch_size": 64,
+                 "algorithm.policy_hidden_sizes": (512, 256, 128), "algorithm.critic_hidden_sizes": (512, 256, 128),
+                 "algorithm.activation": "elu", "algorithm.layer_norm": True}
+    model = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **overrides, **{"runner.device": "cuda"}))
+    cpu = create_model(make_config("ppo.cuda", "locomotion.ant.cuda", **overrides, **{"runner.device": "cpu"}))
+    with torch.no_grad():
+        # a head that moves the Ant (the orthogonal(0.01) head barely does)
+        model.policy.module.mean.weight.mul_(30.0)
+    cpu.policy.module.load_state_dict({k: v.cpu() for k, v in model.policy.module.state_dict().items()})
+    zero_counts()
+    t0 = time.perf_counter()
+    poses = rollout_qpos(model, nr_steps)
+    card_s = time.perf_counter() - t0
+    launches = counts()
+    expected = {"engine_substep": nr_steps, "gae": 0, "categorical_projection": 0}
+    if launches != expected:
+        fail(f"rollout_qpos on the card: launches {launches} != {expected}")
+    launches_by_path["render_rollout_qpos"] = launches
+    reference = rollout_qpos(cpu, nr_steps)
+    err = float(abs(poses - reference).max())
+    moved = float(abs(poses[-1, 7:] - poses[0, 7:]).max())
+    if poses.shape != (nr_steps, 15) or not (err <= 1e-4) or moved < 1e-2:
+        fail(f"rollout_qpos: shape {poses.shape}, max|err| {err:.3g} against the CPU (limit 1e-4), joints moved "
+             f"{moved:.3g}")
+    try:
+        import mujoco  # noqa: F401
+    except ImportError:
+        half = "device half only: mujoco is not installed here, no frames rendered"
+    else:
+        frames = render_qpos(model.eval_env.xml_path, poses[:5], os.path.join(workdir, "frames"), 96, 72)
+        half = f"both halves: {frames} frames rendered from the card's poses"
+    print(f"render: rollout_qpos of PPO on the Ant at {nr_envs} envs x {nr_steps} steps on the card in "
+          f"{card_s:.2f} s, B2 {launches['engine_substep']} launches; env 0's poses against the CPU rollout of the "
+          f"same parameters max|err| {err:.3g} (limit 1e-4, f32), joints moved up to {moved:.3g} rad; {half}")
+
+
+def mesh_phase(launches_by_path, workdir, world=2):
+    """Phase 46: ``rlx_tpu_torch.benchmarks.mesh_phase`` in ``world`` gloo
+    ranks on the one card, then in a one-rank NCCL group (subprocesses,
+    each with a time limit)."""
+    out = os.path.join(workdir, "mesh")
+    os.makedirs(out, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    command = [sys.executable, "-m", "rlx_tpu_torch.benchmarks.mesh_phase", "--out", out]
+    procs = [subprocess.Popen(command + ["--rank", str(r), "--world", str(world), "--init",
+                                         os.path.join(out, "rendezvous")], env=env) for r in range(world)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        fail(f"mesh ranks exited {codes}")
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(world)]
+    reference = ranks[0]["ppo_dp1"]
+    for key, what in (("first_gradient_rel_err", "first gradients after the clip, relative to their largest"),
+                      ("first_grad_norm_rel_err", "first gradient norms before the clip, relative"),
+                      ("param_err_after_iteration", "parameters after the iteration")):
+        if not reference[key] <= 1e-5:
+            fail(f"mesh: dp = 2's {what} {reference[key]:.3g} from dp = 1's (limit 1e-5)")
+    expected = {"ppo": {"engine_substep": 16, "gae": 1, "categorical_projection": 0},
+                "sac": {"engine_substep": 5, "gae": 0, "categorical_projection": 0},
+                "fasttd3": {"engine_substep": 5, "gae": 0, "categorical_projection": 4}}
+    for r, rank in enumerate(ranks):
+        for name, want in expected.items():
+            if rank[name]["launches"] != want:
+                fail(f"mesh rank {r} {name}: launches {rank[name]['launches']} != {want}")
+            if rank[name]["replicated_err"] != 0.0:
+                fail(f"mesh rank {r} {name}: parameters differ from rank 0's by {rank[name]['replicated_err']:.3g}")
+            launches_by_path[f"{name}_dp2_rank{r}"] = rank[name]["launches"]
+    ppo = ranks[0]["ppo"]
+    print(f"mesh: 2 gloo ranks on one card: PPO on the Ant at 2 x {ppo['rank_envs']} envs x 16 steps, the first "
+          f"update's gradients (PPO's own average and clip) {reference['first_gradient_rel_err']:.3g} from 1 x "
+          f"{2 * ppo['rank_envs']} envs' relative to their largest ({reference['largest_gradient']:.3g}), their norms "
+          f"before the clip {reference['first_grad_norm_rel_err']:.3g} relative, parameters "
+          f"{reference['param_err_after_iteration']:.3g} apart after the iteration (each limit 1e-5); rank-step "
+          f"{ppo['iteration_s'] * 1e3:.1f} ms ({ppo['env_steps_per_s']:.0f} env-steps/s for both ranks) against "
+          f"{reference['iteration_s'] * 1e3:.1f} ms for one rank ({reference['env_steps_per_s']:.0f}; the two ranks "
+          f"share one card: a difference is the host's two processes, not more card); the gradients' all_reduce "
+          f"({ranks[0]['all_reduce_mib']:.2f} MiB, "
+          f"gloo) {ranks[0]['all_reduce_ms']:.2f} ms; SAC and FastTD3 at 2 x {ranks[0]['sac']['rank_envs']} envs, "
+          f"batch 2 x {ranks[0]['sac']['rank_batch']}, parameters equal on both ranks; launches per rank "
+          + json.dumps({r: {n: ranks[r][n]["launches"] for n in expected} for r in range(world)}))
+
+    nccl_out = os.path.join(out, "nccl")
+    os.makedirs(nccl_out, exist_ok=True)
+    proc = subprocess.run([sys.executable, "-m", "rlx_tpu_torch.benchmarks.mesh_phase", "--out", nccl_out,
+                           "--nccl-one-rank", "--init", os.path.join(nccl_out, "rendezvous"), "--nr-envs", "1024"],
+                          env=env, timeout=300)
+    if proc.returncode:
+        fail(f"one-rank NCCL group exited {proc.returncode}")
+    nccl = json.load(open(os.path.join(nccl_out, "nccl.json")))
+    if (not nccl["bit_for_bit"] or nccl["backend"] != "nccl" or not nccl["all_reduce_equal"]
+            or not nccl["broadcast_equal"] or not nccl["collective_device"].startswith("cuda")):
+        fail(f"one-rank NCCL group: {nccl}")
+    launches_by_path["ppo_nccl_one_rank"] = nccl["launches"]
+    print(f"mesh: a one-rank NCCL group: the PPO iteration's gradients ({nccl['collective_mib']:.2f} MiB on "
+          f"{nccl['collective_device']}) through NCCL's all_reduce ({nccl['all_reduce_ms']:.3f} ms; the first, which "
+          f"sets NCCL up, {nccl['first_all_reduce_ms']:.1f} ms) and broadcast "
+          f"({nccl['broadcast_ms']:.3f} ms) back bit for bit; the iteration at 1024 envs x 16 steps ({nccl['mesh']}: "
+          f"a mesh of one rank makes no collective) equal bit for bit to the run with no group; launches "
+          f"{nccl['launches']}.  NCCL at dp > 1 needs a card a rank (torchrun), not run here")
 
 
 def main():
@@ -2527,7 +2666,8 @@ def main():
 
     # 39. PPO on native.pendulum.host and discrete PPO on native.cart_pole.host
     # at the hopper_ppo shape (8 envs x 256 steps, minibatch 64, 10 epochs,
-    # (256, 256)): 2 iterations each through B1, one more profiled; the same
+    # (256, 256)): 2 iterations each through B1, one more for the idle
+    # share; the same
     # on classic.pendulum.cuda in this call, so the bridge's cost reads
     # against the device env's; B1 against its plain version at [256, 8]
     # on each host path's inputs
@@ -2565,11 +2705,10 @@ def main():
             model.env_state = model._rollout(model.env_state)[0]
             torch.cuda.synchronize()
             host_ppo[label]["rollout_ms"] = (time.perf_counter() - t0) * 1e3
+            # (the host pendulum's spans and top kernels, profile_spans of one
+            # more iteration, ~50 s of event parsing, are left out since
+            # phases 45-46 came in: the idle share stays)
             host_ppo[label].update(device_idle(lambda: model.learning_iteration(model.env_state), "ppo/"))
-            if label == "native_pendulum":
-                profile = profile_spans(lambda: model.learning_iteration(model.env_state), "ppo/")
-                host_ppo[label]["host_spans_ms"] = profile["host_spans_ms"]
-                print(f"profile ppo_{label} (one iteration): " + json.dumps(profile))
             print(f"ppo_{label}: rollout alone {host_ppo[label]['rollout_ms']:.1f} ms (256 steps of 8 envs), one "
                   f"iteration {host_ppo[label]['wall_ms']:.1f} ms, device busy {host_ppo[label]['device_busy_ms']:.1f} "
                   f"ms, idle share {host_ppo[label]['device_idle_share']:.3f}")
@@ -3075,6 +3214,16 @@ def main():
     rows44 = robot_parallel_seeds(kernels, launches_by_path)
     print("parallel seeds, robot and soccer: " + json.dumps(rows44))
     print(f"phase 44 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 45. rendering's device half: rollout_qpos through B2 against the CPU
+    phase_t0 = time.perf_counter()
+    render_device_half(launches_by_path, workdir.name)
+    print(f"phase 45 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 46. the dp mesh: 2 gloo ranks on the one card, and a one-rank NCCL group
+    phase_t0 = time.perf_counter()
+    mesh_phase(launches_by_path, workdir.name)
+    print(f"phase 46 took {time.perf_counter() - phase_t0:.1f} s")
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

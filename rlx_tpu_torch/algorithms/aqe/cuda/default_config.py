@@ -1,7 +1,7 @@
 """AQE defaults (the JAX package's ``aqe.tpu`` values: SAC's and nr_critics=10,
-nr_dropped_q_values=4, q_update_steps=5; its ``shard_local_sampling`` key is
-left out with the mesh, so setting it raises ``KeyError``; ``nr_parallel_seeds``
-above 1 runs the seeds in one program)."""
+nr_dropped_q_values=4, q_update_steps=5; ``shard_local_sampling`` shapes the
+batch under a dp mesh, ``offpolicy.py``; ``nr_parallel_seeds`` above 1 runs
+the seeds in one program)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

@@ -1,9 +1,8 @@
-"""BRO defaults (the JAX package's ``bro.tpu`` values; its
-``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program). The
-BroNet widths are ``*_hidden_dim`` / ``*_nr_blocks``; ``*_hidden_sizes``,
-``log_std_*``, ``activation`` and ``layer_norm`` are kept as JAX keeps them,
-unread."""
+"""BRO defaults (the JAX package's ``bro.tpu`` values; ``shard_local_sampling``
+shapes the batch under a dp mesh, ``offpolicy.py``; ``nr_parallel_seeds``
+above 1 runs the seeds in one program). The BroNet widths are ``*_hidden_dim``
+/ ``*_nr_blocks``; ``*_hidden_sizes``, ``log_std_*``, ``activation`` and
+``layer_norm`` are kept as JAX keeps them, unread."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -46,5 +45,7 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        # dp > 1: batch row i reads env shard i % dp (False: uniform over all envs)
+        shard_local_sampling=True,
         nr_parallel_seeds=1,
     )

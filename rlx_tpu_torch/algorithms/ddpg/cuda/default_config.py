@@ -1,8 +1,8 @@
-"""DDPG defaults (the JAX package's ``ddpg.tpu`` values; its
-``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` (1 by default) trains that many seeds in
-one program, ``algorithms/parallel_seeds.py``). ``anneal_learning_rate`` is
-kept for the JAX package's command lines; DDPG does not read it there either."""
+"""DDPG defaults (the JAX package's ``ddpg.tpu`` values; ``shard_local_sampling``
+shapes the batch under a dp mesh, ``offpolicy.py``; ``nr_parallel_seeds`` (1
+by default) trains that many seeds in one program,
+``algorithms/parallel_seeds.py``). ``anneal_learning_rate`` is kept for the
+JAX package's command lines; DDPG does not read it there either."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -27,5 +27,7 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        # dp > 1: batch row i reads env shard i % dp (False: uniform over all envs)
+        shard_local_sampling=True,
         nr_parallel_seeds=1,
     )

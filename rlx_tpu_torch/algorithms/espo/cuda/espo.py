@@ -19,6 +19,11 @@ With parallel seeds each seed stops on its own: the loss and ``|ratio -
 1|``'s mean or median are per seed, and a stopped seed's Adam does not step
 (``parallel_seeds.masked_adam_step``: per-seed step counts and learning
 rates) while the others go on.
+
+On a dp mesh the batch is every rank's rows: the advantages are
+normalized over all of them, and the mean or the median of ``|ratio - 1|``
+is taken over all of them (the median of the rows gathered from every
+rank, ``gather_rows``), so every rank stops at the same epoch.
 """
 
 import torch
@@ -51,7 +56,7 @@ class ESPO(PPO):
     def _espo_loss(self, observations, actions, log_probs, returns, advantages):
         new_log_prob, entropy = self.policy.log_prob_entropy(observations, actions)
         ratio = torch.exp(new_log_prob - log_probs)
-        ratio_delta = self.delta_calc_operator(torch.abs(ratio - 1.0))
+        ratio_delta = self._ratio_delta(torch.abs(ratio - 1.0))
         pg_loss = torch.maximum(
             -advantages * ratio,
             -advantages * torch.clamp(ratio, 1.0 - self.clip_range, 1.0 + self.clip_range),
@@ -66,6 +71,14 @@ class ESPO(PPO):
             "loss/entropy_loss": entropy_loss,
             "policy_ratio/ratio_delta": ratio_delta,
         }
+
+    def _ratio_delta(self, deviation):
+        """``delta_calc_operator`` of ``|ratio - 1|`` over the global batch."""
+        if self.dp == 1:
+            return self.delta_calc_operator(deviation)
+        if self.delta_calc_operator is torch.mean:
+            return self.mesh.mean(deviation.mean())
+        return median(self.mesh.gather_rows(deviation.detach()))
 
     def _optimize_seeds(self, batch_arrays, epoch_indices=None):
         """``_optimize`` for every seed at once, each seed stopping on its own."""
@@ -106,9 +119,8 @@ class ESPO(PPO):
         if self.parallel is not None:
             return self._optimize_seeds(batch_arrays, epoch_indices)
         observations, actions, log_probs, returns, advantages = batch_arrays
-        advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
-        policy_params = list(self.policy.module.parameters())
-        critic_params = list(self.critic.parameters())
+        mean, var = self.mesh.global_mean_var(advantages)
+        advantages = (advantages - mean) / (torch.sqrt(var) + 1e-8)
         history = []
         active = True
         for _ in range(self.nr_epochs):
@@ -117,10 +129,7 @@ class ESPO(PPO):
             loss, ratio_delta, metrics = self._espo_loss(observations, actions, log_probs, returns, advantages)
             loss.backward()
             with torch.no_grad():
-                metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
-                    [p.grad for p in policy_params], self.max_grad_norm)
-                metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
-                    [p.grad for p in critic_params], self.max_grad_norm)
+                self._clip_gradients(metrics)
             metrics["policy_ratio/nr_active_epochs"] = torch.tensor(float(active), device=self.device)
             if active:
                 lr = self.learning_rate_at(self.nr_optimizer_steps)

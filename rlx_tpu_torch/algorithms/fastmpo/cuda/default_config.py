@@ -1,7 +1,7 @@
-"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC
-flavor of the recipe; its ``shard_local_sampling`` key is left out with the
-mesh, so setting it raises ``KeyError``; ``nr_parallel_seeds`` above 1 runs the
-seeds in one program)."""
+"""FastMPO defaults (the JAX package's ``fastmpo.tpu`` values, the FastSAC flavor
+of the recipe; ``shard_local_sampling`` shapes the batch under a dp mesh,
+``offpolicy.py``; ``nr_parallel_seeds`` above 1 runs the seeds in one
+program)."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -64,5 +64,7 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=False,
         logging_active=True,
+        # dp > 1: batch row i reads env shard i % dp (False: uniform over all envs)
+        shard_local_sampling=True,
         nr_parallel_seeds=1,
     )

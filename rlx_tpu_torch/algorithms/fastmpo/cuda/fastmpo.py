@@ -91,6 +91,8 @@ class FastMPO(MPO):
         total = self.nr_critic_updates_per_step * self.batch_size
         if self.parallel is not None:
             return self._sample_seeds(buffer, total)
+        if self.dp > 1:
+            return self._sample_dp(buffer, total, None, None)
         if self.n_step > 1:
             return rb.sample_nstep(buffer, self.generator, total, self.n_step, self.gamma)
         return rb.sample(buffer, self.generator, total)
@@ -119,16 +121,24 @@ class FastMPO(MPO):
             batch = self.sample_batch(buffer)
         if self.parallel is not None and critic_noises is None:
             critic_noises, policy_noises = self.parallel.draw(self._update_draws)
+        if self.dp > 1 and critic_noises is None:
+            # this rank's batch rows of the dp = 1 run's normals
+            critic_noises, policy_noises = self._update_draws(self.generator)
+            B = self.batch_size
+            critic_noises = [self.batch_rows(n, 1) for n in critic_noises]
+            policy_noises = {i: torch.cat([self.batch_rows(n[:, :B], 1), self.batch_rows(n[:, B:], 1)], dim=1)
+                             for i, n in policy_noises.items()}
         next_obs_all, reward_all, terminated_all, discount_all = self._targets(batch)
         obs_all, action_all = batch["observation"], batch["action"]
         if self.normalize_obs:
             self.obs_normalizer = self._call()(
-                lambda state, o, n: normalizers.obs_normalizer_update(state, torch.cat([o, n], dim=0)),
+                lambda state, o, n: normalizers.obs_normalizer_update(
+                    state, torch.cat([o, n], dim=0), self.mesh if self.parallel is None else None),
                 self.obs_normalizer, obs_all, next_obs_all)
             obs_all, next_obs_all = self._call()(lambda o, n: (self._norm(o), self._norm(n)), obs_all, next_obs_all)
         n_up = self.nr_critic_updates_per_step
         seed_axis = 0 if self.parallel is None else 1
-        slices = [x.reshape(x.shape[:seed_axis] + (n_up, self.batch_size) + x.shape[seed_axis + 1:])
+        slices = [x.reshape(x.shape[:seed_axis] + (n_up, -1) + x.shape[seed_axis + 1:])
                   for x in (obs_all, next_obs_all, action_all, reward_all, terminated_all, discount_all)]
         critic_noises = critic_noises if critic_noises is not None else [None] * n_up
         policy_noises = policy_noises if policy_noises is not None else [None] * n_up

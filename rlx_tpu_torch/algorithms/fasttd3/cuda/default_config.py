@@ -1,6 +1,6 @@
-"""FastTD3 defaults (the JAX package's ``fasttd3.tpu`` values; its
-``shard_local_sampling`` key is left out with the mesh, and
-``anneal_learning_rate``, which FastTD3 never reads, is left out too).
+"""FastTD3 defaults (the JAX package's ``fasttd3.tpu`` values;
+``shard_local_sampling`` shapes the batch under a dp mesh, ``offpolicy.py``;
+``anneal_learning_rate``, which FastTD3 never reads, is left out).
 ``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
 ``algorithms/parallel_seeds.py``."""
 
@@ -37,5 +37,7 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        # dp > 1: batch row i reads env shard i % dp (False: uniform over all envs)
+        shard_local_sampling=True,
         nr_parallel_seeds=1,
     )

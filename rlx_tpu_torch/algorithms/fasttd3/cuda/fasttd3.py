@@ -52,7 +52,9 @@ class FastTD3(OffPolicyAlgorithm):
         self.policy_delay = a.nr_critic_updates_per_policy_update
         self.clipped_double_q = a.clipped_double_q_learning
         self.normalize_obs = a.enable_observation_normalization
-        self.noise_scales = torch.linspace(a.noise_std_min, a.noise_std_max, self.nr_envs, device=self.device)
+        # each env's exploration scale (a dp rank's rows of them)
+        self.noise_scales = self.mesh.rows(
+            torch.linspace(a.noise_std_min, a.noise_std_max, self.nr_envs, device=self.device))
 
         self.learning_rate_tensor = torch.tensor(self.learning_rate, device=self.device)
         # parameters are initialized on the CPU from the seed, then moved
@@ -112,11 +114,16 @@ class FastTD3(OffPolicyAlgorithm):
                                                        self.v_max, self.nr_atoms)
         return self._step(batch, step, target_dist, lambda fn, *xs: fn(*xs), global_norm)
 
+    batch_draw_dims = {"smoothing_noise": 0}
+
+    def update_draws(self, generator):
+        return {"smoothing_noise": torch.randn((self.batch_size, self.action_dim), generator=generator,
+                                               device=self.device)}
+
     def update_seeds(self, batch, step):
         """``update`` for every seed; one projection for all seeds' targets."""
         P = self.parallel
-        shape = (self.batch_size, self.action_dim)
-        noise = P.draw(lambda g: torch.randn(shape, generator=g, device=self.device))
+        noise = P.draw(lambda g: self.update_draws(g)["smoothing_noise"])
         with torch.no_grad():
             target_z, chosen_probs = self.seed_map(self._target_inputs, batch, noise)
             target_dist = P.split(categorical_projection_dense(P.merge(target_z), P.merge(chosen_probs), self.v_min,

@@ -107,12 +107,14 @@ class FlashSAC(SAC):
         self.critic = TrainState(critic, self._adam(critic))
         self.alpha = TrainState(alpha, self._adam(alpha), target=False)
         self.noise = {
-            "noise": torch.randn((self.nr_envs, self.action_dim), generator=self.generator, device=self.device),
+            # a dp rank's rows of every env's
+            "noise": self.mesh.rows(torch.randn((self.nr_envs, self.action_dim), generator=self.generator,
+                                                device=self.device)),
             "count": torch.zeros((), dtype=torch.int32, device=self.device),
             "n": torch.ones((), dtype=torch.int32, device=self.device),
         }
         if self.normalize_rewards:
-            self.reward_normalizer = normalizers.reward_normalizer_init(self.nr_envs, self.device)
+            self.reward_normalizer = normalizers.reward_normalizer_init(self.nr_envs // self.dp, self.device)
 
     def learning_rate_at(self, count):
         """optax's ``warmup_cosine_decay_schedule`` at an optimizer's step
@@ -142,7 +144,7 @@ class FlashSAC(SAC):
             return
         if fresh_noise is None:
             draws = self._pre_act_draws(self.generator)
-            fresh_noise, uniform = draws["fresh_noise"], draws["uniform"]
+            fresh_noise, uniform = self.mesh.rows(draws["fresh_noise"]), draws["uniform"]
         self.noise = self._next_noise(self.noise, fresh_noise, uniform)
 
     def _pre_act_draws(self, generator):
@@ -196,10 +198,17 @@ class FlashSAC(SAC):
         projection for all seeds' targets (kernel B3 at ``[S * batch,
         atoms]``)."""
         if policy_noise is None:
-            shape = (self.batch_size, self.action_dim)
-            policy_noise, target_noise = self.parallel.draw(lambda g: (
-                torch.randn(shape, generator=g, device=self.device), torch.randn(shape, generator=g, device=self.device)))
+            draws = self.parallel.draw(self.update_draws)
+            policy_noise, target_noise = draws["policy_noise"], draws["target_noise"]
         return self._update(batch, step, policy_noise, target_noise, self.seed_map, per_seed_global_norm)
+
+    batch_draw_dims = {"policy_noise": 0, "target_noise": 0}
+    env_row_states = {"noise": ("noise",), "reward_normalizer": ("g",)}
+
+    def update_draws(self, generator):
+        shape = (self.batch_size, self.action_dim)
+        return {"policy_noise": torch.randn(shape, generator=generator, device=self.device),
+                "target_noise": torch.randn(shape, generator=generator, device=self.device)}
 
     def _update(self, batch, step, policy_noise, target_noise, call, norm):
         """The update through ``call`` (``plain_call`` or ``seed_map``,

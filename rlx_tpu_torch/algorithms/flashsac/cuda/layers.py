@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rlx_tpu_torch.models.layers import ensemble_input, linear, orthogonal_, row
+from rlx_tpu_torch.models.layers import batch_mean_of, ensemble_input, linear, orthogonal_, row
 
 
 def _shape(nr, *shape):
@@ -50,6 +50,7 @@ class UnitLinear(nn.Module):
 
 class BatchNorm(nn.Module):
     running_buffers = ("mean", "var")
+    batch_mesh = None   # the dp mesh of the batch statistics (``set_batch_mesh``)
 
     def __init__(self, features, nr=None, momentum=0.99, eps=1e-5):
         super().__init__()
@@ -63,8 +64,8 @@ class BatchNorm(nn.Module):
     def forward(self, x, train):
         x = ensemble_input(x, self.nr)
         if train:
-            mean = x.mean(dim=-2)
-            var = torch.clamp((x * x).mean(dim=-2) - mean * mean, min=0.0)
+            mean = batch_mean_of(x, self.batch_mesh)
+            var = torch.clamp(batch_mean_of(x * x, self.batch_mesh) - mean * mean, min=0.0)
             self.pending = (mean.detach(), var.detach())
         else:
             mean, var = self.mean, self.var

@@ -184,8 +184,9 @@ class MPO(OffPolicyAlgorithm):
     def _step(self, state, grads):
         """Global-norm clip (each seed's by its own norm with parallel
         seeds), then the optimizer's step; returns the norm before the clip."""
+        self.mesh.all_reduce_mean_(list(grads))   # averaged over dp before the clip
         norm = clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=self.parallel is not None)
-        state.apply_gradients(grads)
+        state.apply_gradients(grads, reduced=True)
         return norm
 
     def _call(self):
@@ -348,10 +349,23 @@ class MPO(OffPolicyAlgorithm):
         the E-step's samples are each seed's from its generator, in that
         order, unless given."""
         if critic_noise is None:
-            critic_noise, estep_noise = self.parallel.draw(
-                lambda g: (self._noise((self.action_samples, self.batch_size, self.action_dim), g),
-                           self._noise((self.action_samples, 2 * self.batch_size, self.action_dim), g)))
+            draws = self.parallel.draw(self.update_draws)
+            critic_noise, estep_noise = draws["critic_noise"], draws["estep_noise"]
         return self.update(batch, step, critic_noise, estep_noise)
+
+    def update_draws(self, generator):
+        """The critic's samples ``[S, B, A]``, then the E-step's ``[S, 2B,
+        A]`` (the batch's states, then its next states)."""
+        return {"critic_noise": self._noise((self.action_samples, self.batch_size, self.action_dim), generator),
+                "estep_noise": self._noise((self.action_samples, 2 * self.batch_size, self.action_dim), generator)}
+
+    def local_update_draws(self, draws):
+        """This rank's batch rows: of the critic's samples, and of each half
+        of the E-step's."""
+        estep = draws["estep_noise"]
+        halves = (estep[:, :self.batch_size], estep[:, self.batch_size:])
+        return {"critic_noise": self.batch_rows(draws["critic_noise"], 1),
+                "estep_noise": torch.cat([self.batch_rows(h, 1) for h in halves], dim=1)}
 
     def general_properties():
         return GeneralProperties

@@ -61,8 +61,30 @@ the seeds (``seed_map``; ``plain_call`` is its one-seed counterpart, so one
 update serves both), runs a kernel between the mapped parts on the seeds'
 folded rows (``fold_seeds``) and steps the stacked optimizers.  Every
 family declares it; a class that does not raises ``NotImplementedError``
-at S > 1.  Not ported yet (a config that asks for it has no such key, so
-it raises): the device mesh.
+at S > 1.
+
+On a dp mesh (``parallel/mesh.py``: ``runner.mesh_dp``, one process per
+device) each rank steps its ``nr_envs / dp`` env rows and its replay holds
+only them (``nr_envs`` stays the global count: the sizing and every draw
+are the dp = 1 run's, each rank keeping its rows of the act's draws,
+``act_draws``, and of the prefill's random actions).  A batch of
+``batch_size`` rows is split over the ranks, ``batch_size / dp`` each:
+
+- ``shard_local_sampling`` (default, the JAX package's layout): batch row
+  ``i`` reads env shard ``i % dp`` at a global time index, and rank ``r``
+  takes the rows ``i % dp == r``, all its own (no communication);
+- otherwise the dp = 1 run's uniform sample: every rank draws the global
+  indices, reads the rows it owns, the rest zero, and an all_reduce sums
+  them into the whole batch, of which rank ``r`` keeps the ``r``-th slice.
+
+A family's draws inside an update are drawn whole (``update_draws``: the
+dp = 1 run's draws in its order, the function parallel seeds draw per
+seed) and each rank keeps its batch rows (``batch_rows``); gradients are averaged over dp in
+``TrainState.apply_gradients``, batch statistics (BatchRenorm, FlashSAC's
+BatchNorm) and the running observation and reward normalizers reduce over
+dp (``models/layers.set_batch_mesh``, ``ops/normalizers``), and the metrics
+and eval means are averaged over dp.  So with ``shard_local_sampling``
+off, dp = k equals dp = 1 up to the order of the reductions.
 """
 
 import math
@@ -81,10 +103,12 @@ from rlx_tpu_torch.algorithms.training_program import (
     eval_means, eval_reset_seed, run_training_program, train_reset_seed,
 )
 from rlx_tpu_torch.environments.types import ActionSpaceType
+from rlx_tpu_torch.models import layers
 from rlx_tpu_torch.models.mlp import observation_width
 from rlx_tpu_torch.models.policy_factory import image_shape
 from rlx_tpu_torch.ops import normalizers
 from rlx_tpu_torch.ops import replay_buffer as rb
+from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
@@ -188,11 +212,21 @@ class OffPolicyAlgorithm:
         self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
 
+        self.mesh = mesh_for(config, self.device)
+        self.dp = self.mesh.dp
+        self.shard_local_sampling = bool(a.get("shard_local_sampling", True))
+        if self.dp > 1 and self.batch_size % self.dp:
+            raise ValueError("batch_size must divide over the dp mesh axis")
         self.parallel = None
         if nr_seeds == 1:
             self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
             self.host_generator = torch.Generator().manual_seed(self.seed)
             self.setup_states()
+            for name in self.state_names:
+                state = getattr(self, name)
+                if isinstance(state, TrainState):
+                    state.mesh = self.mesh
+                    layers.set_batch_mesh([m for m in (state.module, state.target) if m is not None], self.mesh)
         else:
             self._setup_seed_states(ParallelSeeds(self.seed, nr_seeds, self.device))
         self.nr_train_resets = 0
@@ -233,6 +267,52 @@ class OffPolicyAlgorithm:
     def update_seeds(self, batch, step):
         """``update`` for all seeds at once; ``batch`` fields ``[S, B, ...]``."""
         raise NotImplementedError
+
+    def update_draws(self, generator):
+        """The draws of one ``update`` call, ``{keyword: tensor}``, whole (of
+        ``batch_size`` rows), in its order; a family that draws inside its
+        update defines it (with ``batch_draw_dims``)."""
+        return {}
+
+    # {keyword of update_draws: its batch axis}; the others are not split
+    batch_draw_dims = {}
+
+    # {dict state name: its keys that hold one row per env} (FlashSAC's held
+    # noise, the reward normalizer's running returns): on a dp mesh a rank
+    # holds its rows, and a checkpoint every rank's
+    env_row_states = {}
+
+    # --- dp mesh -----------------------------------------------------------
+    def _whole_env_rows(self, name, state):
+        rows = self.env_row_states.get(name, ())
+        if self.dp == 1 or not rows:
+            return state
+        return {k: self.mesh.gather_rows(v) if k in rows else v for k, v in state.items()}
+
+    def batch_rows(self, x, dim=0):
+        """This dp rank's rows of a whole batch's tensor (``batch_size`` rows
+        along ``dim``, or k batches one after another): rows ``i % dp ==
+        rank`` with shard-local sampling, else the rank's contiguous slice
+        of each batch."""
+        if self.dp == 1:
+            return x
+        if self.shard_local_sampling:
+            index = torch.arange(self.mesh.dp_rank, x.shape[dim], self.dp, device=x.device)
+            return x.index_select(dim, index)
+        dim = dim % x.ndim
+        k = x.shape[dim] // self.batch_size
+        batches = x.reshape(x.shape[:dim] + (k, self.batch_size) + x.shape[dim + 1:])
+        return self.mesh.rows(batches, dim + 1).reshape(x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+
+    def local_update_draws(self, draws):
+        """This rank's part of ``update_draws``' whole draws."""
+        return {k: self.batch_rows(v, self.batch_draw_dims[k]) if k in self.batch_draw_dims else v
+                for k, v in draws.items()}
+
+    def _update_dp(self, batch, step):
+        """``update`` on this rank's batch rows with its rows of the whole
+        draws (the dp = 1 run's)."""
+        return self.update(batch, step, **self.local_update_draws(self.update_draws(self.generator)))
 
     # --- parallel seeds ----------------------------------------------------
     def _setup_seed_states(self, parallel):
@@ -291,7 +371,7 @@ class OffPolicyAlgorithm:
         """``obs_normalizer`` after the rows ``observation`` (with parallel
         seeds each seed's after its own ``N`` of the ``S * N`` rows)."""
         if self.parallel is None:
-            return normalizers.obs_normalizer_update(self.obs_normalizer, observation)
+            return normalizers.obs_normalizer_update(self.obs_normalizer, observation, self.mesh)
         return self.parallel.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
                                  self.parallel.split(observation))
 
@@ -300,7 +380,7 @@ class OffPolicyAlgorithm:
         (per seed, as ``updated_obs_normalizer``)."""
         rows = (env_state.reward, env_state.terminated, env_state.truncated)
         if self.parallel is None:
-            return normalizers.reward_normalizer_update(self.reward_normalizer, *rows, self.gamma)
+            return normalizers.reward_normalizer_update(self.reward_normalizer, *rows, self.gamma, self.mesh)
         return self.parallel.map(lambda state, *xs: normalizers.reward_normalizer_update(state, *xs, self.gamma),
                                  {}, self.reward_normalizer, *(self.parallel.split(x) for x in rows))
 
@@ -313,6 +393,9 @@ class OffPolicyAlgorithm:
         return self.parallel.split(kernel(*(self.parallel.merge(x) for x in xs)))
 
     def _act(self, observation, step):
+        if self.parallel is None and self.dp > 1:
+            draws = {k: self.mesh.rows(v) for k, v in self.act_draws(self.generator).items()}
+            return self.act(observation, step=step, **draws)
         if self.parallel is None:
             return self.act(observation, step=step)
         P = self.parallel
@@ -347,7 +430,7 @@ class OffPolicyAlgorithm:
 
     # --- scaffolding -------------------------------------------------------
     def _make_buffer(self):
-        nr_env_rows = self.nr_envs * (1 if self.parallel is None else self.parallel.nr_seeds)
+        nr_env_rows = self.train_env.nr_envs
         return rb.create(self.capacity, nr_env_rows, {
             "observation": (self.os_shape, self.obs_store_dtype),
             "next_observation": (self.os_shape, self.obs_store_dtype),
@@ -373,12 +456,46 @@ class OffPolicyAlgorithm:
         with record_function(f"{self.name}/sample"), torch.no_grad():
             return self._sample(buffer)
 
-    def _sample(self, buffer):
+    def _sample(self, buffer, batch_size=None, t_idx=None, e_idx=None):
+        """A batch of ``batch_size`` (the config's unless given); on a dp mesh
+        this rank's rows of it (``t_idx`` / ``e_idx``: the whole batch's
+        indices, drawn unless given)."""
         if self.parallel is not None:
-            return self._sample_seeds(buffer)
+            return self._sample_seeds(buffer, batch_size)
+        batch_size = self.batch_size if batch_size is None else batch_size
+        if self.dp > 1:
+            return self._sample_dp(buffer, batch_size, t_idx, e_idx)
         if self.n_step > 1:
-            return rb.sample_nstep(buffer, self.generator, self.batch_size, self.n_step, self.gamma)
-        return rb.sample(buffer, self.generator, self.batch_size)
+            return rb.sample_nstep(buffer, self.generator, batch_size, self.n_step, self.gamma,
+                                   t0=t_idx, e_idx=e_idx)
+        return rb.sample(buffer, self.generator, batch_size, t_idx=t_idx, e_idx=e_idx)
+
+    def _sample_dp(self, buffer, batch_size, t_idx, e_idx):
+        high = max(buffer.size - self.n_step + 1, 1) if self.n_step > 1 else buffer.size
+        if t_idx is None:
+            t_idx = rb._randint(self.generator, high, batch_size, self.device)
+        first, last = self.mesh.rows_of_rank(self.nr_envs)
+        per_rank = last - first
+        if self.shard_local_sampling:
+            # row i reads env shard i % dp: this rank's rows are all its own
+            if e_idx is None:
+                local = rb._randint(self.generator, per_rank, batch_size, self.device)
+                e_idx = (torch.arange(batch_size, device=self.device) % self.dp) * per_rank + local
+            t_idx, e_idx = self.batch_rows(t_idx), self.batch_rows(e_idx) - first
+            return self._read(buffer, t_idx, e_idx)
+        if e_idx is None:
+            e_idx = rb._randint(self.generator, self.nr_envs, batch_size, self.device)
+        own = (e_idx >= first) & (e_idx < last)
+        rows = self._read(buffer, t_idx, torch.where(own, e_idx - first, 0))
+        whole = {k: self.mesh.all_reduce_sum(torch.where(own.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                                                         torch.zeros((), dtype=v.dtype, device=v.device)))
+                 for k, v in rows.items()}
+        return {k: self.batch_rows(v) for k, v in whole.items()}
+
+    def _read(self, buffer, t_idx, e_idx):
+        if self.n_step > 1:
+            return rb.sample_nstep(buffer, None, t_idx.shape[0], self.n_step, self.gamma, t0=t_idx, e_idx=e_idx)
+        return rb.sample(buffer, None, t_idx.shape[0], t_idx=t_idx, e_idx=e_idx)
 
     def _learning_step(self, buffer, env_state, step):
         """pre_act -> act -> env step -> store -> observe -> sample -> update
@@ -394,18 +511,23 @@ class OffPolicyAlgorithm:
             self.observe_transition(observation, env_state)
         if hasattr(self, "update_with_buffer"):
             with record_function(f"{self.name}/update"):
-                return env_state, self.update_with_buffer(buffer, step)
+                return env_state, self.mesh.mean_metrics(self.update_with_buffer(buffer, step))
         batch = self.sample_batch(buffer)
         with record_function(f"{self.name}/update"):
-            metrics = self.update(batch, step) if self.parallel is None else self.update_seeds(batch, step)
-        return env_state, metrics
+            if self.parallel is not None:
+                metrics = self.update_seeds(batch, step)
+            elif self.dp > 1:
+                metrics = self._update_dp(batch, step)
+            else:
+                metrics = self.update(batch, step)
+        return env_state, self.mesh.mean_metrics(metrics)
 
     def _random_action(self):
         """Uniform in [-1, 1], or in [0, nr_actions) for discrete actions
         (each seed's rows from its own generator)."""
         if self.parallel is not None:
             return self.parallel.merge(self.parallel.draw(self._random_action_of))
-        return self._random_action_of(self.generator)
+        return self.mesh.rows(self._random_action_of(self.generator))
 
     def _random_action_of(self, generator):
         if self.discrete:
@@ -430,7 +552,7 @@ class OffPolicyAlgorithm:
             env_state, metrics = self._learning_step(buffer, env_state, step_base + k)
             self.nr_updates += 1
             if self.logging_active:
-                means = {key: v.float().mean() for key, v in env_state.info.items()}
+                means = self.mesh.mean_metrics({key: v.float().mean() for key, v in env_state.info.items()})
                 means.update(metrics)
                 for key, v in means.items():
                     sums[key] = sums[key] + v.detach() if key in sums else v.detach()
@@ -506,7 +628,7 @@ class OffPolicyAlgorithm:
         dict state; with
         ``runner.save_optimizer_state``, ``{"full": ...}`` with the
         optimizers' state and the update count as well."""
-        states = {name: getattr(self, name) for name in self.state_names}
+        states = {name: self._whole_env_rows(name, getattr(self, name)) for name in self.state_names}
         if self.config.runner.save_optimizer_state:
             full = {name: state.state_dict() if isinstance(state, TrainState) else state
                     for name, state in states.items()}
@@ -534,12 +656,15 @@ class OffPolicyAlgorithm:
                         state.target.load_state_dict(tree[f"{name}_target"])
             else:
                 stored = (full if full is not None else tree)[name]
-                setattr(self, name, {k: v.to(self.device) for k, v in stored.items()})
+                rows = self.env_row_states.get(name, ())
+                setattr(self, name, {k: self.mesh.rows(v.to(self.device)) if k in rows else v.to(self.device)
+                                     for k, v in stored.items()})
         if full is not None:
             self.nr_updates = full["nr_updates"]
 
     def save(self, file_name="latest.model"):
-        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict(),
+                             mesh=self.mesh)
 
     @classmethod
     def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):

@@ -1,5 +1,6 @@
-"""PPO defaults (the JAX package's ``ppo.tpu`` values for the keys ported).
-``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
+"""PPO defaults (the JAX package's ``ppo.tpu`` values).
+``shard_local_minibatching`` (True) lets each dp rank permute its own rows
+under a dp mesh (``ppo.py``); ``nr_parallel_seeds`` (1 by default) trains that many seeds in one program,
 ``algorithms/parallel_seeds.py``."""
 
 from rlx_tpu_torch.utils.config_dict import ConfigDict
@@ -32,5 +33,7 @@ def get_config(algorithm_name):
         evaluation_and_save_frequency=-1,
         evaluation_active=True,
         logging_active=True,
+        # dp > 1: per-rank permutations, minibatch_size / dp rows a rank
+        shard_local_minibatching=True,
         nr_parallel_seeds=1,
     )

@@ -42,6 +42,26 @@ policy call over the ``S * N`` envs, the critic and GAE (B1) run once over
 normalization included, is a per-seed loss whose sum over seeds is
 differentiated; the gradients are clipped per seed.  The iteration's
 metrics are then ``[S]`` tensors.
+
+On a dp mesh (``parallel/mesh.py``, one process per device) each rank
+steps its ``nr_envs / dp`` rows of the envs, drawing its rows of the
+global action noise, and runs GAE (B1) on them.  The update, as the JAX
+package's (``rlx_tpu/algorithms/ppo/tpu/ppo.py``):
+
+- ``shard_local_minibatching`` (default): each rank flattens its rows
+  env-major and permutes them itself (``epoch_indices`` ``[nr_epochs, dp,
+  batch / dp]``, the global draw; a rank takes its own), taking
+  ``minibatch_size / dp`` rows a minibatch;
+- otherwise the batch is gathered (``gather_rows``), flattened step-major
+  and permuted as at dp = 1, and each rank takes its slice of every
+  minibatch, so dp = k equals dp = 1 up to the order of the reductions.
+
+Advantages are normalized over the global minibatch
+(``global_mean_var``), the gradients averaged over dp before the
+global-norm clip, and the metrics and eval means averaged over dp.  On a
+tp mesh the policy and the critic are split over tp
+(``parallel/partition.py``; the clip's norm sums the split parameters over
+tp) and a checkpoint holds the whole parameters and moments.
 """
 
 import math
@@ -51,6 +71,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.evaluation import collect_test_returns
 from rlx_tpu_torch.algorithms.parallel_seeds import (
     NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
@@ -66,6 +87,8 @@ from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models import distributions as D
 from rlx_tpu_torch.models.policy_factory import make_critic, make_policy
 from rlx_tpu_torch.ops.gae import gae_advantages
+from rlx_tpu_torch.parallel import partition
+from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
@@ -116,6 +139,13 @@ class PPO:
         self.continuous = train_env.general_properties.action_space_type == ActionSpaceType.CONTINUOUS
         if not self.continuous and train_env.single_action_space.n > 2**24:
             raise ValueError("discrete actions travel as one f32 column, exact only below 2**24 actions")
+        self.mesh = mesh_for(config, self.device)
+        self.dp = self.mesh.dp
+        if self.dp > 1 and self.minibatch_size % self.dp:
+            raise ValueError("minibatch_size must divide over the dp mesh axis")
+        # each dp rank permutes its own rows (the JAX package's
+        # shard-local minibatching; at dp = 1 the global permutation)
+        self.shard_local_minibatching = bool(a.get("shard_local_minibatching", True)) and self.dp > 1
 
         self.logger = MetricsLogger(config.runner.track_console, writer)
         rlx_logger.info(f"Using device: {self.device}")
@@ -134,6 +164,11 @@ class PPO:
             self.critic = stack_modules([b[1] for b in built])
         self.policy.module.to(self.device)
         self.critic.to(self.device)
+        if self.mesh.tp > 1:
+            if self.parallel is not None:
+                raise NotImplementedError("nr_parallel_seeds > 1 does not run on a tp mesh")
+            partition.shard_module_(self.policy.module, self.mesh)
+            partition.shard_module_(self.critic, self.mesh)
         self.policy_optimizer = torch.optim.Adam(
             self.policy.module.parameters(), lr=self.learning_rate, eps=1e-8
         )
@@ -175,9 +210,18 @@ class PPO:
         """(action, log-prob) of a rollout step; with parallel seeds each
         seed's noise comes from its own generator, drawn as its one-seed run
         draws it."""
-        if self.parallel is None:
+        if self.parallel is None and self.dp == 1:
             return self.policy.sample_and_log_prob(observation, self.generator)
         dtype = next(self.policy.module.parameters()).dtype
+        if self.parallel is None:
+            # this rank's rows of the global draw
+            if self.continuous:
+                shape = (self.nr_envs,) + tuple(self.train_env.single_action_space.shape)
+                noise = torch.randn(shape, generator=self.generator, device=self.device, dtype=dtype)
+            else:
+                shape = (self.nr_envs, self.train_env.single_action_space.n)
+                noise = D.gumbel_noise(torch.rand(shape, generator=self.generator, device=self.device, dtype=dtype))
+            return self.policy.sample_and_log_prob(observation, None, self.mesh.rows(noise))
         if self.continuous:
             shape = (self.nr_envs,) + tuple(self.train_env.single_action_space.shape)
             noise = self.parallel.draw(lambda g: torch.randn(shape, generator=g, device=self.device, dtype=dtype))
@@ -254,19 +298,31 @@ class PPO:
                 rewards, values, next_values, terminations, self.gamma, self.gae_lambda
             )
 
-        flat = lambda x: x.reshape((T * B,) + x.shape[2:])
+        flat = self._flat
         if self.parallel is not None:
             flat = self.parallel.split_time
         with record_function("ppo/update"):
             metrics = self._optimize(
                 (flat(observations), flat(actions), flat(log_probs), flat(returns), flat(advantages))
             )
-        metrics["v_value/explained_variance"] = 1.0 - torch.var(returns - values, unbiased=False) / (
-            torch.var(returns, unbiased=False) + 1e-8
+        metrics["v_value/explained_variance"] = 1.0 - self.mesh.global_mean_var(returns - values)[1] / (
+            self.mesh.global_mean_var(returns)[1] + 1e-8
         )
         if self.continuous:
             metrics["policy/std_dev"] = self._policy_std()
-        return env_state, {**infos, **metrics}
+        return env_state, self.mesh.mean_metrics({**infos, **metrics})
+
+    def _flat(self, x):
+        """``[T, B, ...]`` -> the update's ``[T * B, ...]`` rows: step-major;
+        on a dp mesh env-major (a rank's own rows, shard-local) or the
+        global batch gathered from every rank, step-major."""
+        T, B = x.shape[:2]
+        if self.dp == 1:
+            return x.reshape((T * B,) + x.shape[2:])
+        by_env = x.transpose(0, 1)
+        if self.shard_local_minibatching:
+            return by_env.reshape((T * B,) + x.shape[2:])
+        return self.mesh.gather_rows(by_env.contiguous()).transpose(0, 1).reshape((T * B * self.dp,) + x.shape[2:])
 
     def _loss(self, obs_mb, action_mb, log_prob_mb, return_mb, advantage_mb):
         new_log_prob, entropy = self.policy.log_prob_entropy(obs_mb, action_mb)
@@ -294,9 +350,52 @@ class PPO:
         return loss, metrics
 
     def _minibatch_loss(self, obs_mb, action_mb, log_prob_mb, return_mb, adv_mb):
-        """One seed's minibatch loss, its advantages normalized first."""
-        adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
+        """One seed's minibatch loss, its advantages normalized first (over
+        the global minibatch on a dp mesh)."""
+        if self.dp == 1:
+            adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
+        else:
+            mean, var = self.mesh.global_mean_var(adv_mb)
+            adv_mb = (adv_mb - mean) / (torch.sqrt(var) + 1e-8)
         return self._loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
+
+    def _clip_gradients(self, metrics):
+        """Average the gradients over dp, then clip each net's by its global
+        norm (summed over tp for a split net) into the grad-norm metrics."""
+        for name, module in (("policy", self.policy.module), ("critic", self.critic)):
+            grads = [p.grad for p in module.parameters()]
+            self.mesh.all_reduce_mean_(grads)
+            if self.mesh.tp > 1:
+                norm = partition.clip_by_global_norm_(module, grads, self.max_grad_norm)
+            else:
+                norm = clip_by_global_norm_(grads, self.max_grad_norm)
+            metrics[f"gradients/{name}_grad_norm"] = norm
+
+    def _epoch_indices(self):
+        """Each epoch's permutation, drawn from ``self.generator``: ``[nr_epochs,
+        batch]``; with shard-local minibatching ``[nr_epochs, dp, batch /
+        dp]``, every rank's, as the JAX package draws them."""
+        if self.shard_local_minibatching:
+            rows = self.batch_size // self.dp
+            return torch.stack([torch.stack([torch.randperm(rows, generator=self.generator, device=self.device)
+                                             for _ in range(self.dp)]) for _ in range(self.nr_epochs)])
+        return torch.stack([
+            torch.randperm(self.batch_size, generator=self.generator, device=self.device)
+            for _ in range(self.nr_epochs)
+        ])
+
+    def _minibatch_stream(self, batch_arrays, epoch_indices):
+        """The minibatches of this process: at dp = 1 ``_minibatches``; on a
+        dp mesh this rank's rows of each (its own permutation's
+        ``minibatch_size / dp`` rows shard-local, else its slice of the
+        global minibatch)."""
+        if self.dp == 1:
+            return self._minibatches(batch_arrays, epoch_indices)
+        local = self.minibatch_size // self.dp
+        if self.shard_local_minibatching:
+            return self._minibatches(batch_arrays, epoch_indices[:, self.mesh.dp_rank], local)
+        lo = self.mesh.dp_rank * local
+        return (tuple(x[lo:lo + local] for x in mb) for mb in self._minibatches(batch_arrays, epoch_indices))
 
     def _optimize(self, batch_arrays, epoch_indices=None):
         """Minibatch-epochs PPO-Clip update over a flat batch.
@@ -304,30 +403,22 @@ class PPO:
         ``epoch_indices`` ([nr_epochs, batch]) are the per-epoch
         permutations; drawn from ``self.generator`` when not given.  With
         parallel seeds every array has a leading seed axis (``[S, batch,
-        ...]``, ``epoch_indices`` ``[S, nr_epochs, batch]``)."""
+        ...]``, ``epoch_indices`` ``[S, nr_epochs, batch]``).  On a dp mesh
+        the arrays are this rank's (``_flat``) and ``epoch_indices`` the
+        global draw (``_epoch_indices``)."""
         if self.parallel is not None:
             return self._optimize_seeds(batch_arrays, epoch_indices)
         if epoch_indices is None:
-            epoch_indices = torch.stack([
-                torch.randperm(self.batch_size, generator=self.generator, device=self.device)
-                for _ in range(self.nr_epochs)
-            ])
-        policy_params = list(self.policy.module.parameters())
-        critic_params = list(self.critic.parameters())
+            epoch_indices = self._epoch_indices()
         history = []
         lr = self.learning_rate
-        for obs_mb, action_mb, log_prob_mb, return_mb, adv_mb in self._minibatches(batch_arrays, epoch_indices):
+        for obs_mb, action_mb, log_prob_mb, return_mb, adv_mb in self._minibatch_stream(batch_arrays, epoch_indices):
             self.policy_optimizer.zero_grad(set_to_none=False)
             self.critic_optimizer.zero_grad(set_to_none=False)
             loss, metrics = self._minibatch_loss(obs_mb, action_mb, log_prob_mb, return_mb, adv_mb)
             loss.backward()
             with torch.no_grad():
-                metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
-                    [p.grad for p in policy_params], self.max_grad_norm
-                )
-                metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
-                    [p.grad for p in critic_params], self.max_grad_norm
-                )
+                self._clip_gradients(metrics)
             lr = self.learning_rate_at(self.nr_optimizer_steps)
             for optimizer in (self.policy_optimizer, self.critic_optimizer):
                 optimizer.param_groups[0]["lr"] = lr
@@ -377,15 +468,17 @@ class PPO:
         out["lr/learning_rate"] = torch.tensor(lr)
         return out
 
-    def _minibatches(self, batch_arrays, epoch_indices):
+    def _minibatches(self, batch_arrays, epoch_indices, minibatch_size=None):
         """The minibatches ``(observations, actions, log-probs, returns,
-        advantages)`` of each epoch's permutation in turn.  Flat
+        advantages)`` of each epoch's permutation in turn, of
+        ``minibatch_size`` rows (the config's unless given).  Flat
         observations travel packed with the rest in one ``[N, D]`` matrix,
         gathered once an epoch and cut into contiguous slices; images
         (``[N, H, W, C]``) are gathered per minibatch, as the JAX package
         does, so no shuffled copy of the whole rollout is made."""
         batch_observations, batch_actions = batch_arrays[:2]
-        slices = [slice(m * self.minibatch_size, (m + 1) * self.minibatch_size) for m in range(self.nr_minibatches)]
+        size = minibatch_size or self.minibatch_size
+        slices = [slice(m * size, (m + 1) * size) for m in range(self.nr_minibatches)]
         epoch_indices = epoch_indices.to(self.device)
         if batch_observations.ndim != 2:
             for idx_e in epoch_indices:
@@ -393,7 +486,7 @@ class PPO:
                     yield tuple(x[idx_e[rows]] for x in batch_arrays)
             return
         obs_dim = batch_observations.shape[1]
-        action_2d = batch_actions.reshape(self.batch_size, -1)
+        action_2d = batch_actions.reshape(batch_observations.shape[0], -1)
         action_dim = action_2d.shape[1]
         packed = torch.cat(
             [batch_observations, action_2d.to(batch_observations.dtype)] + [x[:, None] for x in batch_arrays[2:]],
@@ -479,26 +572,45 @@ class PPO:
     # ----------------------------------------------------- save / load / test
 
     def checkpoint_tree(self):
+        """The nets' parameters (and with ``runner.save_optimizer_state`` the
+        optimizers' state); nets split over tp are saved whole."""
         if self.config.runner.save_optimizer_state:
-            return {"full": {
+            tree = {"full": {
                 "policy": module_state_dict(self.policy.module, self.policy_optimizer),
                 "critic": module_state_dict(self.critic, self.critic_optimizer),
                 "nr_optimizer_steps": self.nr_optimizer_steps,
             }}
+            if self.mesh.tp > 1:
+                for name, module in (("policy", self.policy.module), ("critic", self.critic)):
+                    state = tree["full"][name]
+                    state["params"] = convert.tp_unshard_state_dict(module, state["params"])
+                    state["opt_state"] = convert.tp_unshard_optimizer_state(module, state["opt_state"])
+            return tree
+        if self.mesh.tp > 1:
+            return {"policy": convert.tp_unshard_state_dict(self.policy.module),
+                    "critic": convert.tp_unshard_state_dict(self.critic)}
         return {"policy": self.policy.module.state_dict(), "critic": self.critic.state_dict()}
 
     def restore_from_tree(self, tree):
+        """The inverse of ``checkpoint_tree`` (a whole net split over tp again)."""
         if "full" in tree:
             full = tree["full"]
-            load_module_state_dict(full["policy"], self.policy.module, self.policy_optimizer)
-            load_module_state_dict(full["critic"], self.critic, self.critic_optimizer)
+            for name, module, optimizer in (("policy", self.policy.module, self.policy_optimizer),
+                                            ("critic", self.critic, self.critic_optimizer)):
+                state = full[name]
+                if self.mesh.tp > 1:
+                    state = {"params": convert.tp_shard_state_dict(module, state["params"]),
+                             "opt_state": convert.tp_shard_optimizer_state(module, state["opt_state"])}
+                load_module_state_dict(state, module, optimizer)
             self.nr_optimizer_steps = full["nr_optimizer_steps"]
         else:
-            self.policy.module.load_state_dict(tree["policy"])
-            self.critic.load_state_dict(tree["critic"])
+            for name, module in (("policy", self.policy.module), ("critic", self.critic)):
+                module.load_state_dict(convert.tp_shard_state_dict(module, tree[name]) if self.mesh.tp > 1
+                                       else tree[name])
 
     def save(self, file_name="latest.model"):
-        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict(),
+                             mesh=self.mesh)
 
     @classmethod
     def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):

@@ -27,6 +27,11 @@ With parallel seeds (``parallel_seeds.py``) the Q-network is seed-stacked:
 each seed's epsilon-greedy draws and permutations come from its own
 generator, the Q(lambda) targets run over ``[T, S * N]``, and each
 minibatch's loss is mapped over the seeds and clipped per seed.
+
+On a dp mesh (``parallel/mesh.py``) each rank steps its env rows with its
+rows of the global epsilon-greedy draws and computes their targets; the
+update gathers every rank's rows, permutes as at dp = 1 and each rank
+takes its slice of every minibatch, the gradients averaged over dp.
 """
 
 import math
@@ -42,6 +47,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
 )
 from rlx_tpu_torch.algorithms.pqn.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
+from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.algorithms.training_program import (
     eval_reset_seed, run_training_program, train_reset_seed,
 )
@@ -80,6 +86,10 @@ class PQN:
 
         self.batch_size = self.nr_envs * self.nr_steps
         self.minibatch_size = self.batch_size // self.nr_minibatches
+        self.mesh = mesh_for(config, self.device)
+        self.dp = self.mesh.dp
+        if self.minibatch_size % self.dp:
+            raise ValueError("the minibatch size must divide over the dp mesh axis")
         self.nr_updates = max(self.total_timesteps // self.batch_size, 1)
         self.eval_save_frequency = a.evaluation_and_save_frequency
         if self.eval_save_frequency == -1:
@@ -161,9 +171,11 @@ class PQN:
             observation = env_state.observation
             greedy = self.greedy_action(observation)
             if self.parallel is None:
-                random_action = torch.randint(0, self.nr_actions, greedy.shape, generator=self.generator,
-                                              device=self.device, dtype=torch.int32)
-                draw = torch.rand(greedy.shape, generator=self.generator, device=self.device)
+                # on a dp mesh this rank's rows of the global draws
+                shape = (self.nr_envs,) + greedy.shape[1:]
+                random_action = self.mesh.rows(torch.randint(0, self.nr_actions, shape, generator=self.generator,
+                                                             device=self.device, dtype=torch.int32))
+                draw = self.mesh.rows(torch.rand(shape, generator=self.generator, device=self.device))
             else:
                 random_action, draw = self._exploration_draws()
             action = torch.where(draw < epsilon, random_action, greedy)
@@ -204,7 +216,7 @@ class PQN:
             env_state, batch, infos = self._rollout(env_state, epsilon)
         metrics = self._learn(batch)
         metrics["epsilon/epsilon"] = torch.tensor(epsilon)
-        return env_state, {**infos, **metrics}
+        return env_state, self.mesh.mean_metrics({**infos, **metrics})
 
     def _learn(self, batch, epoch_indices=None):
         """Q(lambda) targets of a rollout ``(observations, final_observations,
@@ -225,6 +237,12 @@ class PQN:
                 P = self.parallel
                 return self._optimize_seeds((P.split_time(observations), P.split_time(actions),
                                              P.split_time(q_targets)), epoch_indices)
+        if self.dp > 1:
+            # every rank's env rows, step-major as at dp = 1
+            observations, actions, q_targets = (
+                self.mesh.gather_rows(x.transpose(0, 1).contiguous()).transpose(0, 1)
+                for x in (observations, actions, q_targets))
+            N = N * self.dp
         with record_function("pqn/update"):
             return self._optimize(
                 (observations.reshape((T * N,) + self.os_shape), actions.reshape(-1), q_targets.reshape(-1)),
@@ -242,6 +260,8 @@ class PQN:
                 for _ in range(self.nr_epochs)
             ])
         minibatches = epoch_indices.to(self.device).reshape(-1, self.minibatch_size)
+        # on a dp mesh each rank takes its slice of every minibatch
+        minibatches = self.mesh.rows(minibatches, 1)
         params = list(self.q_net.parameters())
         history = []
         lr = self.learning_rate
@@ -251,6 +271,7 @@ class PQN:
             loss = (0.5 * (q_action - q_targets[idx]) ** 2).mean()
             grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
+                self.mesh.all_reduce_mean_(list(grads))
                 grad_norm = clip_by_global_norm_(list(grads), self.max_grad_norm)
             for p, g in zip(params, grads):
                 p.grad = g
@@ -311,7 +332,7 @@ class PQN:
             for _ in range(self.horizon):
                 eval_env_state = self.eval_env.step(eval_env_state, self.greedy_action(eval_env_state.observation))
         if self.parallel is None:
-            eval_metrics = {f"eval/{k}": float(eval_env_state.info[f"rollout/{k}"].mean())
+            eval_metrics = {f"eval/{k}": float(self.mesh.mean(eval_env_state.info[f"rollout/{k}"].mean()))
                             for k in ("episode_return", "episode_length")}
         else:
             eval_metrics = {f"eval/{k}": self.parallel.split(eval_env_state.info[f"rollout/{k}"]).mean(dim=1).cpu().numpy()
@@ -365,7 +386,8 @@ class PQN:
         self.q_net.load_state_dict(tree["critic"])
 
     def save(self, file_name="latest.model"):
-        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict(),
+                             mesh=self.mesh)
 
     @classmethod
     def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):

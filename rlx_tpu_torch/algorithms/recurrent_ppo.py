@@ -33,6 +33,14 @@ seed-stacked and mapped over the seeds (the LSTM and GRU cells then run
 their unfused math, ``models/recurrent.py``), each seed's carry is its
 envs' rows, and each seed's noise and env permutations come from its own
 generator; GAE (B1) runs once over ``[T, S * N]``.
+
+On a dp mesh (``parallel/mesh.py``) each rank steps its rows of the envs,
+drawing its rows of the global action normals, and runs GAE (B1) on them;
+the update gathers every rank's env rows (time intact) and their start
+carries, permutes the envs as at dp = 1, and each rank takes its slice of
+every minibatch's envs, with the advantages normalized over the global
+minibatch and the gradients averaged over dp, so dp = k equals dp = 1 up
+to the order of the reductions.
 """
 
 import math
@@ -57,6 +65,7 @@ from rlx_tpu_torch.models.policy_factory import make_critic
 from rlx_tpu_torch.models.recurrent import RecurrentPolicy, map_carry, mask_carry
 from rlx_tpu_torch.ops.gae import gae_advantages
 from rlx_tpu_torch.utils import checkpoint as ckpt
+from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
@@ -95,6 +104,10 @@ class RecurrentPPO:
         if self.nr_envs % self.nr_minibatches != 0:
             raise ValueError("nr_minibatches must divide nr_envs: minibatches are taken over envs")
         self.nr_minibatch_envs = self.nr_envs // self.nr_minibatches
+        self.mesh = mesh_for(config, self.device)
+        self.dp = self.mesh.dp
+        if self.nr_minibatch_envs % self.dp:
+            raise ValueError("a minibatch's envs must divide over the dp mesh axis")
         self.batch_size = self.nr_envs * self.nr_steps
         self.nr_updates = max(self.total_timesteps // self.batch_size, 1)
         self.eval_save_frequency = a.evaluation_and_save_frequency
@@ -182,6 +195,10 @@ class RecurrentPPO:
         seeds each seed's noise from its own generator."""
         if self.parallel is None:
             mean, logstd, next_carry = self.policy.one_step(observation, policy_carry)
+            if noise is None and self.dp > 1:
+                # this rank's rows of the global draw
+                noise = self.mesh.rows(torch.randn((self.nr_envs,) + mean.shape[1:], generator=self.generator,
+                                                   device=self.device, dtype=mean.dtype))
             action = D.gaussian_sample(mean, logstd, self.generator, noise)
             return action, D.gaussian_log_prob(mean, logstd, action), next_carry
         P = self.parallel
@@ -243,8 +260,13 @@ class RecurrentPPO:
         return out
 
     def _minibatch_loss(self, obs, actions, log_probs, returns, adv, dones, init_carry):
-        """One seed's minibatch loss, its advantages normalized first."""
-        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        """One seed's minibatch loss, its advantages normalized first (over
+        the global minibatch on a dp mesh)."""
+        if self.dp == 1:
+            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        else:
+            mean, var = self.mesh.global_mean_var(adv)
+            adv = (adv - mean) / (torch.sqrt(var) + 1e-8)
         return self._loss(obs, actions, log_probs, returns, adv, dones, init_carry)
 
     # ------------------------------------------------------------------ train
@@ -304,10 +326,10 @@ class RecurrentPPO:
         with record_function("recurrent_ppo/update"):
             metrics = self._optimize((observations, actions, log_probs, returns, advantages, dones), init_carry,
                                      env_indices)
-        metrics["v_value/explained_variance"] = 1.0 - torch.var(returns - values, unbiased=False) / (
-            torch.var(returns, unbiased=False) + 1e-8)
+        metrics["v_value/explained_variance"] = 1.0 - self.mesh.global_mean_var(returns - values)[1] / (
+            self.mesh.global_mean_var(returns)[1] + 1e-8)
         metrics["policy/std_dev"] = torch.exp(self.policy.policy_logstd.detach()).mean()
-        return env_state, policy_carry, {**infos, **metrics}
+        return env_state, policy_carry, self.mesh.mean_metrics({**infos, **metrics})
 
 
     def _loss(self, obs_seq, action_seq, log_prob_seq, return_seq, advantage_seq, done_seq, init_carry):
@@ -341,9 +363,14 @@ class RecurrentPPO:
     def _optimize(self, batch, init_carry, env_indices=None):
         """Minibatch-epochs update over envs: ``batch`` = (observations,
         actions, log-probs, returns, advantages, dones), each ``[T, E, ...]``;
-        ``init_carry`` the carry before the window's first step."""
+        ``init_carry`` the carry before the window's first step.  On a dp
+        mesh every rank's env rows are gathered (``gather_rows``) and each
+        rank takes its slice of every minibatch's envs."""
         if self.parallel is not None:
             return self._optimize_seeds(batch, init_carry, env_indices)
+        if self.dp > 1:
+            batch = tuple(self.mesh.gather_rows(x.transpose(0, 1).contiguous()).transpose(0, 1) for x in batch)
+            init_carry = map_carry(self.mesh.gather_rows, init_carry)
         observations, actions, log_probs, returns, advantages, dones = batch
         if env_indices is None:
             env_indices = torch.stack([
@@ -355,7 +382,9 @@ class RecurrentPPO:
         critic_params = list(self.critic.parameters())
         history = []
         lr = self.learning_rate
+        local = self.nr_minibatch_envs // self.dp
         for idx in env_indices.to(self.device):
+            idx = idx[self.mesh.dp_rank * local:(self.mesh.dp_rank + 1) * local]
             take = lambda x: x[:, idx]
             self.policy_optimizer.zero_grad(set_to_none=False)
             self.critic_optimizer.zero_grad(set_to_none=False)
@@ -363,6 +392,7 @@ class RecurrentPPO:
                                                  take(advantages), take(dones), map_carry(lambda c: c[idx], init_carry))
             loss.backward()
             with torch.no_grad():
+                self.mesh.all_reduce_mean_([p.grad for p in policy_params + critic_params])
                 metrics["gradients/policy_grad_norm"] = clip_by_global_norm_(
                     [p.grad for p in policy_params], self.max_grad_norm)
                 metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
@@ -475,7 +505,8 @@ class RecurrentPPO:
             self.critic.load_state_dict(tree["critic"])
 
     def save(self, file_name="latest.model"):
-        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict(),
+                             mesh=self.mesh)
 
     @classmethod
     def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):

@@ -1,7 +1,7 @@
-"""REDQ defaults (the JAX package's ``redq.tpu`` values: SAC's and
-nr_critics=10, in_target_minimization=2, q_update_steps=20; its
-``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program)."""
+"""REDQ defaults (the JAX package's ``redq.tpu`` values: SAC's and nr_critics=10,
+in_target_minimization=2, q_update_steps=20; ``shard_local_sampling`` shapes
+the batch under a dp mesh, ``offpolicy.py``; ``nr_parallel_seeds`` above 1
+runs the seeds in one program)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

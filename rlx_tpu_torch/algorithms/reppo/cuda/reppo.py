@@ -25,8 +25,11 @@ Evaluation, test mode and the checkpoint (``policy``, ``critic``,
 env gets the tanh action as it is (no rescaling).  Every draw can be given
 to ``learning_iteration``: the rollout's normals, the epochs'
 permutations, and per minibatch the reparameterized action's normals and
-the KL samples' normals.  The mesh keys of the runner are ignored on one
-device, as PPO ignores them.
+the KL samples' normals.  On a dp mesh (``parallel/mesh.py``) each rank
+steps its env rows with its rows of the global normals (the observation
+normalizer over every rank's rows); the update gathers every rank's rows
+and each rank takes its slice of every minibatch and of its normals, the
+gradients averaged over dp before the clip.
 
 With parallel seeds (``parallel_seeds.py``) the nets and the observation
 normalizer are seed-stacked; every draw of a seed comes from its own
@@ -53,6 +56,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
 )
 from rlx_tpu_torch.algorithms.reppo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
+from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.algorithms.training_program import (
     eval_reset_seed, run_training_program, train_reset_seed,
 )
@@ -156,6 +160,10 @@ class REPPO:
         self.minibatch_size = self.batch_size // self.nr_minibatches
         if self.minibatch_size * self.nr_minibatches != self.batch_size:
             raise ValueError("nr_minibatches must divide nr_envs * nr_steps")
+        self.mesh = mesh_for(config, self.device)
+        self.dp = self.mesh.dp
+        if self.minibatch_size % self.dp:
+            raise ValueError("the minibatch size must divide over the dp mesh axis")
         self.nr_updates = max(self.total_timesteps // self.batch_size, 1)
         self.eval_save_frequency = a.evaluation_and_save_frequency
         if self.eval_save_frequency == -1:
@@ -224,19 +232,22 @@ class REPPO:
     @torch.no_grad()
     def _rollout(self, env_state, act_noise=None, next_noise=None):
         shape = (self.nr_envs, self.action_dim)
+        # on a dp mesh this rank's rows of the global normals
+        normal = lambda: self.mesh.rows(self._normal(shape))
         steps, info_sums = [], None
         for t in range(self.nr_steps):
             observation = self._norm(env_state.observation)
             loc, log_std, _, _ = self.policy(observation)
             action, _ = D.tanh_gaussian_sample_and_log_prob(
-                loc, log_std, noise=self._normal(shape) if act_noise is None else act_noise[t])
+                loc, log_std, noise=normal() if act_noise is None else act_noise[t])
             env_state = self.train_env.step(env_state, action)
             if self.normalize_obs:
-                self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, env_state.observation)
+                self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, env_state.observation,
+                                                                        self.mesh)
             next_observation = self._norm(env_state.final_observation)
             n_loc, n_log_std, _, _ = self.policy(next_observation)
             next_action, _ = D.tanh_gaussian_sample_and_log_prob(
-                n_loc, n_log_std, noise=self._normal(shape) if next_noise is None else next_noise[t])
+                n_loc, n_log_std, noise=normal() if next_noise is None else next_noise[t])
             next_features, next_logits, _ = self.critic(next_observation, next_action)
             next_value = hl_gauss_expectation(next_logits, self.v_min, self.v_max)
             steps.append((observation, action, env_state.reward, next_value, next_features,
@@ -247,7 +258,7 @@ class REPPO:
                 for k, v in env_state.info.items():
                     info_sums[k] = info_sums[k] + v.float().sum()
         batch = tuple(torch.stack(x) for x in zip(*steps))
-        infos = {k: v / (self.nr_steps * self.nr_envs) for k, v in info_sums.items()}
+        infos = {k: v / (self.nr_steps * self.train_env.nr_envs) for k, v in info_sums.items()}
         return env_state, batch, infos
 
     def _critic_loss(self, obs, action, target, next_features, terminated, truncated):
@@ -293,6 +304,7 @@ class REPPO:
         clipped per seed."""
         params = list(module.parameters())
         grads = torch.autograd.grad(loss.sum(), params)
+        self.mesh.all_reduce_mean_(list(grads))
         clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=self.parallel is not None)
         for p, g in zip(params, grads):
             p.grad = g
@@ -308,13 +320,15 @@ class REPPO:
             perm = (torch.randperm(self.batch_size, generator=self.generator, device=self.device)
                     if permutations is None else permutations[e].to(self.device))
             for m in range(self.nr_minibatches):
-                idx = perm[m * mb:(m + 1) * mb]
+                # on a dp mesh this rank's slice of the minibatch and its draws
+                idx = self.mesh.rows(perm[m * mb:(m + 1) * mb])
                 critic_loss, critic_metrics = self._critic_loss(observations[idx], actions[idx], targets[idx],
                                                                 next_features[idx], terminations[idx], truncations[idx])
                 self._step(self.critic, self.critic_optimizer, critic_loss)
                 noise = self._normal((mb, self.action_dim)) if sample_noise is None else sample_noise[e][m]
                 samples = (self._normal((self.nr_kl_samples, mb, self.action_dim)) if kl_noise is None
                            else kl_noise[e][m])
+                noise, samples = self.mesh.rows(noise), self.mesh.rows(samples, 1)
                 policy_loss, policy_metrics = self._policy_loss(observations[idx], old_policy, noise, samples)
                 self._step(self.policy, self.policy_optimizer, policy_loss)
                 history.append({**critic_metrics, **policy_metrics})
@@ -337,12 +351,16 @@ class REPPO:
         with torch.no_grad(), record_function("reppo/targets"):
             targets = td_lambda_targets(rewards, terminations, next_values, self.gamma, self.gae_lambda)
         flat = lambda x: x.reshape((self.batch_size,) + x.shape[2:])
+        if self.dp > 1:
+            # every rank's env rows, step-major as at dp = 1
+            flat = lambda x: self.mesh.gather_rows(x.transpose(0, 1).contiguous()).transpose(0, 1).reshape(
+                (self.batch_size,) + x.shape[2:])
         with record_function("reppo/update"):
             metrics = self._update(tuple(flat(x) for x in (observations, actions, targets, next_features,
                                                            terminations, truncations)),
                                    old_policy, draws.get("permutations"), draws.get("sample_noise"),
                                    draws.get("kl_noise"))
-        return env_state, {**infos, **metrics}
+        return env_state, self.mesh.mean_metrics({**infos, **metrics})
 
     # ----------------------------------------------------------- parallel seeds
 
@@ -453,7 +471,7 @@ class REPPO:
                 eval_env_state = self.eval_env.step(eval_env_state,
                                                     self._deterministic_action(eval_env_state.observation))
         if self.parallel is None:
-            eval_metrics = {k: float(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float().mean())
+            eval_metrics = {k: float(self.mesh.mean(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float().mean()))
                             for k in ("eval/episode_return", "eval/episode_length")}
         else:
             eval_metrics = {k: self.parallel.split(eval_env_state.info[f"rollout/{k.split('/')[1]}"].float())
@@ -509,7 +527,8 @@ class REPPO:
         self.obs_normalizer = {k: v.to(self.device) for k, v in tree["obs_normalizer"].items()}
 
     def save(self, file_name="latest.model"):
-        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict())
+        ckpt.save_model_file(self.save_path, file_name, self.checkpoint_tree(), self.config.algorithm.to_dict(),
+                             mesh=self.mesh)
 
     @classmethod
     def load(cls, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):

@@ -118,10 +118,16 @@ class SAC(OffPolicyAlgorithm):
         one-seed update's order (the next action's, then the current's)."""
         if target_noise is not None:
             return {"target_noise": target_noise, "current_noise": current_noise}
+        return self.parallel.draw(self.update_draws)
+
+    batch_draw_dims = {"target_noise": 0, "current_noise": 0}
+
+    def update_draws(self, generator):
+        """An update's draws in its order: the next action's noise, then the
+        current action's (``[batch, action_dim]`` each)."""
         shape = (self.batch_size, self.action_dim)
-        return self.parallel.draw(lambda g: {
-            "target_noise": torch.randn(shape, generator=g, device=self.device),
-            "current_noise": torch.randn(shape, generator=g, device=self.device)})
+        return {"target_noise": torch.randn(shape, generator=generator, device=self.device),
+                "current_noise": torch.randn(shape, generator=generator, device=self.device)}
 
     def _losses(self, batch, target_noise=None, current_noise=None):
         """(q loss, policy loss, alpha loss, metrics) of one seed's batch."""

@@ -94,6 +94,12 @@ class EnsembleSAC(SAC):
         each seed's draws from ``sample`` unless given."""
         given = {k: v for k, v in draws.items() if v is not None}
         if self.parallel is None:
+            if self.dp > 1 and not given:
+                # this rank's batch rows of the dp = 1 run's draws
+                # (normals [batch, ...], masks [nr_critics, batch, ...]; REDQ's subset whole)
+                given = {k: (tuple(self.batch_rows(m, 1) for m in v) if k.endswith("masks")
+                             else self.batch_rows(v) if k.endswith("_noise") else v)
+                         for k, v in sample(self.generator).items()}
             return self.plain_call, global_norm, given
         return self.seed_map, per_seed_global_norm, given or self.parallel.draw(sample)
 

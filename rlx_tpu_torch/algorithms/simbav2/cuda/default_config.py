@@ -1,8 +1,8 @@
 """SimbaV2 defaults (the JAX package's ``simbav2.tpu`` values: SAC's and
-hypersphere encoders of 128 x 1 block (policy) and 512 x 2 blocks (critics), 101
-HL-Gauss atoms over [-5, 5], both running normalizers on, no weight norm; its
-``shard_local_sampling`` key is left out with the mesh, so setting it raises
-``KeyError``; ``nr_parallel_seeds`` above 1 runs the seeds in one program)."""
+hypersphere encoders of 128 x 1 block (policy) and 512 x 2 blocks (critics),
+101 HL-Gauss atoms over [-5, 5], both running normalizers on, no weight norm;
+``shard_local_sampling`` shapes the batch under a dp mesh, ``offpolicy.py``;
+``nr_parallel_seeds`` above 1 runs the seeds in one program)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

@@ -60,6 +60,7 @@ class SimbaV2VectorCritic(nn.Module):
 
 class SimbaV2(XQC):
     parallel_seeds = True
+    env_row_states = {"reward_normalizer": ("g",)}
 
     def _build_policy(self, a):
         return SimbaV2Policy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)
@@ -79,7 +80,7 @@ class SimbaV2(XQC):
         if self.normalize_obs:
             self.obs_normalizer = normalizers.obs_normalizer_init(self.os_shape, self.device)
         if self.normalize_rewards:
-            self.reward_normalizer = normalizers.reward_normalizer_init(self.nr_envs, self.device)
+            self.reward_normalizer = normalizers.reward_normalizer_init(self.nr_envs // self.dp, self.device)
 
     def _norm(self, observation):
         if self.normalize_obs:

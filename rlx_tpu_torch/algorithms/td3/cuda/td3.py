@@ -76,9 +76,14 @@ class TD3(OffPolicyAlgorithm):
         Returns the metrics as device scalars."""
         return self._step(batch, step, smoothing_noise, lambda fn, *xs: fn(*xs), global_norm)
 
+    batch_draw_dims = {"smoothing_noise": 0}
+
+    def update_draws(self, generator):
+        return {"smoothing_noise": torch.randn((self.batch_size, self.action_dim), generator=generator,
+                                               device=self.device)}
+
     def update_seeds(self, batch, step):
-        noise = self.parallel.draw(lambda g: torch.randn((self.batch_size, self.action_dim), generator=g,
-                                                         device=self.device))
+        noise = self.parallel.draw(lambda g: self.update_draws(g)["smoothing_noise"])
         return self._step(batch, step, noise, self.seed_map, per_seed_global_norm)
 
     def _critic_loss(self, batch, smoothing_noise=None):

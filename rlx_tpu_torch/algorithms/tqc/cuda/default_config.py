@@ -1,7 +1,7 @@
 """TQC defaults (the JAX package's ``tqc.tpu`` values: SAC's and 2 nets of 25
-quantile atoms, 2 dropped per net; its ``shard_local_sampling`` key is left out
-with the mesh, so setting it raises ``KeyError``; ``nr_parallel_seeds`` above 1
-runs the seeds in one program)."""
+quantile atoms, 2 dropped per net; ``shard_local_sampling`` shapes the batch
+under a dp mesh, ``offpolicy.py``; ``nr_parallel_seeds`` above 1 runs the
+seeds in one program)."""
 
 from rlx_tpu_torch.algorithms.sac.cuda.default_config import get_config as sac_config
 

@@ -65,10 +65,18 @@ class TrainState:
         self.optimizer = optimizer
         self.target = copy.deepcopy(module).requires_grad_(False) if target else None
 
-    def apply_gradients(self, grads, learning_rate=None):
+    # the dp mesh the gradients are averaged over (``parallel/mesh.py``; the
+    # off-policy core sets it)
+    mesh = None
+
+    def apply_gradients(self, grads, learning_rate=None, reduced=False):
         """One optimizer step on ``grads`` (one per parameter, in
         ``module.parameters()`` order), at ``learning_rate`` when given
-        (flax's ``TrainState.apply_gradients``)."""
+        (flax's ``TrainState.apply_gradients``).  On a dp mesh the
+        gradients are first averaged over dp, in place, unless ``reduced``
+        says the caller did (before a clip)."""
+        if self.mesh is not None and not reduced:
+            self.mesh.all_reduce_mean_(list(grads))
         for p, g in zip(self.module.parameters(), grads):
             p.grad = g
         if learning_rate is not None:

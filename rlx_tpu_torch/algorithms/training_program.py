@@ -64,12 +64,21 @@ def eval_reset_seed(model):
 
 def eval_means(model, info):
     """Each ``rollout/*`` info key as ``eval/*``: its mean over the envs, a
-    float, or with parallel seeds over each seed's envs, a ``[S]`` array."""
+    float, or with parallel seeds over each seed's envs, a ``[S]`` array.
+    On a dp mesh (``model.mesh``) the mean is over every rank's eval envs."""
     parallel = getattr(model, "parallel", None)
+    mesh = getattr(model, "mesh", None)
     out = {}
     for k, v in info.items():
         if k.startswith("rollout/"):
             name = "eval/" + k.split("rollout/", 1)[1]
-            out[name] = (float(v.float().mean()) if parallel is None
-                         else parallel.split(v.float()).mean(dim=1).cpu().numpy())
+            v = v.to(torch.promote_types(v.dtype, torch.float32))
+            if parallel is not None:
+                out[name] = parallel.split(v).mean(dim=1).cpu().numpy()
+            else:
+                out[name] = v.mean()
+    if mesh is not None and parallel is None:
+        out = {k: float(v) for k, v in mesh.mean_metrics(out).items()}
+    elif parallel is None:
+        out = {k: float(v) for k, v in out.items()}
     return out

@@ -21,6 +21,9 @@ from rlx_tpu_torch.algorithms.parallel_seeds import nr_parallel_seeds, refuse
 from rlx_tpu_torch.environments.environment_manager import (
     get_environment_config, get_environment_create_env, registered_environment_names,
 )
+from rlx_tpu_torch.environments.env import DeviceEnv, shard_env
+from rlx_tpu_torch.environments.gym.host_bridge import HostEnv
+from rlx_tpu_torch.parallel.mesh import mesh_for, rank_device
 from rlx_tpu_torch.runner.default_config import get_config as get_runner_config
 from rlx_tpu_torch.utils.config_dict import ConfigDict
 
@@ -146,7 +149,21 @@ def create_env(config):
 
     With ``algorithm.nr_parallel_seeds = S > 1`` each env holds ``S *
     environment.nr_envs`` envs, seed-major; an env that cannot draw per
-    seed (``parallel_seeds`` not set) raises ``NotImplementedError``."""
+    seed (``parallel_seeds`` not set) raises ``NotImplementedError``.
+
+    Under a dp mesh (``parallel/mesh.py``, ``runner.mesh_dp``) each rank's
+    envs are its ``nr_envs / dp`` rows of the global batch, on
+    ``cuda:{LOCAL_RANK}`` for ``runner.device="cuda"``: a device env draws
+    the global draws and keeps its rows (``env.shard_env``), a host env
+    seeds its envs as those rows are seeded at dp = 1
+    (``environment.first_env``).  Other envs (the robot and soccer envs,
+    the socket env) raise ``NotImplementedError`` at dp > 1."""
+    device = rank_device(config.runner.device)
+    if device != config.runner.device:
+        config = ConfigDict(config, runner=ConfigDict(config.runner, device=device))
+    mesh = mesh_for(config, device)
+    if mesh.dp > 1:
+        return _create_dp_envs(config, mesh)
     if config.runner.device.startswith("cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError(f"runner.device={config.runner.device!r} but no CUDA device is available; "
@@ -164,6 +181,26 @@ def create_env(config):
             for e in envs:
                 e.close()
             refuse(config, f"environment {config.environment.name}")
+    return envs
+
+
+def _create_dp_envs(config, mesh):
+    """This dp rank's (train env, eval env): its rows of the global batch."""
+    if nr_parallel_seeds(config) > 1:
+        raise NotImplementedError("nr_parallel_seeds > 1 does not run on a dp mesh (runner.mesh_dp > 1) yet")
+    n = config.environment.nr_envs
+    first, last = mesh.rows_of_rank(n)
+    local = ConfigDict(config, environment=ConfigDict(config.environment, nr_envs=last - first, first_env=first))
+    envs = create_env(ConfigDict(local, runner=ConfigDict(local.runner, mesh_dp=1, mesh_tp=1)))
+    for env in envs:
+        if isinstance(env, HostEnv) and env.nr_envs == last - first:
+            continue
+        if isinstance(env, DeviceEnv) or getattr(env, "parallel_seeds", False) and hasattr(env, "env"):
+            shard_env(env, first, n)
+            continue
+        for e in envs:
+            e.close()
+        raise NotImplementedError(f"environment {config.environment.name} does not run on a dp mesh")
     return envs
 
 

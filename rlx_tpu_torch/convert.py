@@ -623,3 +623,60 @@ def env_state_from_jax(state, device="cpu", seed=0):
         generator=torch.Generator(device=device).manual_seed(seed),
         eval_mode=bool(state.eval_mode),
     )
+
+
+# --------------------------------------------------- tensor-parallel shards
+
+
+def _tp_gather(tensor, dim, mesh):
+    """The whole of a tp-split tensor from every tp rank's slice along
+    ``dim`` (``Mesh.gather_rows`` over the tp group)."""
+    moved = tensor.movedim(dim, 0).contiguous()
+    return mesh.gather_rows(moved, group="tp").movedim(0, dim).contiguous()
+
+
+def _tp_slice(tensor, dim, mesh):
+    width = tensor.shape[dim] // mesh.tp
+    return tensor.narrow(dim, mesh.tp_rank * width, width).clone()
+
+
+def tp_unshard_state_dict(module, state_dict=None):
+    """``module.state_dict()`` (or ``state_dict``, keyed as it) of a net split
+    over tp (``parallel/partition.shard_module_``) with every split
+    parameter whole: what a checkpoint holds.  Collective: every tp rank
+    calls it."""
+    state_dict = module.state_dict() if state_dict is None else state_dict
+    axes = getattr(module, "tp_axes", {})
+    return {k: _tp_gather(v, axes[k], module.tp_mesh) if k in axes else v for k, v in state_dict.items()}
+
+
+def tp_shard_state_dict(module, state_dict):
+    """This tp rank's slices of a whole ``state_dict`` (the inverse of
+    ``tp_unshard_state_dict``)."""
+    axes = getattr(module, "tp_axes", {})
+    return {k: _tp_slice(v, axes[k], module.tp_mesh) if k in axes else v for k, v in state_dict.items()}
+
+
+def _optimizer_state_map(module, optimizer_state, fn):
+    """``optimizer_state`` (an optimizer's ``state_dict()``) with ``fn(name,
+    tensor)`` applied to each moment of a parameter (Adam's moments split
+    as their parameters)."""
+    names = [name for name, _ in module.named_parameters()]
+    state = {}
+    for index, moments in optimizer_state["state"].items():
+        name = names[index]
+        state[index] = {k: fn(name, v) if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+                        for k, v in moments.items()}
+    return {**optimizer_state, "state": state}
+
+
+def tp_unshard_optimizer_state(module, optimizer_state):
+    axes = getattr(module, "tp_axes", {})
+    return _optimizer_state_map(module, optimizer_state,
+                                lambda name, v: _tp_gather(v, axes[name], module.tp_mesh) if name in axes else v)
+
+
+def tp_shard_optimizer_state(module, optimizer_state):
+    axes = getattr(module, "tp_axes", {})
+    return _optimizer_state_map(module, optimizer_state,
+                                lambda name, v: _tp_slice(v, axes[name], module.tp_mesh) if name in axes else v)

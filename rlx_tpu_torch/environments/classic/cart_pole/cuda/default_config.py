@@ -4,4 +4,5 @@ from rlx_tpu_torch.utils.config_dict import ConfigDict
 
 
 def get_config(environment_name):
-    return ConfigDict(name=environment_name, seed=1, nr_envs=8, horizon=500)
+    return ConfigDict(name=environment_name, seed=1, nr_envs=8, horizon=500,
+                      render=False)  # the JAX package's key; nothing reads it

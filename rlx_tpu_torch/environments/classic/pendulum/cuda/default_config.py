@@ -12,4 +12,6 @@ def get_config(environment_name):
         # POMDP variant: the observation mask wrapper hides the angular
         # velocity
         mask_velocity=False,
+        # the JAX package's key; nothing reads it
+        render=False,
     )

@@ -20,6 +20,7 @@ def get_config(environment_name):
         ip="127.0.0.1",
         port=11111,
         horizon=1000,
+        render=False,  # the JAX package's key; nothing reads it
     )
 
 

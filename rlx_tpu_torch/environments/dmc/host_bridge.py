@@ -87,11 +87,14 @@ def make_dmc_registration(domain, task, nr_envs=4):
     """(get_config, create_train_and_eval_env, GeneralProperties) of one
     suite task; the eval env's seed is the train env's + 10,000."""
     def get_config(environment_name):
-        return ConfigDict(name=environment_name, seed=1, nr_envs=nr_envs)
+        return ConfigDict(name=environment_name, seed=1, nr_envs=nr_envs,
+                          render=False)  # the JAX package's key; nothing reads it
 
     def create_train_and_eval_env(config):
         env_config = config.environment
-        train_env, eval_env = (DMCHostEnv(domain, task, env_config.nr_envs, seed=seed, device=config.runner.device)
+        # a dp rank's envs (first_env, config.create_env) are seeded as at dp = 1
+        train_env, eval_env = (DMCHostEnv(domain, task, env_config.nr_envs, seed=seed + env_config.get("first_env", 0),
+                                          device=config.runner.device)
                                for seed in (env_config.seed, env_config.seed + 10_000))
         for env in (train_env, eval_env):
             env.general_properties = general_properties

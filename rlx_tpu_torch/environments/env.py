@@ -13,13 +13,19 @@ the env state.  With parallel seeds (``algorithms/parallel_seeds.py``) the
 env holds ``S * N`` envs, ``reset`` takes one seed per seed and the state
 owns a list of S generators; an env whose draws all go through ``draw``
 sets ``parallel_seeds = True``, and ``draw`` takes each seed's ``N`` rows
-from that seed's generator, as its one-seed env of ``N`` envs would.
+from that seed's generator, as its one-seed env of ``N`` envs would.  Such
+an env also runs under the dp mesh (``parallel/mesh.py``): with
+``dp_rows = (first, total)`` set (``shard_env``) it holds rows ``first ..
+first + nr_envs`` of ``total`` envs and draws each from the global draw
+(``RankRows``), as the dp = 1 env would.
 """
 
 import dataclasses
 from typing import Any, Dict
 
 import torch
+
+from rlx_tpu_torch.parallel.mesh import RankRows
 
 
 @dataclasses.dataclass
@@ -42,9 +48,12 @@ class EnvState:
 def draw(generator, sample, shape, **kwargs):
     """``sample(shape, generator=..., **kwargs)`` with ``shape[0]`` the env
     axis; for a list of S generators (parallel seeds) each takes its
-    ``shape[0] // S`` rows, concatenated seed-major."""
+    ``shape[0] // S`` rows, concatenated seed-major; for a dp rank's
+    ``RankRows`` the rank's rows of the global draw."""
     if isinstance(generator, torch.Generator):
         return sample(shape, generator=generator, **kwargs)
+    if isinstance(generator, RankRows):
+        return generator.draw(sample, shape, **kwargs)
     rows = (shape[0] // len(generator),) + tuple(shape[1:])
     return torch.cat([sample(rows, generator=g, **kwargs) for g in generator])
 
@@ -97,8 +106,12 @@ class DeviceEnv:
         """Zero-initialized env_info/* metrics (batched)."""
         return {}
 
+    dp_rows = None   # (first, total) of a dp rank's env rows (shard_env)
+
     def reset(self, seed, eval_mode=False):
         generator = make_generator(seed, self.device)
+        if self.dp_rows is not None:
+            generator = RankRows(generator, *self.dp_rows)
         physics = self.initial_physics(generator, eval_mode)
         observation = self.observe(physics)
         zeros = torch.zeros(self.nr_envs, device=self.device)
@@ -160,3 +173,11 @@ class DeviceEnv:
 
     def close(self):
         pass
+
+
+def shard_env(env, first, total):
+    """Make ``env`` (and every env it wraps) hold rows ``first .. first +
+    env.nr_envs`` of ``total`` dp-sharded envs."""
+    while env is not None:
+        env.dp_rows = (first, total)
+        env = getattr(env, "env", None)

@@ -36,6 +36,7 @@ def make_atari_registration(game_type, nr_envs=8):
             screen_size=84,
             episodic_life=True,
             clip_reward=True,
+            render=False,  # the JAX package's key; nothing reads it
         )
 
     def _make_env_fn(cfg):
@@ -71,10 +72,12 @@ def make_atari_registration(game_type, nr_envs=8):
             env_fns=[_make_env_fn(cfg)] * cfg.nr_envs,
             async_workers=cfg.async_workers,
             async_skip_percentage=cfg.async_skip_percentage, device=device,
+            first_env=cfg.get("first_env", 0),
         )
         eval_env = HostGymEnv(
             f"ALE/{cfg.type}", cfg.nr_envs, seed=cfg.seed + 10_000,
             env_fns=[_make_env_fn(cfg)] * cfg.nr_envs, device=device,
+            first_env=cfg.get("first_env", 0),
         )
         for env in (train_env, eval_env):
             env.general_properties = general_properties

@@ -22,6 +22,7 @@ def make_gym_registration(env_id, discrete=False, nr_envs=8):
             vectorization="sync",  # sync | process (forkserver workers)
             async_workers=0,  # > 0: thread-pool stepping (sync mode)
             async_skip_percentage=0.0,  # fraction of slowest envs to skip
+            render=False,  # the JAX package's key; nothing reads it
         )
 
     def create_train_and_eval_env(config):
@@ -29,9 +30,10 @@ def make_gym_registration(env_id, discrete=False, nr_envs=8):
         train_env = HostGymEnv(env_config.env_id, env_config.nr_envs, seed=env_config.seed,
                                async_workers=env_config.async_workers,
                                async_skip_percentage=env_config.async_skip_percentage,
-                               vectorization=env_config.vectorization, device=device)
+                               vectorization=env_config.vectorization, device=device,
+                               first_env=env_config.get("first_env", 0))
         eval_env = HostGymEnv(env_config.env_id, env_config.nr_envs, seed=env_config.seed + 10_000,
-                              device=device)
+                              device=device, first_env=env_config.get("first_env", 0))
         for env in (train_env, eval_env):
             env.general_properties = general_properties
         return train_env, eval_env

@@ -207,8 +207,12 @@ class HostGymEnv(HostEnv):
 
     def __init__(self, env_id, nr_envs, seed=0, env_kwargs=None,
                  async_workers=0, async_skip_percentage=0.0, env_fns=None,
-                 vectorization="sync", device="cpu"):
+                 vectorization="sync", device="cpu", first_env=0):
         import gymnasium as gym
+
+        # env i is reset with seed + first_env + i: a dp rank's envs are
+        # rows first_env.. of the global batch, seeded as at dp = 1
+        self.first_env = int(first_env)
 
         self.env_id = env_id
         self.nr_envs = nr_envs
@@ -282,6 +286,7 @@ class HostGymEnv(HostEnv):
 
     # ------------------------------------------------------------- host side
     def _host_reset_into(self, seed, observation):
+        seed = int(seed) + self.first_env
         self._episode_return[:] = 0.0
         self._episode_length[:] = 0.0
         self._last_stats[:] = 0.0

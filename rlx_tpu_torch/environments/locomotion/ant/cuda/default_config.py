@@ -15,4 +15,6 @@ def get_config(environment_name):
         initial_state_noise=0.0,
         perturbation_chance=0.0,
         perturbation_velocity=0.5,
+        # the JAX package's key; nothing reads it
+        render=False,
     )

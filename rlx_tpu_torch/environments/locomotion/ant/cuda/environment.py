@@ -51,7 +51,10 @@ class Ant(DeviceEnv):
         self.device = torch.device(device)
 
         self.model = load_model(ANT_MODEL)
-        self.qpos0 = torch.as_tensor(self.model.qpos0, device=self.device)
+        self.xml_path = ANT_XML  # offscreen render path (rlx_tpu_torch.render)
+        # in torch's default float type (float32, or float64 where a test runs
+        # the env in float64)
+        self.qpos0 = torch.as_tensor(self.model.qpos0, dtype=torch.get_default_dtype(), device=self.device)
         self.nominal_joint_positions = self.qpos0[7:]
         self.nr_joints = self.model.nv - 6
 

@@ -68,6 +68,7 @@ class LocomotionEnv:
         self.robot_dimensions_mean = self.robot_config["robot_dimensions_mean"]
 
         m = load_model(self.robot_config["model_path"])
+        self.xml_path = self.robot_config["xml_path"]  # offscreen render path (rlx_tpu_torch.render)
         self.timestep = float(env_config.timestep) if env_config.timestep > 0 else m.timestep
         if abs(self.timestep - m.timestep) > 1e-9:
             m = m._replace(timestep=self.timestep)

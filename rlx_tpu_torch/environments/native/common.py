@@ -21,13 +21,14 @@ def make_native_registration(batch_class, task, discrete=False, nr_envs=8):
             seed=1,
             nr_envs=nr_envs,
             nr_threads=0,  # 0 = half the host's hardware threads
+            render=False,  # the JAX package's key; nothing reads it
         )
 
     def create_train_and_eval_env(config):
         env_config = config.environment
         train_env, eval_env = (
-            batch_class(task, env_config.nr_envs, seed=seed, nr_threads=env_config.nr_threads,
-                        device=config.runner.device)
+            batch_class(task, env_config.nr_envs, seed=seed + env_config.get("first_env", 0),
+                        nr_threads=env_config.nr_threads, device=config.runner.device)
             for seed in (env_config.seed, env_config.seed ^ EVAL_SEED_XOR)
         )
         for env in (train_env, eval_env):

@@ -259,6 +259,29 @@ class SimbaV2Encoder(nn.Module):
         return x
 
 
+def set_batch_mesh(modules, mesh):
+    """Give every layer of ``modules`` that takes batch statistics
+    (``BatchRenorm``, FlashSAC's ``BatchNorm``: a ``batch_mesh``
+    attribute) the dp ``mesh`` its train-mode statistics reduce over; at
+    dp = 1 none."""
+    mesh = mesh if mesh is not None and mesh.dp > 1 else None
+    for module in modules:
+        for m in module.modules():
+            if hasattr(m, "batch_mesh"):
+                m.batch_mesh = mesh
+
+
+def batch_mean_of(x, mesh, dim=-2):
+    """``x.mean(dim)``; on a dp ``mesh`` over every rank's rows (a
+    differentiable all_reduce: each rank's loss depends on every rank's
+    rows through the statistic)."""
+    if mesh is None:
+        return x.mean(dim=dim)
+    from rlx_tpu_torch.parallel.mesh import all_reduce_sum_autograd
+
+    return all_reduce_sum_autograd(x.sum(dim=dim), mesh) / (x.shape[dim] * mesh.dp)
+
+
 class BatchRenorm(nn.Module):
     """Batch renormalization (CrossQ): batch statistics with the correction
     factors ``r`` (batch over running std, clipped to [1/r_max, r_max]) and
@@ -268,6 +291,7 @@ class BatchRenorm(nn.Module):
     normalizes with the running statistics."""
 
     running_buffers = ("mean", "var", "steps")
+    batch_mesh = None   # the dp mesh of the batch statistics (``set_batch_mesh``)
 
     def __init__(self, features, nr=None, momentum=0.99, eps=1e-3, r_max=3.0, d_max=5.0):
         super().__init__()
@@ -284,8 +308,9 @@ class BatchRenorm(nn.Module):
         if not train:
             x_hat = (x - row(self.mean)) / torch.sqrt(row(self.var) + self.eps)
         else:
-            batch_mean = x.mean(dim=-2)
-            batch_var = x.var(dim=-2, unbiased=False)
+            batch_mean = batch_mean_of(x, self.batch_mesh)
+            batch_var = (x.var(dim=-2, unbiased=False) if self.batch_mesh is None
+                         else batch_mean_of((x - row(batch_mean)) ** 2, self.batch_mesh))
             batch_std = torch.sqrt(batch_var + self.eps)
             running_std = torch.sqrt(self.var + self.eps)
             warmed_up = (self.steps > 1000).to(x.dtype)

@@ -17,11 +17,20 @@ def obs_normalizer_init(shape, device="cpu"):
     }
 
 
-def obs_normalizer_update(state, batch):
-    """Welford parallel merge with a batch of observations [B, obs]."""
-    batch_mean = batch.mean(dim=0)
-    batch_var = batch.var(dim=0, unbiased=False)
-    batch_count = float(batch.shape[0])
+def _moments(x, mesh):
+    """(mean, biased variance, count) of ``x``'s rows; on a dp ``mesh`` over
+    every rank's rows (a sum and a count, then the squared deviations)."""
+    if mesh is None or mesh.dp == 1:
+        return x.mean(dim=0), x.var(dim=0, unbiased=False), float(x.shape[0])
+    count = float(x.shape[0] * mesh.dp)
+    mean = mesh.all_reduce_sum(x.sum(dim=0)) / count
+    return mean, mesh.all_reduce_sum(((x - mean) ** 2).sum(dim=0)) / count, count
+
+
+def obs_normalizer_update(state, batch, mesh=None):
+    """Welford parallel merge with a batch of observations [B, obs] (on a dp
+    ``mesh`` every rank's rows)."""
+    batch_mean, batch_var, batch_count = _moments(batch, mesh)
     delta = batch_mean - state["mean"]
     total = state["count"] + batch_count
     new_mean = state["mean"] + delta * batch_count / total
@@ -44,13 +53,16 @@ def reward_normalizer_init(nr_envs, device="cpu"):
     }
 
 
-def reward_normalizer_update(state, reward, terminated, truncated, gamma):
+def reward_normalizer_update(state, reward, terminated, truncated, gamma, mesh=None):
+    """The running return ``g`` of each env (this dp rank's on a ``mesh``)
+    and the statistics of every env's (every rank's)."""
     done = (terminated | truncated).to(torch.float32)
     g = gamma * (1.0 - done) * state["g"] + reward
-    g_max = torch.maximum(state["g_max"], torch.abs(g).max())
-    sample_mean = g.mean()
-    sample_var = g.var(unbiased=False)
-    sample_count = float(g.shape[0])
+    largest = torch.abs(g).max()
+    if mesh is not None and mesh.dp > 1:
+        largest = mesh.gather_rows(largest[None]).max()
+    g_max = torch.maximum(state["g_max"], largest)
+    sample_mean, sample_var, sample_count = _moments(g, mesh)
     delta = sample_mean - state["mean"]
     total = state["count"] + sample_count
     ratio = sample_count / total

@@ -1,9 +1,13 @@
 """Runner config namespace (the JAX package's keys that the port runs;
-wandb, rendering, the mesh and the JAX set-up keys are left out, so setting
-one raises ``KeyError``).  ``track_tb`` writes TensorBoard scalars under
+wandb and the JAX set-up keys are left out, so setting one raises
+``KeyError``).  ``track_tb`` writes TensorBoard scalars under
 ``<run path>/tb`` (``tensorboardX``, imported only then);
 ``matmul_precision`` is the counterpart of the JAX package's
 ``jax_default_matmul_precision`` (``config.MATMUL_PRECISIONS``).
+``render_video`` / ``render_interactive`` are test mode's viewers
+(``render/``); ``mesh_dp`` / ``mesh_tp`` / ``coordinator_address`` the
+``torch.distributed`` mesh (``parallel/mesh.py``: one process per device,
+launched by ``torchrun``; at one process nothing changes).
 
 One default differs from the JAX package's on purpose: ``device`` is
 ``"cuda"``, where JAX's ``""`` means "the default backend".  The port runs
@@ -29,6 +33,8 @@ def get_config():
         # interrupted run restores exactly
         save_optimizer_state=False,
         nr_test_episodes=10,
+        render_video="",  # test mode: offscreen rollout video (.mp4 or PNG dir)
+        render_interactive=False,  # test mode: GLFW window (needs GL + display)
         # accepted for the JAX package's command lines: the eager port always
         # runs one host call per eval/save iteration (training_program.py)
         chunked_train=False,
@@ -41,4 +47,10 @@ def get_config():
         # products, the precision the parity tests hold), "tensorfloat32" or
         # "bfloat16" (the JAX package's default); see config.MATMUL_PRECISIONS
         matmul_precision="float32",
+        # device mesh ("dp", "tp"); dp = -1 means every rank of the group
+        mesh_dp=-1,
+        mesh_tp=1,
+        # the process group's rendezvous (host:port or a tcp:// / file:// URL);
+        # "" reads torchrun's MASTER_ADDR / MASTER_PORT
+        coordinator_address="",
     )

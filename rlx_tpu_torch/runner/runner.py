@@ -26,6 +26,18 @@ directory, with ``provenance.json``, ``diff.patch`` and, with
 or, with ``runner.load_model``, load it: the stored algorithm config wins
 over the defaults, the ``algorithm.*`` flags given here over both.  The
 ``runner.*`` and ``environment.*`` keys always come from this command line.
+
+On several cards, one process per card (``parallel/mesh.py``):
+
+    torchrun --nproc-per-node=4 -m rlx_tpu_torch.runner.runner --algorithm.name=ppo.cuda \
+        --environment.name=locomotion.ant.cuda --runner.mesh_tp=2
+
+joins the process group (``runner.coordinator_address``, else torchrun's
+``MASTER_ADDR`` / ``MASTER_PORT``) and runs the ``runner.mesh_dp`` x
+``runner.mesh_tp`` mesh (dp = -1: every rank), each rank on
+``cuda:{LOCAL_RANK}``; only rank 0 logs and writes the run directory's
+files.  Test mode's ``runner.render_video`` / ``runner.render_interactive``
+render a rollout after the test episodes (``render/``).
 """
 
 import json
@@ -41,6 +53,7 @@ from rlx_tpu_torch.algorithms.algorithm_manager import (
 )
 from rlx_tpu_torch.config import create_env, make_config
 from rlx_tpu_torch.environments.environment_manager import get_environment_general_properties
+from rlx_tpu_torch.parallel import mesh as mesh_lib
 from rlx_tpu_torch.runner.runner_mode import RunnerMode
 from rlx_tpu_torch.utils.logging import rlx_logger, setup_logger
 
@@ -96,6 +109,9 @@ class Runner:
         """Train mode returns the trained model, test mode the list of test
         returns, show_config the config; ``self.model`` keeps the model."""
         setup_logger()
+        if self.mode != RunnerMode.SHOW_CONFIG:
+            # under torchrun: join the process group of the mesh
+            mesh_lib.initialize_distributed(self.config.runner.coordinator_address)
         if self.mode == RunnerMode.TRAIN:
             return self._train()
         if self.mode == RunnerMode.TEST:
@@ -109,14 +125,15 @@ class Runner:
         run_path = Path("runs") / runner.project_name / runner.exp_name / (runner.run_name or "run")
         run_path.mkdir(parents=True, exist_ok=True)
         run_path = str(run_path.resolve())
-        log_run_provenance(run_path)
+        if mesh_lib.rank() == 0:
+            log_run_provenance(run_path)
         return run_path
 
     def _make_writer(self, run_path):
         """A ``tensorboardX.SummaryWriter`` into ``<run_path>/tb`` with
         ``runner.track_tb``, else None (``tensorboardX`` is imported only
         then, as the JAX runner does)."""
-        if not self.config.runner.track_tb:
+        if not self.config.runner.track_tb or mesh_lib.rank() != 0:
             return None
         from tensorboardX import SummaryWriter
 
@@ -155,10 +172,32 @@ class Runner:
         try:
             self.model = self._make_model(train_env, eval_env, run_path)
             returns = self.model.test(self.config.runner.nr_test_episodes)
+            self._render(self.model)
         finally:
             close_envs(train_env, eval_env)
         rlx_logger.info(f"test: {len(returns)} episodes, returns {[round(r, 2) for r in returns]}")
         return returns
+
+    def _render(self, model):
+        """Test mode's viewers, after ``model.test``: ``runner.render_video``
+        writes a clip of env 0 (``render/offscreen.py``),
+        ``runner.render_interactive`` opens a window (``render/interactive.py``;
+        skipped with a warning where the env has no ``xml_path``)."""
+        runner = self.config.runner
+        if runner.render_video:
+            from rlx_tpu_torch.render import render_rollout
+
+            frames = render_rollout(model, runner.render_video)
+            rlx_logger.info(f"rendered {frames} frames to {runner.render_video}")
+        if runner.render_interactive:
+            from rlx_tpu_torch.render.interactive import watch_rollout
+
+            xml_path = getattr(model.eval_env, "xml_path", None)
+            if xml_path is None:
+                rlx_logger.warning("runner.render_interactive: env exposes no xml_path; skipping")
+            else:
+                steps = watch_rollout(model, xml_path)
+                rlx_logger.info(f"interactive viewer closed after {steps} steps")
 
     def _show_config(self):
         rlx_logger.info("\n" + json.dumps(self.config.to_dict(), indent=1))

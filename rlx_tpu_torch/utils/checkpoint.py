@@ -21,6 +21,8 @@ import zipfile
 
 import torch
 
+from rlx_tpu_torch.parallel import mesh as mesh_lib
+
 CHECKPOINT = "checkpoint.pt"
 CONFIG = "config_algorithm.json"
 
@@ -44,14 +46,25 @@ def _to_cpu(tree):
     return tree
 
 
-def save_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict):
+def save_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict, mesh=None):
     """Write ``<save_path>/<file_name>`` (a zip) atomically.  A checkpoint
     holds one seed's states (seed 0's after a parallel-seed run), so its
-    config says ``nr_parallel_seeds = 1``."""
+    config says ``nr_parallel_seeds = 1``.  On a ``mesh`` of several
+    processes only rank 0 writes, and every rank returns once it has."""
+    try:
+        _write_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict)
+    finally:
+        if mesh is not None:
+            mesh.barrier()
+
+
+def _write_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict):
     if "nr_parallel_seeds" in algorithm_config_dict:
         algorithm_config_dict = {**algorithm_config_dict, "nr_parallel_seeds": 1}
     if save_path is None:
         raise ValueError("the model has no save path: create it with a run path")
+    if mesh_lib.rank() != 0:
+        return   # in a process group only rank 0 writes (the tree is every rank's)
     tmp_dir = os.path.join(save_path, "tmp")
     if os.path.exists(tmp_dir):
         shutil.rmtree(tmp_dir)
@@ -68,9 +81,15 @@ def save_model_file(save_path, file_name, checkpoint_tree, algorithm_config_dict
         shutil.rmtree(tmp_dir)
 
 
-def load_model_file(model_path):
-    """Read a ``.model`` zip -> (checkpoint_tree on the CPU, algorithm_config_dict)."""
-    with zipfile.ZipFile(model_path) as archive:
+def load_model_file(model_path, mesh=mesh_lib.SINGLE):
+    """Read a ``.model`` zip -> (checkpoint_tree on the CPU, algorithm_config_dict).
+    On a ``mesh`` of several processes only rank 0 reads the file, and
+    every rank gets its bytes (``Mesh.broadcast_bytes``)."""
+    data = None
+    if mesh_lib.rank() == 0 or mesh.dp * mesh.tp == 1:
+        with open(model_path, "rb") as f:
+            data = f.read()
+    with zipfile.ZipFile(io.BytesIO(mesh.broadcast_bytes(data))) as archive:
         algorithm_config = json.loads(archive.read(CONFIG))
         tree = torch.load(io.BytesIO(archive.read(CHECKPOINT)), weights_only=True, map_location="cpu")
     return tree, algorithm_config
@@ -95,8 +114,11 @@ def merge_loaded_algorithm_config(config, loaded_algorithm_config, explicitly_se
 
 def load_model(model_class, config, train_env, eval_env, run_path, writer, explicitly_set_algorithm_params):
     """``model_class`` built from ``config`` with the stored algorithm config
-    of ``runner.load_model`` merged in, then its ``restore_from_tree``."""
-    tree, loaded_config = load_model_file(config.runner.load_model)
+    of ``runner.load_model`` merged in, then its ``restore_from_tree``.  On
+    a dp / tp mesh every rank restores rank 0's file, each into its own
+    part: its rows of the per-env states, its slices of tp-split nets."""
+    mesh = mesh_lib.mesh_for(config, train_env.device)
+    tree, loaded_config = load_model_file(config.runner.load_model, mesh)
     merge_loaded_algorithm_config(config, loaded_config, explicitly_set_algorithm_params)
     model = model_class(config, train_env, eval_env, run_path, writer)
     model.restore_from_tree(tree)

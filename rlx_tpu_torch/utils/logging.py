@@ -28,13 +28,19 @@ def setup_logger():
 class MetricsLogger:
     """Console sink: a box table when ``track_console``, else the step; with
     a ``writer`` (``tensorboardX.SummaryWriter``) every metric is also a
-    scalar at ``step``."""
+    scalar at ``step``.  In a process group (``parallel/mesh.py``) only
+    rank 0 writes."""
 
     def __init__(self, track_console=False, writer=None):
+        from rlx_tpu_torch.parallel.mesh import rank
+
+        self.active = rank() == 0
         self.track_console = track_console
         self.writer = writer
 
     def log_dict(self, metrics, step):
+        if not self.active:
+            return
         if self.writer is not None:
             for name, value in metrics.items():
                 self.writer.add_scalar(name, float(np.asarray(value)), step)

@@ -390,8 +390,11 @@ def test_left_out_features_raise():
     for algorithm in (*FAMILY, "pqn"):   # parallel seeds are ported: the key is there
         config = make_config(f"{algorithm}.cuda", "classic.cart_pole.cuda", **{"algorithm.nr_parallel_seeds": 2})
         assert config.algorithm.nr_parallel_seeds == 2
+    # the dp mesh is ported: the key is there
+    assert make_config("dqn.cuda", "classic.cart_pole.cuda", **{"algorithm.shard_local_sampling": False}
+                       ).algorithm.shard_local_sampling is False
     with pytest.raises(KeyError):
-        make_config("dqn.cuda", "classic.cart_pole.cuda", **{"algorithm.shard_local_sampling": False})
+        make_config("dqn.cuda", "classic.cart_pole.cuda", **{"algorithm.shard_local_samplin": False})
 
 
 def test_curve_recipes_match_jax():

@@ -1,7 +1,8 @@
 """The port stands alone: no module of rlx_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or the JAX package.  Every algorithm's
 module and every module under ``rlx_tpu_torch/environments/`` is among the
-modules imported, the host envs' modules and their 20 registrations named."""
+modules imported, the host envs' modules and their 20 registrations named,
+and the mesh's and the rendering's modules."""
 
 import os
 import subprocess
@@ -37,6 +38,9 @@ for dirpath, _, files in os.walk(env_root):
             if module not in names and module not in sys.modules:
                 missing.append(module)
 assert "rlx_tpu_torch.environments.locomotion.soccer.cuda.environment" in names
+# the mesh and the rendering
+assert {"rlx_tpu_torch.parallel.mesh", "rlx_tpu_torch.parallel.partition", "rlx_tpu_torch.parallel.dryrun",
+        "rlx_tpu_torch.render.offscreen", "rlx_tpu_torch.render.interactive"} <= set(names)
 assert {"rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment",
         "rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment"} <= set(names)
 # the host envs: the edge, the three bridges, the process pool, the Atari

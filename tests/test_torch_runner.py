@@ -129,9 +129,10 @@ def test_show_config_prints_the_three_namespaces():
     assert '"nr_steps": 7' in text and config.algorithm.nr_steps == 7
 
 
-# track_tb is ported; jax_default_matmul_precision's counterpart is matmul_precision
+# track_tb, the render keys and the mesh keys are ported (tests/test_torch_render.py,
+# tests/test_torch_mesh.py); jax_default_matmul_precision's counterpart is matmul_precision
 @pytest.mark.parametrize("key", ["jax_default_matmul_precision", "track_wandb", "wandb_entity", "notes",
-                                 "render_video", "render_interactive"])
+                                 "jax_compilation_cache_dir", "pallas_kernels"])
 def test_left_out_runner_keys_raise(key):
     with pytest.raises(KeyError):
         Runner([f"--runner.{key}=True"])

@@ -264,8 +264,12 @@ def _same_tree(a, b):
 
 
 def test_left_out_features_raise():
+    # the dp mesh is ported: its key is there, True by default as in JAX
+    assert make_config("sac.cuda", "classic.pendulum.cuda").algorithm.shard_local_sampling is True
+    assert make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False}
+                       ).algorithm.shard_local_sampling is False
     with pytest.raises(KeyError):
-        make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False})
+        make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_samplin": False})
     # parallel seeds are ported: the key is there
     assert make_config("sac.cuda", "classic.pendulum.cuda", **{"algorithm.nr_parallel_seeds": 2}
                        ).algorithm.nr_parallel_seeds == 2

@@ -189,8 +189,11 @@ def test_jax_checkpoint_carries_into_the_port(algorithm, tmp_path):
 
 @pytest.mark.parametrize("algorithm", ["td3", "ddpg"])
 def test_left_out_features_raise_and_anneal_is_accepted(algorithm):
+    # the dp mesh is ported: the key is there
+    assert make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False}
+                       ).algorithm.shard_local_sampling is False
     with pytest.raises(KeyError):
-        make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_sampling": False})
+        make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.shard_local_samplin": False})
     # parallel seeds are ported: the key is there
     assert make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **{"algorithm.nr_parallel_seeds": 2}
                        ).algorithm.nr_parallel_seeds == 2
