@@ -263,14 +263,32 @@ Phases (each prints one line; any failure exits nonzero):
     then a one-rank NCCL group: the PPO iteration's gradients through
     NCCL's all_reduce and broadcast on the card, back bit for bit, and the
     iteration equal bit for bit to the run with no group (a mesh of one
-    rank makes no collective: NCCL at dp > 1 needs a card a rank).
+    rank makes no collective: NCCL at dp > 1 needs a card a rank);
+47. deployment (``deployment_phase``): PPO at the ``locomotion_ppo``
+    recipe on the Go2 on the plane (4096 envs x 32 steps, 1 iteration, B1
+    exactly 1 and B2 exactly 32: one launch a control step); B2 at the
+    Go2's shape against ``engine.step_reference`` held as in phase 44
+    (against float64, at twice the f32 plain version's own error); the
+    checkpoint through ``load_policy_apply`` on the card and on the CPU,
+    each driving ``Go2DeploymentRunner`` on ``FakeGo2SDK`` over 400
+    scripted ticks (Y, B, a joint-velocity spike, B, X, A): the modes
+    equal, the targets within 1e-5 in nn mode and equal in the ramps, the
+    nn actions within 1e-5 of the training policy's mean on the env's
+    policy-indexed observation, an nn tick's median and p99 ms on each;
+    PPO-GRU on soccer at ``soccer_lstm``'s widths (1024 envs x 32 steps,
+    B1 1, B2 32), saved and exported by ``convert.py`` in a subprocess,
+    ``TorchPolicyGRU`` on the card over 32 steps with its carry within
+    1e-5 of ``RecurrentPolicy.one_step`` and of the CPU's, the meta JSON
+    against the env; PPO over a brax-style stub under
+    ``PlaygroundAdapter`` on the card (2 iterations, B1 2), and the
+    playground registration's ImportError.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
 profiler's time of the kernel alone (``device_ms``), and the host's time
 per call over 1,000 enqueues with no sync inside (``host_us``).  The line before the last is the
 kernels' JSON record (B1's and B3's ``by_shape`` hold their numbers at the
-shapes of phases 15, 19, 20, 27, 35, 36, 39, 40, 42 and 43, B2's at the robots' of phases 29 and 44 and
+shapes of phases 15, 19, 20, 27, 35, 36, 39, 40, 42 and 43, B2's at the robots' of phases 29, 44 and 47 and
 the 4-seed batches of phases 42 and 43), the
 last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
@@ -583,6 +601,78 @@ def c3_checks(device):
     return out
 
 
+def robot_substep_check(kernels, robot, env_class, env_name, overrides, g, B=4096, against_float64=False):
+    """B2 against ``engine.step_reference`` on a robot (phases 29 and 47): the
+    env at ``B`` envs in evaluation mode (the curriculum at 1: every
+    randomization axis drawn), two env steps after the reset, with the env's
+    own DomainParams and its delayed PD targets as a ctrl_sequence, compared
+    at 1e-4 on the envs that the last step did not reset (a reset leaves a
+    foot exactly on the ground, where the first contact's damper turns on
+    the last bit of the kinematics).  The damping scale is per dof, [nv, B]:
+    the env's times a factor in [0.5, 1.5) for each dof and env (the joint
+    locks' 1000x damping make the explicit integrator diverge within a step
+    in both packages, so the envs the reset locked have terminated by
+    then).  With ``against_float64`` the kernel is held instead, as in
+    phase 44, against the plain version in float64 at twice the f32 plain
+    version's own max |err| from it: a few envs' stiff contacts leave the
+    f32 plain version itself 2e-4 to 6e-4 from float64 there, and the
+    kernel's rounding as far in others, so the two f32 versions part by
+    more than 1e-4 (the Go2 and the quadruped alike, at every generator
+    stream tried); its max |err| against the f32 plain version and the
+    envs beyond 1e-4 are reported.  Kernel, device, host, plain and bound
+    times go into ``kernels[1]["by_shape"][f"{robot} B={B}"]``."""
+    from rlx_tpu_torch.benchmarks.b2_robot_conditioning import float64_reference, substep_case
+    from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda, substep_bytes, substep_flops
+    from rlx_tpu_torch.physics import engine
+
+    env, state, args, kw = substep_case(env_class, env_name, overrides, g, B)
+    internal = state.physics["internal"]
+    locks = int((~internal["joint_dropout_lock"]).sum())
+    kept = ~(state.terminated | state.truncated)
+    changing = bool((kw["ctrl_sequence"][1:] != kw["ctrl_sequence"][:1]).any())
+    out = step_cuda(*args, **kw)
+    ref = engine.step_reference(*args, **kw)
+    torch.cuda.synchronize()
+    held = "rtol=atol=1e-4"
+    if against_float64:
+        ref64 = float64_reference(args, kw)
+        worst = lambda outs: max((o[kept].double() - r[kept]).abs().max().item() for o, r in zip(outs, ref64))
+        kernel64, plain64 = worst(out), worst(ref)
+        if not (all(torch.isfinite(o[kept]).all() for o in out) and kernel64 <= 2.0 * plain64):
+            fail(f"substep ({robot}, B={B}): max|err| {kernel64:.3g} against the float64 plain version, beyond twice "
+                 f"the f32 plain version's {plain64:.3g}")
+        per_env = torch.stack([(o - r).abs().reshape(B, -1).max(1).values for o, r in zip(out, ref)]).max(0).values
+        err = per_env[kept].max().item()
+        held = (f"{kernel64:.3g} against it in float64, where the f32 plain version stands {plain64:.3g} from it "
+                f"(limit twice that); {int((per_env[kept] > 1e-4).sum())} envs beyond 1e-4 of the f32 plain version")
+    else:
+        err = max_err([o[kept] for o in out], [r[kept] for r in ref], 1e-4, 1e-4,
+                      f"substep ({robot}, B={B}, the env's DomainParams)")
+    substep = lambda: step_cuda(*args, **kw)
+    model = env.model
+    flops = substep_flops(model, dr=True) * B * env.nr_substeps
+    # the state and anchors in and out, the whole ctrl_sequence and every
+    # DomainParams field read once
+    nbytes = (substep_bytes(model, B, with_anchors=True)
+              + 4 * (kw["ctrl_sequence"].numel() - B * len(model.act_dof))
+              + 4 * sum(f.numel() for f in kw["dr"] if f is not None))
+    t = kernel_times(substep, lambda: engine.step_reference(*args, **kw), "engine_substep_kernel", reps=50)
+    t["bound_ms"], t["bound_by"] = roofline(nbytes, flops)
+    print(f"B2 engine_substep on the {robot} (nq {model.nq}, nv {model.nv}, nbody {model.nbody}, ncon "
+          f"{len(model.con_body)}) at B={B}, {env.nr_substeps} substeps, against engine.step_reference: "
+          f"max|err| {err:.3g} ({held}) over the {int(kept.sum())} envs not just reset, {locks} "
+          f"locked joints left, the targets "
+          f"{'change' if changing else 'hold'} between substeps; kernel {t['ms']:.4f} ms (device "
+          f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.2f} ms bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+    row = {**t, "max_abs_err": err}
+    if against_float64:
+        row.update(max_abs_err_float64=kernel64, plain_max_abs_err_float64=plain64)
+    kernels[1]["by_shape"] = {**kernels[1].get("by_shape", {}), f"{robot} B={B}": row}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+    return t, err
+
+
 def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_steps=32):
     """Phase 44: 4-seed PPO-LSTM on the plane robot (the quadruped) and on
     soccer (the Booster T1) at phases 28 and 31's widths, ``seeds`` x
@@ -596,6 +686,7 @@ def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_st
     ``engine.step_reference`` in float64, as accurate as the f32 plain
     version.  Returns the rates a path."""
     from rlx_tpu_torch.algorithms.parallel_seeds import seed_for
+    from rlx_tpu_torch.benchmarks.b2_robot_conditioning import float64_reference
     from rlx_tpu_torch.config import create_model, make_config
     from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
     from rlx_tpu_torch.environments.locomotion.soccer.cuda.environment import SoccerEnv
@@ -684,11 +775,7 @@ def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_st
                   contact_state=state.physics["contact_anchor"])
         kept = ~(state.terminated | state.truncated)
         out, ref_out = step_cuda(*args, **kw), engine.step_reference(*args, **kw)
-        to64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
-        ref64 = engine.step_reference(
-            env.model, *(to64(a) for a in args[1:]), nr_substeps=env.nr_substeps,
-            dr=type(kw["dr"])(*(to64(f) for f in kw["dr"])), ctrl_sequence=to64(targets),
-            contact_state=to64(kw["contact_state"]))
+        ref64 = float64_reference(args, kw)
         torch.cuda.synchronize()
         B = seeds * nr_envs
         robot = env.env_config.robot
@@ -833,6 +920,288 @@ def mesh_phase(launches_by_path, workdir, world=2):
           f"({nccl['broadcast_ms']:.3f} ms) back bit for bit; the iteration at 1024 envs x 16 steps ({nccl['mesh']}: "
           f"a mesh of one rank makes no collective) equal bit for bit to the run with no group; launches "
           f"{nccl['launches']}.  NCCL at dp > 1 needs a card a rank (torchrun), not run here")
+
+
+class FakeBraxState:
+    """The state of ``FakeBraxEnv``: a brax-style ``State``."""
+
+    def __init__(self, obs, reward, done, metrics, info, t):
+        self.obs, self.reward, self.done, self.metrics, self.info, self.t = obs, reward, done, metrics, info, t
+
+
+class FakeBraxEnv:
+    """A brax-training-style stub for ``PlaygroundAdapter`` (the port's
+    counterpart of the JAX package's ``tests/test_playground_adapter.py``
+    stub): vector dynamics, episodes of 5 steps ended by truncation,
+    auto-reset on done, an obs dict with a privileged suffix, its tensors
+    on ``device``."""
+
+    action_size = 2
+    observation_size = {"state": (4,), "privileged_state": (6,)}
+    episode_length = 5
+
+    def __init__(self, nr_envs, device):
+        self.nr_envs, self.device = nr_envs, device
+
+    def _obs(self, t):
+        base = t[:, None].expand(-1, 4)
+        privileged = torch.cat([base, torch.full((t.shape[0], 2), 9.0, device=self.device)], dim=1)
+        return {"state": base, "privileged_state": privileged}
+
+    def reset(self, generator):
+        t = torch.zeros(self.nr_envs, device=self.device)
+        return FakeBraxState(self._obs(t), t, t, {"speed": t}, {"truncation": t}, t)
+
+    def step(self, state, action):
+        t = state.t + 1
+        done = t >= self.episode_length
+        t = torch.where(done, 0.0, t)
+        return FakeBraxState(self._obs(t), action.abs().sum(-1), done.float(), {"speed": t},
+                             {"truncation": done.float()}, t)
+
+
+def go2_ticks(seed=47):
+    """The scripted remote and robot states of phase 47, ~400 ticks: Y
+    (stand up, 60 ticks), B once then no button (nn, 150 ticks, the sticks
+    moving), a joint-velocity spike over 25 (forced stand up, 60 ticks),
+    nn again (B once, 60 ticks), X (lie down, 60 ticks), A (stop, 10)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    plan = ([("Y",)] * 60 + [("B",)] + [()] * 149 + [("spike",)] + [()] * 59 + [("B",)] + [()] * 59
+            + [("X",)] * 60 + [("A",)] * 10)
+    nominal = np.array([-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 0.8, -1.5, 0.1, 0.8, -1.5])
+    ticks = []
+    for buttons in plan:
+        quat = np.array([1.0, 0.0, 0.0, 0.0]) + 0.2 * rng.normal(size=4)
+        velocities = np.clip(5.0 * rng.normal(size=12), -20.0, 20.0)
+        if buttons == ("spike",):
+            velocities[3], buttons = 30.0, ()
+        ticks.append((buttons, {
+            "joint_positions": nominal + 0.2 * rng.normal(size=12), "joint_velocities": velocities,
+            "orientation_wxyz": quat / np.linalg.norm(quat), "angular_velocity": 30.0 * rng.normal(size=3),
+            "sticks": dict(zip(("Lx", "Rx", "Ry", "Ly"), rng.uniform(-1.2, 1.2, size=4)))}))
+    return ticks
+
+
+def deployment_phase(kernels, launches_by_path, workdir):
+    """Phase 47: a policy leaves the framework.  (a) The Go2: one PPO
+    iteration at the ``locomotion_ppo`` recipe (4096 envs x 32 steps, the
+    algorithm's default widths) on the ``go2`` on the plane, B1 once and B2
+    once a control step (each launch runs the step's ``nr_substeps``); B2
+    at the Go2's shape against its plain version, held against float64 as
+    in phase 44 (``robot_substep_check``); the checkpoint loaded by
+    ``load_policy_apply`` on the card and on the CPU, each driving
+    ``Go2DeploymentRunner`` on ``FakeGo2SDK`` through ``go2_ticks``: the
+    modes equal, the targets within 1e-5 in nn mode and equal in the ramps,
+    the nn actions within 1e-5 of the training policy's mean on the env's
+    policy-indexed observation; tick times.  (b) Soccer: one PPO-GRU
+    iteration at ``soccer_lstm``'s widths (1024 envs x 32 steps, GRU 128)
+    through B1 and B2, saved and converted by ``convert.py`` in a
+    subprocess (its ``--device`` default); ``TorchPolicyGRU`` on the card
+    for 32 steps with its carry on the env's policy-indexed observations,
+    within 1e-5 of ``RecurrentPolicy.one_step`` on the card and of
+    ``TorchPolicyGRU`` on the CPU; the meta JSON against the env.  (c) The
+    playground: PPO on ``FakeBraxEnv`` under ``PlaygroundAdapter`` on the
+    card, 2 iterations (B1 2, B2 and B3 none), the parameters finite; the
+    registration's create raises ImportError naming mujoco_playground."""
+    import numpy as np
+
+    from rlx_tpu_torch.config import create_env, create_model, make_config
+    from rlx_tpu_torch.environments import environment_manager as em
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
+    from rlx_tpu_torch.environments.locomotion.robot.deployment.unitree_go2 import run as go2_run
+    from rlx_tpu_torch.environments.locomotion.robot.deployment.unitree_go2.sdk import FakeGo2SDK
+    from rlx_tpu_torch.environments.locomotion.soccer.deployment.torch_policy import TorchPolicyGRU
+    from rlx_tpu_torch.environments.playground.adapter import GeneralProperties, PlaygroundAdapter
+    from rlx_tpu_torch.utils.config_dict import ConfigDict
+
+    dev = torch.device("cuda")
+    out = os.path.join(workdir, "deployment")
+    rows = {}
+
+    def train(name, model, expected):
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        if launches != expected:
+            fail(f"{name}: launches {launches} != {expected}")
+        policy = getattr(model.policy, "module", model.policy)   # PPO's adapter, or the recurrent net
+        for p in policy.parameters():
+            if not torch.isfinite(p).all():
+                fail(f"{name}: non-finite parameters after training")
+        launches_by_path[name] = launches
+        return seconds, launches
+
+    # (a) the Go2: train, hold B2 at its shape, save, deploy on the card and the CPU
+    go2 = {"environment.robot": "go2", "environment.terrain.type": "plane"}
+    nr_steps = 32
+    model = create_model(make_config("ppo.cuda", "locomotion.robot.cuda", **{
+        **go2, "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": nr_steps,
+        "algorithm.minibatch_size": 32768, "algorithm.nr_epochs": 4, "algorithm.learning_rate": 3e-4,
+        "algorithm.total_timesteps": 4096 * nr_steps, "algorithm.evaluation_active": False,
+        "algorithm.logging_active": False}), run_path=os.path.join(out, "go2"))
+    env = model.train_env
+    # one B2 launch runs a control step's nr_substeps (4 for the Go2: 50 Hz at 0.005 s)
+    train_s, launches = train("go2_ppo", model, {"engine_substep": nr_steps, "gae": 1, "categorical_projection": 0})
+    print(f"deployment go2: 1 PPO iteration at 4096x{nr_steps} on the plane ({env.nr_substeps} substeps a control "
+          f"step) in {train_s:.2f} s, launches {launches}")
+    b2, b2_err = robot_substep_check(kernels, "go2", LocomotionEnv, "locomotion.robot.cuda", go2,
+                                     torch.Generator(device=dev).manual_seed(47), against_float64=True)
+    model.save()
+    model_path = os.path.join(out, "go2", "models", "latest.model")
+
+    ticks = go2_ticks()
+
+    def deploy(device):
+        fake = FakeGo2SDK()
+        runner = go2_run.Go2DeploymentRunner(fake, model_path=model_path, device=device)
+        runner.policy_apply(np.zeros(go2_run.OBSERVATION_SIZE))   # warm-up, outside the timed ticks
+        calls, modes, tick_ms = [], [], []
+        apply = runner.policy_apply
+
+        def recorded(observation):
+            action = apply(observation)
+            calls.append((observation, action))
+            return action
+
+        runner.policy_apply = recorded
+        for buttons, fields in ticks:
+            for name in ("joint_positions", "joint_velocities", "orientation_wxyz", "angular_velocity"):
+                setattr(fake.state, name, fields[name].copy())
+            fake.state.wireless_remote = go2_run.RemoteControllerState.pack(buttons=buttons, **fields["sticks"])
+            t0 = time.perf_counter()
+            runner.tick()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            modes.append(runner.control_mode)
+        return fake.published, modes, calls, tick_ms
+
+    zero_counts()
+    published, modes, calls, card_ms = deploy("cuda")
+    cpu_published, cpu_modes, _, cpu_ms = deploy("cpu")
+    if any(counts().values()):
+        fail(f"deployment launched a kernel: {counts()}")
+    if modes != cpu_modes or len(published) != len(cpu_published):
+        fail("go2 deployment: the card's modes or commands differ from the CPU's")
+    nn_err, nn_ticks = 0.0, []
+    for i, ((targets, kp, kd), (cpu_targets, cpu_kp, cpu_kd)) in enumerate(zip(published, cpu_published)):
+        if (kp, kd) != (cpu_kp, cpu_kd):
+            fail(f"go2 deployment: command {i} gains {(kp, kd)} on the card, {(cpu_kp, cpu_kd)} on the CPU")
+        if kp == 20.0:
+            nn_err = max(nn_err, float(np.abs(targets - cpu_targets).max()))
+        elif not np.array_equal(targets, cpu_targets):
+            fail(f"go2 deployment: ramp command {i} differs between the card and the CPU")
+    nn_mode = [i for i, m in enumerate(modes) if m == "nn"]
+    if len(calls) != len(nn_mode) or len(calls) < 200 or nn_err > 1e-5:
+        fail(f"go2 deployment: {len(calls)} policy calls for {len(nn_mode)} nn ticks, targets {nn_err:.3g} from "
+             f"the CPU's (limit 1e-5)")
+    observations = torch.as_tensor(np.stack([o for o, _ in calls]), dtype=torch.float32, device=dev)
+    full = torch.zeros(len(calls), env.single_observation_space.shape[0], device=dev)
+    full[:, torch.as_tensor(env.policy_observation_indices, device=dev)] = observations
+    with torch.no_grad():
+        mean = model.policy.module(full)[0]
+    action_err = float((mean.cpu().double() - torch.as_tensor(np.stack([a for _, a in calls]))).abs().max())
+    if not action_err <= 1e-5:
+        fail(f"go2 deployment: nn actions {action_err:.3g} from the training policy's mean (limit 1e-5)")
+    tick = lambda ms: {"median_ms": float(np.median([ms[i] for i in nn_mode])),
+                       "p99_ms": float(np.percentile([ms[i] for i in nn_mode], 99))}
+    rows["go2"] = {"train_s": train_s, "launches": launches, "b2_max_abs_err": b2_err, "b2_ms": b2["ms"],
+                   "b2_device_ms": b2["device_ms"], "b2_host_us": b2["host_us"], "b2_bound_ms": b2["bound_ms"],
+                   "ticks": len(ticks), "nn_ticks": len(nn_mode), "targets_err_card_cpu": nn_err,
+                   "action_err_training_policy": action_err, "tick_card": tick(card_ms), "tick_cpu": tick(cpu_ms)}
+    print(f"deployment go2: {len(ticks)} ticks of Go2DeploymentRunner on FakeGo2SDK (Y, B, a joint-velocity spike, "
+          f"B, X, A), modes {sorted(set(m for m in modes if m))}, {len(published)} commands; nn targets on the card "
+          f"{nn_err:.3g} from the CPU's (limit 1e-5), ramps equal; {len(calls)} nn actions {action_err:.3g} from the "
+          f"training policy's mean on the env's policy-indexed observation (limit 1e-5); an nn tick on the card "
+          f"median {rows['go2']['tick_card']['median_ms']:.3f} ms p99 {rows['go2']['tick_card']['p99_ms']:.3f} ms, on "
+          f"the CPU median {rows['go2']['tick_cpu']['median_ms']:.3f} ms p99 {rows['go2']['tick_cpu']['p99_ms']:.3f} "
+          f"ms (budget 20 ms at 50 Hz)")
+    del model, env
+
+    # (b) soccer: train PPO-GRU, save, convert in a subprocess, run TorchPolicyGRU
+    soccer = create_model(make_config("ppo_gru.cuda", "locomotion.soccer.cuda", **{
+        "runner.device": "cuda", "environment.nr_envs": 1024, "algorithm.nr_steps": nr_steps,
+        "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4, "algorithm.rnn_hidden_dim": 128,
+        "algorithm.learning_rate": 3e-4, "algorithm.total_timesteps": 1024 * nr_steps,
+        "algorithm.evaluation_active": False, "algorithm.logging_active": False}), run_path=os.path.join(out, "soccer"))
+    train_s, launches = train("soccer_gru", soccer, {"engine_substep": nr_steps, "gae": 1, "categorical_projection": 0})
+    soccer.save()
+    pth, meta_path = os.path.join(out, "locomotion_nn.pth"), os.path.join(out, "locomotion_nn_meta.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rlx_tpu_torch.environments.locomotion.soccer.deployment.convert",
+                           "--model", os.path.join(out, "soccer", "models", "latest.model"), "--output", pth,
+                           "--meta-output", meta_path],
+                          env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))},
+                          capture_output=True, text=True, timeout=300)
+    convert_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"convert.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    meta = json.load(open(meta_path))
+    env = soccer.train_env
+    expected_meta = {"policy_observation_indices": np.asarray(env.policy_observation_indices).tolist(),
+                     "action_scaling_factor": float(env.robot_config["scaling_factor"]),
+                     "nominal_joint_positions": env.nominal_joint_positions.cpu().tolist(),
+                     "control_frequency_hz": env.control_frequency_hz, "hidden_dim": 128}
+    if any(meta[k] != v for k, v in expected_meta.items()):
+        fail(f"convert.py's meta {({k: meta[k] for k in expected_meta})} != the env's {expected_meta}")
+    arch = {k: meta[k] for k in ("obs_dim", "action_dim", "obs_encoding_dim", "hidden_dim", "combine_method",
+                                 "share_encoder")}
+    deployed, cpu_deployed = TorchPolicyGRU(**arch).to(dev), TorchPolicyGRU(**arch)
+    deployed.load_state_dict(torch.load(pth, map_location=dev, weights_only=True))
+    cpu_deployed.load_state_dict(torch.load(pth, weights_only=True))
+    index = torch.as_tensor(meta["policy_observation_indices"], device=dev)
+    state = env.reset(47)
+    carry, ref_carry, cpu_carry = (deployed.initial_carry(1024), soccer.policy.initialize_carry(1024),
+                                   cpu_deployed.initial_carry(1024))
+    policy_err = cpu_err = 0.0
+    with torch.no_grad():
+        for _ in range(nr_steps):
+            got, carry = deployed(state.observation[:, index], carry)
+            mean, _, ref_carry = soccer.policy.one_step(state.observation, ref_carry)
+            cpu_got, cpu_carry = cpu_deployed(state.observation[:, index].cpu(), cpu_carry)
+            policy_err = max(policy_err, (got - mean).abs().max().item())
+            cpu_err = max(cpu_err, (got.cpu() - cpu_got).abs().max().item())
+            state = env.step(state, got)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and policy_err <= 1e-5 and cpu_err <= 1e-5):
+        fail(f"TorchPolicyGRU on the card: {policy_err:.3g} from RecurrentPolicy.one_step, {cpu_err:.3g} from the "
+             f"CPU's (limit 1e-5)")
+    rows["soccer"] = {"train_s": train_s, "launches": launches, "convert_s": convert_s,
+                      "policy_err": policy_err, "cpu_err": cpu_err, "arch": arch}
+    print(f"deployment soccer: 1 PPO-GRU iteration at 1024x{nr_steps} in {train_s:.2f} s, launches {launches}; "
+          f"convert.py (a subprocess on the card) {convert_s:.1f} s, arch {json.dumps(arch)}, meta against the env "
+          f"equal; TorchPolicyGRU on the card over {nr_steps} steps with its carry {policy_err:.3g} from "
+          f"RecurrentPolicy.one_step on the card and {cpu_err:.3g} from TorchPolicyGRU on the CPU (limit 1e-5)")
+    del soccer, env, state
+
+    # (c) the playground: PPO over the stub on the card; the registration raises
+    def create(config):
+        adapter = PlaygroundAdapter(FakeBraxEnv(3, config.runner.device), nr_envs=3, horizon=5,
+                                    device=config.runner.device)
+        return adapter, adapter
+
+    em.register_environment("smoke.fake_playground.cuda", lambda n: ConfigDict(name=n, seed=1, nr_envs=3), create,
+                            GeneralProperties)
+    playground = create_model(make_config("ppo.cuda", "smoke.fake_playground.cuda", **{
+        "runner.device": "cuda", "algorithm.total_timesteps": 2 * 3 * 5, "algorithm.nr_steps": 5,
+        "algorithm.minibatch_size": 5, "algorithm.nr_epochs": 1, "environment.nr_envs": 3}))
+    train_s, launches = train("playground_stub_ppo", playground,
+                              {"engine_substep": 0, "gae": 2, "categorical_projection": 0})
+    try:
+        create_env(make_config("ppo.cuda", "playground.g1_joystick_flat_terrain.cuda", **{"runner.device": "cuda"}))
+    except ImportError as e:
+        if "mujoco_playground" not in str(e):
+            fail(f"playground registration: ImportError without mujoco_playground: {e}")
+    else:
+        fail("playground registration: creating the env did not raise")
+    rows["playground"] = {"train_s": train_s, "launches": launches}
+    print(f"deployment playground: PPO over the stub under PlaygroundAdapter on the card, 2 iterations in "
+          f"{train_s:.2f} s, launches {launches}, parameters finite; playground.g1_joystick_flat_terrain.cuda "
+          f"raises ImportError naming mujoco_playground")
+    return rows
 
 
 def main():
@@ -2192,67 +2561,11 @@ def main():
           f"once on this card take at least {3 * seed_s / 3600:.2f} h if they share it evenly")
 
     # 29. B2 against engine.step_reference at the robots' shapes: the
-    # quadruped (plane) and the Booster T1 (soccer) at B=4096 in evaluation
-    # mode (the curriculum at 1: every randomization axis drawn), two env
-    # steps after the reset, with the env's own DomainParams and its delayed
-    # PD targets as a ctrl_sequence, compared on the envs that the last
-    # step did not reset (a reset leaves a foot exactly on the ground, where
-    # the first contact's damper turns on the last bit of the kinematics).
-    # The damping scale is per dof, [nv, B]: the env's times a factor in
-    # [0.5, 1.5) for each dof and env (the joint locks' 1000x damping make
-    # the explicit integrator diverge within a step in both packages, so
-    # the envs the reset locked have terminated by then)
-    def robot_case(env_class, env_name, overrides):
-        config = make_config("ppo_lstm.cuda", env_name, **{"runner.device": "cuda", "environment.nr_envs": 4096,
-                                                            **overrides})
-        env = env_class(config.environment, 4096, device="cuda")
-        state = env.reset(1, eval_mode=True)
-        for _ in range(2):
-            state = env.step(state, 2.0 * torch.rand(4096, env.nr_actuator_joints, device=dev, generator=g) - 1.0)
-        internal = state.physics["internal"]
-        action = 2.0 * torch.rand(4096, env.nr_actuator_joints, device=dev, generator=g) - 1.0
-        delayed, _ = env.action_delay.delay_action(action, internal)
-        targets = env.control_function.process_action(delayed, internal).contiguous()
-        dr = env._domain_params(internal)
-        dr = dr._replace(damping_scale=dr.damping_scale * (0.5 + torch.rand(dr.damping_scale.shape, device=dev,
-                                                                             generator=g)))
-        args = (env.model, state.physics["qpos"], state.physics["qvel"], targets[0])
-        kw = dict(nr_substeps=env.nr_substeps, dr=dr, ctrl_sequence=targets,
-                  contact_state=state.physics["contact_anchor"])
-        return env, args, kw, internal["joint_dropout_lock"], ~(state.terminated | state.truncated)
-
-    robot_cases = {
-        "quadruped": robot_case(LocomotionEnv, "locomotion.robot.cuda", {"environment.terrain.type": "plane"}),
-        "booster_t1": robot_case(SoccerEnv, "locomotion.soccer.cuda", {}),
-    }
-    for robot, (env, args, kw, movable, kept) in robot_cases.items():
-        locks = int((~movable).sum())
-        changing = bool((kw["ctrl_sequence"][1:] != kw["ctrl_sequence"][:1]).any())
-        out = step_cuda(*args, **kw)
-        ref = engine.step_reference(*args, **kw)
-        torch.cuda.synchronize()
-        err = max_err([o[kept] for o in out], [r[kept] for r in ref], 1e-4, 1e-4,
-                      f"substep ({robot}, B=4096, the env's DomainParams)")
-        substep = lambda: step_cuda(*args, **kw)
-        model = env.model
-        flops = substep_flops(model, dr=True) * 4096 * env.nr_substeps
-        # the state and anchors in and out, the whole ctrl_sequence and every
-        # DomainParams field read once
-        nbytes = (substep_bytes(model, 4096, with_anchors=True)
-                  + 4 * (kw["ctrl_sequence"].numel() - 4096 * len(model.act_dof))
-                  + 4 * sum(f.numel() for f in kw["dr"] if f is not None))
-        t = kernel_times(substep, lambda: engine.step_reference(*args, **kw), "engine_substep_kernel", reps=50)
-        t["bound_ms"], t["bound_by"] = roofline(nbytes, flops)
-        print(f"B2 engine_substep on the {robot} (nq {model.nq}, nv {model.nv}, nbody {model.nbody}, ncon "
-              f"{len(model.con_body)}) at B=4096, {env.nr_substeps} substeps, against engine.step_reference: "
-              f"max|err| {err:.3g} (rtol=atol=1e-4) over the {int(kept.sum())} envs not just reset, {locks} "
-              f"locked joints left, the targets "
-              f"{'change' if changing else 'hold'} between substeps; kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call) plain {t['plain_ms']:.2f} ms bound "
-              f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
-        kernels[1]["by_shape"] = {**kernels[1].get("by_shape", {}), f"{robot} B=4096": {**t, "max_abs_err": err}}
-        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
-    del robot_cases, env, args, kw, movable, kept, out, ref
+    # quadruped (plane) and the Booster T1 (soccer) at B=4096, with the env's
+    # own DomainParams and delayed targets (robot_substep_check)
+    robot_substep_check(kernels, "quadruped", LocomotionEnv, "locomotion.robot.cuda",
+                        {"environment.terrain.type": "plane"}, g)
+    robot_substep_check(kernels, "booster_t1", SoccerEnv, "locomotion.soccer.cuda", {}, g)
 
     # 30. feedforward PPO at the JAX package's locomotion_ppo shape (4096 x
     # 32, minibatch 32768, 4 epochs, lr 3e-4) on the default heightfield: 1
@@ -3224,6 +3537,13 @@ def main():
     phase_t0 = time.perf_counter()
     mesh_phase(launches_by_path, workdir.name)
     print(f"phase 46 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 47. deployment: the Go2 runner and the soccer export from checkpoints
+    # trained on the card, and the playground adapter over a stub
+    phase_t0 = time.perf_counter()
+    rows47 = deployment_phase(kernels, launches_by_path, workdir.name)
+    print("deployment: " + json.dumps(rows47))
+    print(f"phase 47 took {time.perf_counter() - phase_t0:.1f} s")
 
     for k in kernels:
         by_path = {path: counts[k["name"]]

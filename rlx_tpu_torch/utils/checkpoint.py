@@ -95,6 +95,14 @@ def load_model_file(model_path, mesh=mesh_lib.SINGLE):
     return tree, algorithm_config
 
 
+def policy_params(tree):
+    """The policy's ``state_dict`` in a PPO-family checkpoint tree:
+    ``tree["policy"]``, or with ``runner.save_optimizer_state``
+    ``tree["full"]["policy"]["params"]`` (a net split over tp is saved
+    whole, under the keys of the unsplit net)."""
+    return tree["full"]["policy"]["params"] if "full" in tree else tree["policy"]
+
+
 def merge_loaded_algorithm_config(config, loaded_algorithm_config, explicitly_set_algorithm_params):
     """Stored values win unless the flag was set explicitly on the command
     line; keys the config does not have are skipped.  JSON gives lists for

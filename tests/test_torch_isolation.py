@@ -2,7 +2,8 @@
 chip_smoke.py imports, loads jax or the JAX package.  Every algorithm's
 module and every module under ``rlx_tpu_torch/environments/`` is among the
 modules imported, the host envs' modules and their 20 registrations named,
-and the mesh's and the rendering's modules."""
+the mesh's and the rendering's modules, and the deployment packages, the
+playground adapter and the playground registration (the 28th)."""
 
 import os
 import subprocess
@@ -41,6 +42,13 @@ assert "rlx_tpu_torch.environments.locomotion.soccer.cuda.environment" in names
 # the mesh and the rendering
 assert {"rlx_tpu_torch.parallel.mesh", "rlx_tpu_torch.parallel.partition", "rlx_tpu_torch.parallel.dryrun",
         "rlx_tpu_torch.render.offscreen", "rlx_tpu_torch.render.interactive"} <= set(names)
+# deployment and the playground
+assert {"rlx_tpu_torch.environments." + m for m in (
+    "locomotion.robot.deployment.unitree_go2.run", "locomotion.robot.deployment.unitree_go2.sdk",
+    "locomotion.soccer.deployment.convert", "locomotion.soccer.deployment.torch_policy",
+    "playground.adapter", "playground.g1_joystick_flat_terrain.cuda")} <= set(names)
+registrations = [m for m in names if m.startswith("rlx_tpu_torch.environments.") and m.endswith((".cuda", ".host"))]
+assert len(registrations) == 28, registrations   # the JAX package's 8 device and 20 host names
 assert {"rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment",
         "rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment"} <= set(names)
 # the host envs: the edge, the three bridges, the process pool, the Atari

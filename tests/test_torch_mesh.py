@@ -272,12 +272,12 @@ def _registrations():
 
 def test_mesh_and_render_keys_parse_on_every_registration():
     """JAX command lines carry these keys: each parses, with JAX's
-    defaults, on every env registration (27) and every family's
+    defaults, on every env registration (28) and every family's
     ``shard_local_*`` key on its own config."""
     from rlx_tpu_torch.algorithms.algorithm_manager import registered_algorithm_names
 
     names = _registrations()
-    assert len(names) == 27
+    assert len(names) == 28
     for name in names:
         config = make_config("ppo.cuda", name, **{
             "environment.render": "False", "runner.mesh_dp": "1", "runner.mesh_tp": "1",

@@ -142,7 +142,8 @@ def test_host_build_hashes_flags_and_raises_with_the_compiler_output(tmp_path):
 
 def test_every_jax_host_name_is_registered():
     """The port registers the JAX package's 20 host names with their ``host``
-    leaf; of the JAX registrations only the playground's is left."""
+    leaf, and every one of the JAX package's 28 registrations (the
+    playground's last)."""
     assert len(HOST_NAMES) == 20
     for name in HOST_NAMES:
         config = make_config("ppo.cuda", name, **{"runner.device": "cpu"})
@@ -165,7 +166,7 @@ def test_every_jax_host_name_is_registered():
             make_config("ppo.cuda", name.replace(".tpu", ".cuda"), **{"runner.device": "cpu"})
         except ValueError:
             missing.add(name)
-    assert missing == {"playground.g1_joystick_flat_terrain.tpu"}
+    assert missing == set()
 
 
 def test_native_env_registration_seeds_and_device():
