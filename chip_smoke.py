@@ -18,9 +18,13 @@ Phases (each prints one line; any failure exits nonzero):
 5. PPO on ``locomotion.ant.cuda`` at the flagship size (4096 envs x 64
    steps, minibatch 32768, 4 epochs, 512/256/128 ELU+LayerNorm policy and
    critic, bf16 trunk) for 3 iterations through the runner's entry points,
-   with the kernels' launch counters proving the path went through them;
-6. one more PPO iteration under torch.profiler: wall time, device busy
-   time and idle share, per-phase host spans, the top kernels by device time;
+   with the kernels' launch counters proving the path went through them:
+   the first iteration eager, the next two replays of the captured
+   learning iteration (``capture_choice`` must choose it), whose launches
+   the counters count as they run;
+6. one more PPO iteration, eager, under torch.profiler: wall time, device
+   busy time and idle share, per-phase host spans, the top kernels by
+   device time;
 7. kernel B3 (C51 projection) against its plain version at [8192, 101] ->
    101 (the FastTD3 path's shape), a ragged [8193, 101], [4096, 51] -> 101,
    positions beyond the support and on atoms, every position at v_max
@@ -34,7 +38,8 @@ Phases (each prints one line; any failure exits nonzero):
    proving every update went through B3 and every env step through B2;
 9. 16 more FastTD3 learning steps under torch.profiler, as phase 6;
 10. PPO at the flagship width through ``Runner(argv=[...]).run()``: 2
-    eval/save iterations of 1 learning iteration each, evaluation and
+    eval/save iterations of 1 learning iteration each (the second a
+    replay of the captured iteration, as in phases 18, 19 and 24), evaluation and
     ``save_model`` on, ``environment.horizon`` cut from 1000 to 200 (the
     widths stay full), in a run directory under a temporary directory; the
     counters must read 2 B1 and 2 * 64 + 2 * 200 B2 launches, the history
@@ -109,7 +114,8 @@ Phases (each prints one line; any failure exits nonzero):
     epochs, PPO-DTRL minibatch 32768 and 4 epochs): 2 iterations each, B1
     exactly 2 and B2 exactly 128 launches, ESPO's active epochs in [1, 10],
     PPO-DTRL's projected KL parts within 1e-3 of their bounds; one
-    PPO-DTRL iteration under torch.profiler, as phase 6;
+    PPO-DTRL iteration's wall, device busy time and idle share from the
+    device's events (as phase 28);
 25. BRO through the Runner at its defaults (1024 envs, learning_starts =
     nr_envs, 16 learning steps of 10 critic updates, a reset at step 14)
     with its optimizer state and init_copy, then test mode with every
@@ -135,9 +141,9 @@ Phases (each prints one line; any failure exits nonzero):
     with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097];
 28. PPO-LSTM on ``locomotion.robot.cuda`` (the quadruped, its default
     randomization and curriculum) at the JAX package's ``locomotion_lstm``
-    shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 2
-    iterations on the default heightfield, whose physics runs the eager
-    engine on the card (B1 exactly 2, B2 none), then on the plane (B1 2,
+    shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 1
+    iteration on the default heightfield, whose physics runs the eager
+    engine on the card (B1 exactly 1, B2 none), then 2 on the plane (B1 2,
     B2 exactly 64); one more iteration of each profiled from the device's
     events (wall, busy, idle share); the heightfield physics alone a
     control step; the projected wall time of one 50M-step
@@ -147,8 +153,9 @@ Phases (each prints one line; any failure exits nonzero):
     reset): the env's own DomainParams with a per-dof damping scale and
     its delayed PD targets as a ctrl_sequence, within 1e-4 on the envs the
     last step did not reset; times and bound at both;
-30. feedforward PPO at the ``locomotion_ppo`` shape (minibatch 32768) on
-    the heightfield: 1 iteration, B1 exactly 1, B2 none;
+30. feedforward PPO at the ``locomotion_ppo`` widths (minibatch 32768,
+    its 32 steps cut to 8) on the heightfield: 1 iteration, B1 exactly 1,
+    B2 none;
 31. PPO-LSTM on ``locomotion.soccer.cuda`` (the Booster T1 on the plane)
     at the ``soccer_lstm`` shape: 2 iterations (B1 2, B2 exactly 64), one
     profiled as in 28; then through the Runner: 1 iteration, an evaluation
@@ -186,8 +193,8 @@ Phases (each prints one line; any failure exits nonzero):
     copy up;
 39. PPO on ``native.pendulum.host`` and discrete PPO on
     ``native.cart_pole.host`` at the ``hopper_ppo`` shape (8 envs x 256
-    steps, minibatch 64, 10 epochs, (256, 256)): 2 iterations each, B1
-    exactly 2; the same on ``classic.pendulum.cuda``; for the bridge's
+    steps, minibatch 64, 10 epochs, (256, 256)): 1 iteration each, B1
+    exactly 1; the same on ``classic.pendulum.cuda``; for the bridge's
     cost each Pendulum's rollout timed alone and one more iteration's
     device idle share (the host Pendulum's ``ppo/`` span profile, ~50 s
     of event parsing, was cut when phases 45-46 came in); B1 against
@@ -213,10 +220,10 @@ Phases (each prints one line; any failure exits nonzero):
 43. parallel seeds for the last twelve off-policy families: FastSAC
     (batch 8192), FlashSAC, CrossQ, REDQ, DroQ, AQE, TQC, XQC, SimbaV2,
     BRO, MPO and FastMPO on the Ant at 4 seeds x 1024 envs at their phase
-    21-23 and 25 shapes, 1 prefill (FastMPO 10) + 16 learning steps and one
+    21-23 and 25 shapes, 1 prefill (FastMPO 10) + 8 learning steps and one
     evaluation (horizon cut to 32) each through ``create_model`` /
-    ``train``: before the evaluation B2 exactly 17 (FastMPO 26) launches,
-    as one seed, B3 exactly 16 for FastSAC and FlashSAC with every launch
+    ``train``: before the evaluation B2 exactly 9 (FastMPO 18) launches,
+    as one seed, B3 exactly 8 for FastSAC and FlashSAC with every launch
     at ``[4 x batch, 101]`` and none for the others; every seed's eval
     return finite; env-steps/s summed over seeds against one seed's from a
     one-seed run of the same program just before (its launches alike);
@@ -281,7 +288,26 @@ Phases (each prints one line; any failure exits nonzero):
     1e-5 of ``RecurrentPolicy.one_step`` and of the CPU's, the meta JSON
     against the env; PPO over a brax-style stub under
     ``PlaygroundAdapter`` on the card (2 iterations, B1 2), and the
-    playground registration's ImportError.
+    playground registration's ImportError;
+48. (run right after phase 6, while the profiler's tracer keeps every
+    record of a replay) the captured learning iteration
+    (``capture_phase``): PPO at phase 5's
+    flagship shape, discrete PPO at phase 18's, ESPO (its stop set to fire
+    within the iteration: ``max_ratio_delta`` 1e-4) and PPO-DTRL at phase
+    24's, and PPO over an observation window at phase 19's: one eager
+    iteration against the first replay of the captured one from the same
+    state (nets, Adam's moments and counts, the device step count, both
+    generators, the env state), every tensor and metric equal bit for bit;
+    a second replay from the same nets and env state draws fresh noise (its
+    env state differs, the model's generator advanced); each replay's B1
+    and B2 launches; for the flagship, the captured graph's kernel nodes
+    by name (its ``cudaGraphDebugDotPrint`` dump: exactly 64 B2 and 1 B1,
+    as the counters count a replay) and one replay under torch.profiler
+    with 64 and 1 seen (up to three windows: the tracer drops a record now
+    and then),
+    env-steps/s over 10 eager and 10 replayed iterations (each read as
+    ``train()`` reads it), the device idle share of one replay and of one
+    eager iteration, the capture's seconds and the graph pool's MiB.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -1204,6 +1230,224 @@ def deployment_phase(kernels, launches_by_path, workdir):
     return rows
 
 
+def iteration_tensors(model, state, metrics=None):
+    """name -> tensor of what a learning iteration changes: the nets'
+    parameters, Adam's moments and step counts, the device step count, the
+    env state and (given) the metrics."""
+    import torch.utils._pytree as pytree
+
+    from rlx_tpu_torch.environments.env import EnvState
+
+    out = {}
+    for net, module, optimizer in (("policy", model.policy.module, model.policy_optimizer),
+                                   ("critic", model.critic, model.critic_optimizer)):
+        for name, p in module.named_parameters():
+            out[f"{net}.{name}"] = p
+            for key, value in optimizer.state[p].items():
+                out[f"{net}.{name}.{key}"] = value
+    out["optimizer_steps"] = model.optimizer_steps
+    for i, t in enumerate(pytree.tree_leaves([getattr(state, f) for f in EnvState.TENSOR_FIELDS])):
+        out[f"env.{i}"] = t
+    for key, value in (metrics or {}).items():
+        out[f"metric.{key}"] = value
+    return out
+
+
+def differences(a, b):
+    """(tensors equal bit for bit, of how many, the largest |a - b| and where)."""
+    equal, worst, where = 0, 0.0, None
+    for k in a:
+        if torch.equal(a[k], b[k]):
+            equal += 1
+            continue
+        d = (a[k].double() - b[k].double()).abs().max().item()
+        if not d <= worst:
+            worst, where = d, k
+    return equal, len(a), worst, where
+
+
+class DebugGraph(torch.cuda.CUDAGraph):
+    """A ``torch.cuda.CUDAGraph`` that keeps its ``cudaGraph_t`` for
+    ``debug_dump`` (phase 48 swaps it in for the flagship's capture)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(keep_graph=True)
+        self.enable_debug_mode()
+
+
+def graph_nodes(graph, path, names):
+    """(kernel nodes of each of ``names``, all kernel nodes) of a captured
+    ``DebugGraph``, read from the kernel names of its DOT dump."""
+    graph.debug_dump(path)
+    with open(path) as f:
+        dot = f.read()
+    os.remove(path)
+    return {k: dot.count(n) for k, n in names.items()}, dot.count('label="{KERNEL')
+
+
+def capture_phase(launches_by_path, workdir):
+    """Phase 48: the learning iteration captured as one CUDA graph
+    (``training_program.CapturedIteration``) against the eager iteration, on
+    the flagship PPO and the PPO family at their earlier phases' shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice
+    from rlx_tpu_torch.benchmarks.curves import RUNS
+    from rlx_tpu_torch.config import create_model, make_config
+
+    nr_steps, batch = 64, 4096 * 64
+    flagship = {"runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": nr_steps,
+                "algorithm.total_timesteps": 4 * batch, "algorithm.policy_hidden_sizes": (512, 256, 128),
+                "algorithm.critic_hidden_sizes": (512, 256, 128), "algorithm.activation": "elu",
+                "algorithm.layer_norm": True, "algorithm.evaluation_active": False}
+    update = {"algorithm.minibatch_size": batch // 8, "algorithm.nr_epochs": 4}
+    cases = {   # name: (algorithm, environment, overrides, bf16 trunk set on the nets)
+        "ppo": ("ppo.cuda", "locomotion.ant.cuda",
+                {**flagship, **update, "algorithm.compute_dtype": "bfloat16"}, False),
+        "ppo_cartpole": ("ppo.cuda", "classic.cart_pole.cuda",
+                         {"runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": nr_steps,
+                          "algorithm.total_timesteps": 4 * batch, "algorithm.evaluation_active": False, **update},
+                         False),
+        # the stop set to fire within the iteration: epoch 0's ratio is 1,
+        # epoch 1's moves past 1e-4
+        "espo": ("espo.cuda", "locomotion.ant.cuda", {**flagship, "algorithm.max_ratio_delta": 1e-4}, True),
+        "ppo_dtrl": ("ppo_dtrl.cuda", "locomotion.ant.cuda", {**flagship, **update}, True),
+        "ppo_history_window": ("ppo_history_window.cuda", "classic.pendulum.cuda",
+                               {"runner.device": "cuda", **RUNS["pendulum_masked_history_window"]["overrides"],
+                                "algorithm.total_timesteps": 8 * 256 * 4, "algorithm.evaluation_active": False},
+                               False),
+    }
+    rows = {}
+    for name, (algorithm, environment, overrides, bf16) in cases.items():
+        model = create_model(make_config(algorithm, environment, **overrides))
+        if bf16:
+            model.policy.module.trunk.compute_dtype = model.critic.trunk.compute_dtype = torch.bfloat16
+        capture, reason = capture_choice(model)
+        if not capture:
+            fail(f"phase 48 {name}: capture_choice says eager ({reason})")
+        graph = CapturedIteration(model)
+        state, _ = graph(model.train_env.reset(model.seed))     # the warm-up, eager
+        if name == "ppo":
+            torch.cuda.CUDAGraph = DebugGraph   # its kernel nodes are read back below
+        torch.cuda.synchronize()
+        live = iteration_tensors(model, state)
+        # detached: a clone of a parameter would keep its gradient
+        # accumulator, made on this stream, alive into the capture
+        saved = {k: v.detach().clone() for k, v in live.items()}
+        generators = (model.generator, state.generator)
+        generator_states = [gen.get_state() for gen in generators]
+
+        @torch.no_grad()
+        def restore(noise=True):
+            for k, v in saved.items():
+                if not k.startswith("env."):
+                    live[k].copy_(v)
+            if noise:
+                for gen, s in zip(generators, generator_states):
+                    gen.set_state(s)
+
+        eager_state, eager_metrics = model.learning_iteration(state)
+        eager = {k: v.detach().clone() for k, v in iteration_tensors(model, eager_state, eager_metrics).items()}
+        restore()
+        torch.cuda.synchronize()
+        try:
+            graph_state, graph_metrics = graph(state)           # capture, then the first replay
+        finally:
+            torch.cuda.CUDAGraph = DebugGraph.__base__
+        torch.cuda.synchronize()
+        replayed = {k: v.detach().clone() for k, v in iteration_tensors(model, graph_state, graph_metrics).items()}
+        equal, total, worst, where = differences(eager, replayed)
+        if equal != total:
+            fail(f"phase 48 {name}: the replay differs from the eager iteration in {total - equal} of {total} "
+                 f"tensors, max |diff| {worst:.3g} at {where}")
+        # the same nets and env state again, the generators as the replay
+        # left them: fresh noise gives another rollout
+        offsets = [gen.get_offset() for gen in generators]
+        restore(noise=False)
+        graph.state.copy_(state)
+        graph.replay()
+        torch.cuda.synchronize()
+        again = iteration_tensors(model, graph.state)
+        fresh = sum(not torch.equal(again[k], replayed[k]) for k in again if k.startswith("env."))
+        advanced = [gen.get_offset() > offset for gen, offset in zip(generators, offsets)]
+        if fresh == 0 or not advanced[0]:
+            fail(f"phase 48 {name}: a second replay from the same state drew the same noise "
+                 f"({fresh} env tensors changed, generators advanced {advanced})")
+        row = {"equal_tensors": f"{equal} of {total}", "generators_advanced": advanced,
+               "capture_s": graph.capture_seconds,
+               "pool_mib": graph.pool_bytes / 2**20, "env_tensors_changed_by_fresh_noise": fresh,
+               "launches_per_replay": dict(zip(("engine_substep", "gae", "categorical_projection"),
+                                               graph.launches))}
+        if name == "espo":
+            active = float(replayed["metric.policy_ratio/nr_active_epochs"])
+            if not 1.0 <= active < model.nr_epochs:
+                fail(f"phase 48 espo: {active} active epochs, the stop did not fire within the iteration")
+            row["active_epochs"] = active
+        if name == "ppo":
+            # launch counts of one replay: the graph's kernel nodes by name
+            # (exact), and the profiler's kernel events by name over one
+            # replay.  The tracer drops a record of the ~33k a replay makes
+            # now and then, late in this script three windows running at
+            # one B2 record: so up to three windows, each led by one more
+            # small kernel than the last (the records shift), until one
+            # sees every launch
+            names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel"}
+            expected = {"engine_substep": nr_steps, "gae": 1}
+            counted = dict(zip(("engine_substep", "gae"), graph.launches))
+            nodes, kernel_nodes = graph_nodes(graph.graph, os.path.join(workdir, "graph.dot"), names)
+            if nodes != expected or counted != expected:
+                fail(f"phase 48: the graph holds {nodes} kernel nodes, the counters add {counted} a replay, "
+                     f"expected {expected}")
+            windows = []
+            lead = torch.zeros(1, device="cuda")
+            for window in range(3):
+                before = counts()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(window):
+                        lead.add_(1.0)
+                    graph.replay()
+                    torch.cuda.synchronize()
+                after = counts()
+                if {k: after[k] - before[k] for k in expected} != expected:
+                    fail(f"phase 48: the counters added {after} - {before} for one replay, expected {expected}")
+                kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                           and not e.name.startswith(("Memset", "Memcpy"))]
+                seen = {k: sum(n in e for e in kernels) for k, n in names.items()}
+                windows.append({"seen": seen, "kernel_events": len(kernels)})
+                if seen == expected:
+                    break
+            else:
+                fail(f"phase 48: the profiler saw {windows} in three windows of one replay, the graph and the "
+                     f"counters {expected} ({kernel_nodes} kernel nodes)")
+            launches_by_path["ppo_captured_replay"] = dict(counted, categorical_projection=0)
+            row["graph_kernel_nodes"] = dict(nodes, all=kernel_nodes)
+            row["profiled_replay_windows"] = windows
+            # env-steps/s of 10 iterations each way, each read as train() reads it
+            def iterations(step, state):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    state, metrics = step(state)
+                    {k: float(v) for k, v in metrics.items()}
+                torch.cuda.synchronize()
+                return 10 * batch / (time.perf_counter() - t0), state
+
+            row["eager_env_steps_per_s"], state = iterations(model.learning_iteration, graph.state)
+            graph.state.copy_(state)
+            row["replay_env_steps_per_s"], _ = iterations(graph, graph.state)
+            row["replay_speedup"] = row["replay_env_steps_per_s"] / row["eager_env_steps_per_s"]
+            row["replay_profile"] = device_idle(graph.replay, "ppo/")
+            row["eager_profile"] = device_idle(
+                lambda: model.learning_iteration(graph.state), "ppo/")
+        graph.close()
+        rows[name] = row
+        print(f"captured {name}: " + json.dumps(row))
+        del model, graph
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke runs the CUDA kernels and has no CPU fallback")
@@ -1398,6 +1642,11 @@ def main():
         "algorithm.evaluation_active": False,
     })
     model = create_model(config)
+    from rlx_tpu_torch.algorithms.training_program import capture_choice
+
+    captured, reason = capture_choice(model)
+    if not captured:
+        fail(f"PPO at the flagship shape does not replay a captured iteration: {reason}")
     step_cuda.launches = 0
     gae_advantages_cuda.launches = 0
     torch.cuda.synchronize()
@@ -1419,7 +1668,7 @@ def main():
         if not torch.isfinite(p).all():
             fail("non-finite parameters after training")
     ppo_env_steps_per_s = ITERATIONS * batch / elapsed   # phase 42 compares 4 seeds with it
-    print(f"train: {ITERATIONS} PPO iterations at {nr_envs}x{nr_steps}, "
+    print(f"train: {ITERATIONS} PPO iterations at {nr_envs}x{nr_steps} (the first eager, then replays), "
           f"{ITERATIONS * batch / elapsed:.0f} env-steps/s overall, "
           f"{history[-1]['time/sps']} env-steps/s in the last iteration, launches {launches}, "
           f"last losses " + json.dumps({k: v for k, v in history[-1].items() if k.startswith('loss/')}))
@@ -1431,6 +1680,14 @@ def main():
 
     print("profile: " + json.dumps(profile_spans(one_iteration, "ppo/")))
     launches_by_path = {"ppo": launches}
+    del model
+
+    # 48. the learning iteration captured as one CUDA graph, against eager:
+    # run here, after phase 6, while the profiler's tracer keeps every
+    # record of a replay (late in the script it dropped one B2 record)
+    phase_t0 = time.perf_counter()
+    capture_phase(launches_by_path, workdir.name)
+    print(f"phase 48 took {time.perf_counter() - phase_t0:.1f} s")
 
     # 7. B3: C51 projection
     from rlx_tpu_torch.ops.distributional import categorical_projection_reference
@@ -2237,7 +2494,9 @@ def main():
             def dtrl_iteration():
                 model.env_state, _ = model.learning_iteration(model.env_state)
 
-            print("profile ppo_dtrl: " + json.dumps(profile_spans(dtrl_iteration, "ppo/")))
+            # the device's events alone: the host spans of its 15 Newton
+            # steps a minibatch took ~40 s of parsing
+            print("profile ppo_dtrl: " + json.dumps(device_idle(dtrl_iteration, "ppo/")))
         del model
 
     # 25. BRO, MPO and FastMPO on the Ant at 1024 envs at their defaults,
@@ -2484,10 +2743,10 @@ def main():
     # 28. robot locomotion (locomotion.robot.cuda, the quadruped) at the
     # JAX package's locomotion_lstm shape (4096 envs x 32 steps, 4
     # minibatches, 4 epochs, LSTM 128; its default randomization and
-    # curriculum): 2 PPO-LSTM iterations on the default heightfield, where
+    # curriculum): 1 PPO-LSTM iteration on the default heightfield, where
     # the physics runs the engine's eager path on the card (as the JAX
-    # package sends terrain to XLA), so B1 is launched twice and B2 never;
-    # the same on the plane, B2 once an env step; one profiled iteration of
+    # package sends terrain to XLA), so B1 is launched once and B2 never;
+    # 2 on the plane, B2 once an env step; one profiled iteration of
     # each, read from the device's events alone (~7 x 10^5 on the
     # heightfield: the host spans' parsing took minutes); the eager
     # heightfield physics alone a control step; the
@@ -2500,9 +2759,10 @@ def main():
                   "algorithm.evaluation_active": False}
     robot_rates = {}
 
-    def recurrent_path(path, env_name, expected, overrides=()):
+    def recurrent_path(path, env_name, expected, overrides=(), iterations=2):
         config = make_config("ppo_lstm.cuda", env_name, **{
-            "runner.device": "cuda", **loco_shape, **dict(overrides), "algorithm.total_timesteps": 2 * rec_batch,
+            "runner.device": "cuda", **loco_shape, **dict(overrides),
+            "algorithm.total_timesteps": iterations * rec_batch,
         })
         model = create_model(config)
         zero_counts()
@@ -2513,7 +2773,7 @@ def main():
         path_launches = counts()
         if path_launches != expected:
             fail(f"{path}: launch counts {path_launches} != {expected}")
-        check_logged(path, model.metrics_history, [16, 32])
+        check_logged(path, model.metrics_history, [16, 32][:iterations])
         launches_by_path[path] = path_launches
         sps = [m["time/sps"] for m in model.metrics_history]
         robot_rates[path] = sps[-1]
@@ -2525,7 +2785,7 @@ def main():
         profile = device_idle(iteration, "recurrent_ppo/")
         profile["profiled_s"] = time.perf_counter() - t0
         tracking = model.env_state.info["rollout/episode_tracking"]
-        print(f"train: {path}, 2 PPO-LSTM iterations at 4096x{rec_steps} in {elapsed:.2f} s, env-steps/s a "
+        print(f"train: {path}, {iterations} PPO-LSTM iterations at 4096x{rec_steps} in {elapsed:.2f} s, env-steps/s a "
               f"iteration {sps}, launches {path_launches}, observation {tuple(model.env_state.observation.shape)} "
               f"(policy reads {len(model.train_env.policy_observation_indices)}, critic "
               f"{len(model.train_env.critic_observation_indices)}), rollout/episode_tracking mean "
@@ -2535,7 +2795,7 @@ def main():
         return model
 
     model = recurrent_path("robot_lstm_heightfield", "locomotion.robot.cuda",
-                           {"engine_substep": 0, "gae": 2, "categorical_projection": 0})
+                           {"engine_substep": 0, "gae": 1, "categorical_projection": 0}, iterations=1)
     env = model.train_env
     internal = model.env_state.physics["internal"]
     qpos, qvel = model.env_state.physics["qpos"], model.env_state.physics["qvel"]
@@ -2567,13 +2827,15 @@ def main():
                         {"environment.terrain.type": "plane"}, g)
     robot_substep_check(kernels, "booster_t1", SoccerEnv, "locomotion.soccer.cuda", {}, g)
 
-    # 30. feedforward PPO at the JAX package's locomotion_ppo shape (4096 x
-    # 32, minibatch 32768, 4 epochs, lr 3e-4) on the default heightfield: 1
-    # iteration, B1 once, B2 never
+    # 30. feedforward PPO at the JAX package's locomotion_ppo widths (4096
+    # envs, minibatch 32768, 4 epochs, lr 3e-4; its 32 steps cut to 8, one
+    # minibatch an epoch) on the default heightfield: 1 iteration, B1 once,
+    # B2 never
+    ppo_steps = 8
     config = make_config("ppo.cuda", "locomotion.robot.cuda", **{
-        "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps,
+        "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": ppo_steps,
         "algorithm.minibatch_size": 32768, "algorithm.nr_epochs": 4, "algorithm.learning_rate": 3e-4,
-        "algorithm.total_timesteps": rec_batch, "algorithm.evaluation_active": False,
+        "algorithm.total_timesteps": 4096 * ppo_steps, "algorithm.evaluation_active": False,
     })
     model = create_model(config)
     zero_counts()
@@ -2586,7 +2848,7 @@ def main():
         fail(f"robot_ppo: launch counts {path_launches}")
     check_logged("robot_ppo", model.metrics_history)
     launches_by_path["robot_ppo"] = path_launches
-    print(f"train: robot_ppo, 1 PPO iteration at 4096x{rec_steps} on the heightfield in {elapsed:.2f} s, "
+    print(f"train: robot_ppo, 1 PPO iteration at 4096x{ppo_steps} on the heightfield in {elapsed:.2f} s, "
           f"env-steps/s {[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}")
     del model
 
@@ -2979,7 +3241,7 @@ def main():
 
     # 39. PPO on native.pendulum.host and discrete PPO on native.cart_pole.host
     # at the hopper_ppo shape (8 envs x 256 steps, minibatch 64, 10 epochs,
-    # (256, 256)): 2 iterations each through B1, one more for the idle
+    # (256, 256)): 1 iteration each through B1, one more for the idle
     # share; the same
     # on classic.pendulum.cuda in this call, so the bridge's cost reads
     # against the device env's; B1 against its plain version at [256, 8]
@@ -2991,7 +3253,7 @@ def main():
                                ("native_cart_pole", "native.cart_pole.host"),
                                ("classic_pendulum", "classic.pendulum.cuda")):
         model = create_model(make_config("ppo.cuda", environment, **{
-            **hopper_shape, "runner.device": "cuda", "algorithm.total_timesteps": 2 * host_batch,
+            **hopper_shape, "runner.device": "cuda", "algorithm.total_timesteps": host_batch,
             "algorithm.evaluation_active": False}))
         zero_counts()
         t0 = time.perf_counter()
@@ -2999,15 +3261,15 @@ def main():
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         path_launches = counts()
-        if path_launches != {"engine_substep": 0, "gae": 2, "categorical_projection": 0}:
-            fail(f"PPO on {environment}: launch counts {path_launches}, expected 2 GAE")
+        if path_launches != {"engine_substep": 0, "gae": 1, "categorical_projection": 0}:
+            fail(f"PPO on {environment}: launch counts {path_launches}, expected 1 GAE")
         check_logged(f"PPO on {environment}", model.metrics_history)
         if environment.endswith(".host"):
             launches_by_path[f"ppo_{label}"] = path_launches
-        host_ppo[label] = {"env_steps_per_s": 2 * host_batch / elapsed,
+        host_ppo[label] = {"env_steps_per_s": host_batch / elapsed,
                            "last_iteration_sps": model.metrics_history[-1]["time/sps"]}
         print(f"train: PPO on {environment} at the hopper_ppo shape (8x256, minibatch 64, 10 epochs, (256, 256)), "
-              f"2 iterations in {elapsed:.2f} s ({2 * host_batch / elapsed:.0f} env-steps/s overall, "
+              f"1 iteration in {elapsed:.2f} s ({host_batch / elapsed:.0f} env-steps/s, "
               f"{model.metrics_history[-1]['time/sps']} in the last), launches {path_launches}")
         if label != "native_cart_pole":
             # the bridge's cost: the rollout of each Pendulum timed alone, and
@@ -3327,7 +3589,7 @@ def main():
 
     # 43. parallel seeds for the last twelve off-policy families: each at 4
     # seeds x 1024 envs on the Ant at phases 21-23 and 25's shapes, 1 prefill
-    # (FastMPO: 10) + 16 learning steps and one evaluation through
+    # (FastMPO: 10) + 8 learning steps and one evaluation through
     # create_model / train(); B2 once an env step, B3 once an update for
     # FastSAC and FlashSAC at [4 x batch, 101]; seed 1 of 3 against its
     # one-seed run for FlashSAC and REDQ; B3 and B2 at the folded shapes
@@ -3337,6 +3599,7 @@ def main():
     from rlx_tpu_torch.models.layers import running_buffers
 
     eval_horizon = 32   # the Ant's episode cut from 1000 for the one evaluation; widths and batches stay
+    steps43 = 8         # learning steps a run
     families = {   # name -> (overrides, prefill steps, B3 launches an update)
         "fastsac": ({"algorithm.batch_size": 8192, "algorithm.learning_starts": 1024}, 1, 1),
         "flashsac": ({"algorithm.learning_starts": 1024}, 1, 1),
@@ -3356,7 +3619,7 @@ def main():
         launches before the evaluation, launches of the evaluation)."""
         config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
             "runner.device": "cuda", "environment.nr_envs": 1024, "environment.horizon": eval_horizon,
-            "algorithm.total_timesteps": (prefill + 16) * 1024, "algorithm.logging_frequency": 16 * 1024,
+            "algorithm.total_timesteps": (prefill + steps43) * 1024, "algorithm.logging_frequency": steps43 * 1024,
             "algorithm.evaluation_active": True, "algorithm.logging_active": False,
             "algorithm.nr_parallel_seeds": nr_seeds, **overrides})
         model = create_model(config)
@@ -3387,11 +3650,11 @@ def main():
         # one seed first, the same program at the same shapes (its first run
         # in phases 21-25 paid the shapes' first-call costs)
         model, train_s, one_launches, _ = offpolicy_seeds_run(name, overrides, prefill, 1)
-        one_seed_rate = (prefill + 16) * 1024 / train_s
+        one_seed_rate = (prefill + steps43) * 1024 / train_s
         del model
         model, train_s, train_launches, eval_launches = offpolicy_seeds_run(name, overrides, prefill, seeds43)
         batch_size = model.batch_size
-        expected = {"engine_substep": prefill + 16, "gae": 0, "categorical_projection": 16 * b3_an_update}
+        expected = {"engine_substep": prefill + steps43, "gae": 0, "categorical_projection": steps43 * b3_an_update}
         if train_launches != expected or one_launches != expected:
             fail(f"4-seed {name}: launches {train_launches}, one seed {one_launches}, expected {expected}")
         if eval_launches != {"engine_substep": eval_horizon, "gae": 0, "categorical_projection": 0}:
@@ -3402,12 +3665,12 @@ def main():
         returns = model.eval_history["eval/episode_return"]
         if returns.shape != (seeds43, 1) or not all(map(math.isfinite, returns.ravel())):
             fail(f"4-seed {name}: eval history {returns}")
-        rate = seeds43 * (prefill + 16) * 1024 / train_s
+        rate = seeds43 * (prefill + steps43) * 1024 / train_s
         launches_by_path[f"{name}_4_seeds"] = train_launches
         rows43[name] = {"env_steps_per_s": rate, "one_seed_env_steps_per_s": one_seed_rate,
                         "ratio": rate / one_seed_rate, "train_s": train_s, "launches": train_launches,
                         "eval_returns": returns.ravel().tolist()}
-        print(f"parallel seeds {name}: {seeds43} seeds x 1024 envs, batch {batch_size} a seed, {prefill} prefill + 16 "
+        print(f"parallel seeds {name}: {seeds43} seeds x 1024 envs, batch {batch_size} a seed, {prefill} prefill + {steps43} "
               f"learning steps in {train_s:.2f} s (evaluation apart): {rate:.0f} env-steps/s summed over seeds "
               f"against {one_seed_rate:.0f} of one seed, x{rate / one_seed_rate:.2f}; launches "
               f"{train_launches}" + (f", every projection at [{seeds43 * batch_size}, 101]" if b3_an_update else "")

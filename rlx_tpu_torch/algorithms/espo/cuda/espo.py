@@ -6,11 +6,14 @@ stops stepping once ``delta_calc_operator`` (``"mean"`` or ``"median"``) of
 ``|ratio - 1|`` has passed ``max_ratio_delta``: the epoch where it passes
 still steps, the epochs after it do not.  The JAX package selects the
 whole train state there, optimizer state included, so a stopped epoch
-neither steps Adam nor advances its count or the learning-rate schedule;
-here the optimizers do not step and ``nr_optimizer_steps`` stays.  Stopped
+neither steps Adam nor advances its count or the learning-rate schedule.
+The port does the same without a branch: ``active`` is a device flag, and
+the Adam step (``train_state.adam_step_``) selects the parameters, the
+moments and the step counts by it, as the device step count adds it, so
+the iteration reads nothing back and a CUDA graph captures it.  Stopped
 epochs still compute their loss and gradient norms; the metrics are means
-over all ``nr_epochs``, and ``policy_ratio/nr_active_epochs`` counts the
-epochs that stepped.
+over all ``nr_epochs``, ``policy_ratio/nr_active_epochs`` counts the
+epochs that stepped, and the learning rate is the last stepped epoch's.
 
 ``"median"`` is ``jnp.median``'s: the mean of the two middle values of an
 even-length batch (``torch.median`` returns the lower one).
@@ -122,7 +125,8 @@ class ESPO(PPO):
         mean, var = self.mesh.global_mean_var(advantages)
         advantages = (advantages - mean) / (torch.sqrt(var) + 1e-8)
         history = []
-        active = True
+        active = torch.ones((), dtype=torch.bool, device=self.device)
+        lr = None
         for _ in range(self.nr_epochs):
             self.policy_optimizer.zero_grad(set_to_none=False)
             self.critic_optimizer.zero_grad(set_to_none=False)
@@ -130,19 +134,16 @@ class ESPO(PPO):
             loss.backward()
             with torch.no_grad():
                 self._clip_gradients(metrics)
-            metrics["policy_ratio/nr_active_epochs"] = torch.tensor(float(active), device=self.device)
-            if active:
-                lr = self.learning_rate_at(self.nr_optimizer_steps)
-                for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                    optimizer.param_groups[0]["lr"] = lr
-                    optimizer.step()
-                self.nr_optimizer_steps += 1
-                # stop every FOLLOWING epoch once the ratio has deviated too far
-                active = bool(ratio_delta <= self.max_ratio_delta)
+            metrics["policy_ratio/nr_active_epochs"] = active.float()
+            epoch_lr = self._step_optimizers(active)
+            # the first epoch always steps
+            lr = epoch_lr if lr is None else torch.where(active, epoch_lr, lr)
+            # stop every FOLLOWING epoch once the ratio has deviated too far
+            active = active & (ratio_delta.detach() <= self.max_ratio_delta)
             history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
         out["policy_ratio/nr_active_epochs"] = out["policy_ratio/nr_active_epochs"] * self.nr_epochs
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     def general_properties():

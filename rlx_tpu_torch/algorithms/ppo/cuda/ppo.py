@@ -16,6 +16,16 @@ Per learning iteration:
   gradient clip and Adam, separately for the policy and the critic, with the
   learning rate annealed linearly on the optimizer step count.
 
+Nothing in ``learning_iteration`` reads a device value back to the host:
+the optimizer step count is a device tensor (``optimizer_steps``; the host's
+``nr_optimizer_steps`` reads it), the learning rate is computed from it on
+the device (``learning_rate_tensor``), Adam is ``train_state.adam_step_``
+and the permutations come from the model's device generator.  So on one
+CUDA device the iteration is captured as a CUDA graph and replayed
+(``training_program.CapturedIteration``, ``capturable`` below), B1 and B2
+inside it; the CPU and every other configuration run it eagerly, with the
+same arithmetic.
+
 The learning iterations run in eval/save iterations, with the JAX
 package's sizing (``rlx_tpu/algorithms/ppo/tpu/ppo.py``): after each, an
 evaluation of ``horizon`` deterministic steps from a fresh eval reset and,
@@ -31,7 +41,10 @@ per-phase host time.
 The optimizer matches ``optax.chain(clip_by_global_norm(max_grad_norm),
 inject_hyperparams(adam)(lr=schedule))``: gradients are scaled by
 ``max_norm / norm`` only when ``norm >= max_norm``, Adam uses eps=1e-8, and
-the learning rate is evaluated from the step count before each step.
+the learning rate is evaluated from the step count before each step.  The
+``torch.optim.Adam`` objects only hold Adam's state (the checkpoint's
+format); ``train_state.adam_step_`` takes the step, seed-stacked nets
+included (all seeds step together).
 
 With ``nr_parallel_seeds = S > 1`` (``algorithms/parallel_seeds.py``) the
 nets are seed-stacked and ``self.parallel`` holds the seed axis: the
@@ -78,7 +91,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
 )
 from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import (
-    clip_by_global_norm_, load_module_state_dict, module_state_dict,
+    adam_step_, clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
 from rlx_tpu_torch.algorithms.training_program import (
     eval_means, eval_reset_seed, run_training_program, train_reset_seed,
@@ -94,6 +107,10 @@ from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
 class PPO:
+    # the learning iteration runs as a captured CUDA graph on one device
+    # (``training_program.capture_choice``)
+    capturable = True
+
     def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
         self.config = config
         self.train_env = train_env
@@ -175,7 +192,8 @@ class PPO:
         self.critic_optimizer = torch.optim.Adam(
             self.critic.parameters(), lr=self.learning_rate, eps=1e-8
         )
-        self.nr_optimizer_steps = 0
+        # the optimizer steps taken, on the device (``nr_optimizer_steps``)
+        self.optimizer_steps = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.parallel is None:
             self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
             # seeds of the eval and test resets
@@ -184,8 +202,19 @@ class PPO:
             self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
+        self.captured_iteration = None   # a train() call's CapturedIteration
         self.metrics_history = []  # per-iteration float metrics when logging is active
         self.eval_history = None
+
+    @property
+    def nr_optimizer_steps(self):
+        """The optimizer steps taken, read from the device count (the
+        checkpoint's count, and the schedule's)."""
+        return int(self.optimizer_steps)
+
+    @nr_optimizer_steps.setter
+    def nr_optimizer_steps(self, count):
+        self.optimizer_steps.fill_(int(count))
 
     def learning_rate_at(self, count):
         """Learning rate for the update that follows ``count`` updates."""
@@ -193,6 +222,25 @@ class PPO:
             return self.learning_rate
         fraction = 1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / max(self.nr_updates, 1)
         return self.learning_rate * fraction
+
+    def learning_rate_tensor(self, count):
+        """``learning_rate_at`` of a device count (an int64 0-dim tensor), on
+        its device in float64, with the host's arithmetic."""
+        if not self.anneal_learning_rate:
+            return torch.full((), self.learning_rate, dtype=torch.float64, device=count.device)
+        period = self.nr_minibatches * self.nr_epochs
+        fraction = 1.0 - torch.div(count, period, rounding_mode="floor").double() / max(self.nr_updates, 1)
+        return self.learning_rate * fraction
+
+    def _step_optimizers(self, active=None):
+        """One Adam step of the policy and the critic at the rate of the
+        device step count, which it advances; with ``active`` (a 0-dim
+        bool tensor) only where it is true.  Returns the rate (float64)."""
+        lr = self.learning_rate_tensor(self.optimizer_steps)
+        for optimizer in (self.policy_optimizer, self.critic_optimizer):
+            adam_step_(optimizer, lr, active)
+        self.optimizer_steps += 1 if active is None else active.long()
+        return lr
 
     # ----------------------------------------------------------- parallel seeds
 
@@ -411,7 +459,6 @@ class PPO:
         if epoch_indices is None:
             epoch_indices = self._epoch_indices()
         history = []
-        lr = self.learning_rate
         for obs_mb, action_mb, log_prob_mb, return_mb, adv_mb in self._minibatch_stream(batch_arrays, epoch_indices):
             self.policy_optimizer.zero_grad(set_to_none=False)
             self.critic_optimizer.zero_grad(set_to_none=False)
@@ -419,27 +466,23 @@ class PPO:
             loss.backward()
             with torch.no_grad():
                 self._clip_gradients(metrics)
-            lr = self.learning_rate_at(self.nr_optimizer_steps)
-            for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                optimizer.param_groups[0]["lr"] = lr
-                optimizer.step()
-            self.nr_optimizer_steps += 1
+            lr = self._step_optimizers()
             history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     def _optimize_seeds(self, batch_arrays, epoch_indices=None):
         """``_optimize`` over all seeds at once: each minibatch is every
         seed's minibatch of its own permutation (from its own generator
         unless given), the loss mapped over the seeds, the backward of their
-        sum, a per-seed clip and one Adam step of each net."""
+        sum, a per-seed clip and one Adam step of each net (elementwise, so
+        each seed's is its one-seed step)."""
         P = self.parallel
         if epoch_indices is None:
             epoch_indices = P.draw(lambda g: torch.stack([
                 torch.randperm(self.batch_size, generator=g, device=self.device) for _ in range(self.nr_epochs)]))
         history = []
-        lr = self.learning_rate
         batch_observations = batch_arrays[0]
         for e in range(self.nr_epochs):
             idx_e = epoch_indices[:, e].to(self.device)
@@ -458,14 +501,10 @@ class PPO:
                     for name, module in (("policy", self.policy.module), ("critic", self.critic)):
                         metrics[f"gradients/{name}_grad_norm"] = clip_by_global_norm_(
                             [p.grad for p in module.parameters()], self.max_grad_norm, per_seed=True)
-                lr = self.learning_rate_at(self.nr_optimizer_steps)
-                for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                    optimizer.param_groups[0]["lr"] = lr
-                    optimizer.step()
-                self.nr_optimizer_steps += 1
+                lr = self._step_optimizers()
                 history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     def _minibatches(self, batch_arrays, epoch_indices, minibatch_size=None):
@@ -531,8 +570,9 @@ class PPO:
 
     def _eval_save_iteration(self, carry, eval_save_iteration):
         env_state, best_return = carry
+        iterate = self.captured_iteration or self.learning_iteration
         for j in range(self.nr_updates_per_eval_save_iteration):
-            env_state, metrics = self.learning_iteration(env_state)
+            env_state, metrics = iterate(env_state)
             if self.logging_active:
                 iteration = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j + 1
                 values = {k: float(v) for k, v in metrics.items()}

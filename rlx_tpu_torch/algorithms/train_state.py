@@ -40,6 +40,72 @@ def clip_by_global_norm_(grads, max_norm, per_seed=False):
     return norm
 
 
+@torch.no_grad()
+def adam_step_(optimizer, learning_rate, active=None):
+    """One Adam step of every parameter of a ``torch.optim.Adam`` (its one
+    parameter group) by its gradient, in the optimizer's own state, so its
+    ``state_dict()`` stays the checkpoint's format.  Written in tensor ops
+    with no host read, so a CUDA graph can capture it, and run alike
+    eagerly on either device:
+
+    - ``learning_rate`` is a 0-dim tensor on the parameters' device (the
+      schedule's rate at the device step count);
+    - ``state["step"]`` is a 0-dim float32 tensor on the parameter's device
+      (one made on the CPU, by a checkpoint or torch's own step, is moved
+      there at the next eager step);
+    - torch's arithmetic: ``exp_avg.lerp_(g, 1 - b1)``, ``exp_avg_sq * b2 +
+      (1 - b2) g^2``, ``p -= lr / (1 - b1^t) * exp_avg / (sqrt(exp_avg_sq)
+      / sqrt(1 - b2^t) + eps)``, the bias corrections taken in float64;
+    - with ``active`` (a 0-dim bool tensor) the parameters, moments and step
+      counts change only where it is true, as the JAX package's select of
+      the whole train state (ESPO's early stop).
+    """
+    (group,) = optimizer.param_groups
+    beta1, beta2 = group["betas"]
+    eps = group["eps"]
+    params = [p for p in group["params"] if p.grad is not None]
+    states = [optimizer.state[p] for p in params]
+    for p, state in zip(params, states):
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        elif state["step"].device != p.device:
+            state["step"] = state["step"].to(p.device, torch.float32)
+    steps = [s["step"] for s in states]
+    exp_avgs = [s["exp_avg"] for s in states]
+    exp_avg_sqs = [s["exp_avg_sq"] for s in states]
+    grads = [p.grad for p in params]
+    # the nets step together: one count serves every parameter
+    count = steps[0].double() + 1.0
+    step_size = learning_rate.double() / (1.0 - beta1 ** count)
+    bias_correction2_sqrt = torch.sqrt(1.0 - beta2 ** count)
+    if active is None:
+        new_avgs, new_avg_sqs = exp_avgs, exp_avg_sqs
+        torch._foreach_lerp_(exp_avgs, grads, 1.0 - beta1)
+        torch._foreach_mul_(exp_avg_sqs, beta2)
+        torch._foreach_addcmul_(exp_avg_sqs, grads, grads, value=1.0 - beta2)
+    else:
+        new_avgs = torch._foreach_lerp(exp_avgs, grads, 1.0 - beta1)
+        new_avg_sqs = torch._foreach_mul(exp_avg_sqs, beta2)
+        torch._foreach_addcmul_(new_avg_sqs, grads, grads, value=1.0 - beta2)
+    dtype = params[0].dtype
+    denominators = torch._foreach_sqrt(new_avg_sqs)
+    torch._foreach_div_(denominators, bias_correction2_sqrt.to(dtype))
+    torch._foreach_add_(denominators, eps)
+    updates = torch._foreach_div(new_avgs, denominators)
+    torch._foreach_mul_(updates, step_size.to(dtype))
+    if active is None:
+        torch._foreach_sub_(params, updates)
+        torch._foreach_add_(steps, 1.0)
+        return
+    new_params = torch._foreach_sub(params, updates)
+    for olds, news in ((params, new_params), (exp_avgs, new_avgs), (exp_avg_sqs, new_avg_sqs),
+                       (steps, [s + 1.0 for s in steps])):
+        for old, new in zip(olds, news):
+            old.copy_(torch.where(active, new, old))
+
+
 def module_state_dict(module, optimizer, target=None):
     """A network's full state, named as flax's ``TrainState`` fields:
     ``params``, ``opt_state`` and, with a target, ``target_params``."""

@@ -1,4 +1,5 @@
-"""The training run as a host loop over eval/save iterations.
+"""The training run as a host loop over eval/save iterations, and the
+learning iteration captured as one CUDA graph.
 
 Every algorithm's run is ``nr_eval_save_iterations`` calls of
 ``model._eval_save_iteration(carry, i)`` from ``model._init_train_carry()``,
@@ -6,18 +7,34 @@ as in the JAX package (``rlx_tpu/algorithms/training_program.py``).  JAX
 runs it either fused (one jitted scan over the whole run) or chunked (one
 device call per eval/save iteration, ``runner.chunked_train=True``); its
 ``tests/test_chunked_train.py`` pins both modes to the same eval history.
-The eager port has no fused program: it always runs the chunked loop, one
-host call per eval/save iteration, and accepts ``runner.chunked_train`` with
-either value.
+The port always runs the chunked loop, one host call per eval/save
+iteration, and accepts ``runner.chunked_train`` with either value: eval,
+saving and logging stay on the host between learning iterations.
 
-Each ``train()`` call starts from a fresh env reset (``train_reset_seed``).
-With parallel seeds (``model.parallel``, ``parallel_seeds.py``) each eval
-metric is one value per seed, and the history is ``[S,
-nr_eval_save_iterations]``, as the JAX package's vmapped program returns it.
+On the card, torch's counterpart of a jitted learning iteration is a
+captured CUDA graph (``CapturedIteration``): the rollout with its B2
+launches, the value passes, B1 and the minibatch updates recorded once and
+replayed once per learning iteration, with no host work between the
+kernels.  ``capture_choice`` says when: a model on a CUDA device, at dp =
+tp = 1, with one seed, whose class and env both declare ``capturable``
+(the PPO family on the Ant, CartPole and Pendulum, through any wrapper).
+Everything else, the CPU always, runs the eager loop.  ``train()`` logs
+one INFO line with the path and the reason.  A capture or a replay that
+fails raises; nothing falls back to the eager loop.
+
+Each ``train()`` call starts from a fresh env reset (``train_reset_seed``)
+and captures anew.  With parallel seeds (``model.parallel``,
+``parallel_seeds.py``) each eval metric is one value per seed, and the
+history is ``[S, nr_eval_save_iterations]``, as the JAX package's vmapped
+program returns it.
 """
+
+import time
 
 import numpy as np
 import torch
+
+from rlx_tpu_torch.utils.logging import rlx_logger
 
 
 def run_training_program(model):
@@ -25,17 +42,151 @@ def run_training_program(model):
 
     ``eval_history`` maps each eval metric to a numpy array of
     ``[nr_eval_save_iterations]`` values (``[S, nr_eval_save_iterations]``
-    with S parallel seeds), or is None when evaluation is inactive.
+    with S parallel seeds), or is None when evaluation is inactive.  Where
+    ``capture_choice`` allows it, ``model.captured_iteration`` holds this
+    call's ``CapturedIteration`` while the loop runs.
     """
+    capture, reason = capture_choice(model)
+    rlx_logger.info(f"Learning iterations: {'one captured CUDA graph, replayed' if capture else 'eager'} "
+                    f"({reason})")
     carry = model._init_train_carry()
     evals = []
-    for i in range(model.nr_eval_save_iterations):
-        carry, eval_metrics = model._eval_save_iteration(carry, i)
-        if eval_metrics is not None:
-            evals.append(eval_metrics)
+    if capture:
+        model.captured_iteration = CapturedIteration(model)
+    try:
+        for i in range(model.nr_eval_save_iterations):
+            carry, eval_metrics = model._eval_save_iteration(carry, i)
+            if eval_metrics is not None:
+                evals.append(eval_metrics)
+    finally:
+        if capture:
+            model.captured_iteration.close()
+            model.captured_iteration = None
     # [iterations] or [iterations, S] -> [iterations] or [S, iterations]
     eval_history = {k: np.asarray([e[k] for e in evals]).T for k in evals[0]} if evals else None
     return carry, eval_history
+
+
+def capture_choice(model):
+    """(whether ``train()`` replays a captured learning iteration, why).
+
+    Reads only the model's attributes: ``device``, ``parallel`` (parallel
+    seeds), ``mesh`` (its ``dp`` and ``tp``), ``train_env`` and the class's
+    ``capturable``; an env (a wrapper passes on its inner env's answer)
+    declares ``capturable`` too."""
+    name = type(model).__name__
+    device = torch.device(getattr(model, "device", "cpu"))
+    if device.type != "cuda":
+        return False, f"the model is on {device.type}: only a CUDA device replays a graph"
+    if not getattr(type(model), "capturable", False):
+        return False, f"{name} has no captured learning iteration"
+    parallel = getattr(model, "parallel", None)
+    if parallel is not None:
+        return False, f"{parallel.nr_seeds} parallel seeds"
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and (mesh.dp > 1 or mesh.tp > 1):
+        return False, f"a dp = {mesh.dp}, tp = {mesh.tp} mesh"
+    env = model.train_env
+    if not getattr(env, "capturable", False):
+        return False, f"the env {type(env).__name__} does not declare capture"
+    return True, f"{name} on {type(env).__name__}, one seed, one device"
+
+
+def launch_counters():
+    """The kernel wrappers whose ``launches`` attribute counts their launches."""
+    from rlx_tpu_torch.ops.engine_substep_cuda import step_cuda
+    from rlx_tpu_torch.ops.gae_cuda import gae_advantages_cuda
+    from rlx_tpu_torch.ops.projection_cuda import categorical_projection_cuda
+
+    return step_cuda, gae_advantages_cuda, categorical_projection_cuda
+
+
+class CapturedIteration:
+    """``model.learning_iteration`` captured once as a ``torch.cuda.CUDAGraph``
+    and replayed; called as it, ``(env_state) -> (env_state, metrics)``.
+
+    - The first call runs the iteration eagerly on the capture stream: a
+      real iteration, and the warm-up (the kernels built, B2's tables
+      uploaded and its shared memory granted, Adam's state and the
+      gradients allocated).
+    - The second copies its env state into static tensors, allocated
+      outside the graph's memory pool, captures one iteration from them
+      that ends by copying the new env state into them, and replays it.
+    - Every later call replays it.
+
+    A replay returns the static env state and the graph's metric tensors;
+    the next replay overwrites both, so read the metrics before it.  The
+    nets' parameters and gradients, Adam's moments and step counts and the
+    model's device step count are the same tensors eagerly and in the
+    graph, updated in place.  The model's generator and the env state's
+    are registered with the graph: each replay draws fresh noise, the
+    noise the eager iteration draws from the same generator states.
+
+    The kernel wrappers' launch counters tick once while the capture
+    records (which launches nothing); the capture takes that tick back and
+    each replay adds the launches it recorded, so a counter counts the
+    launches that ran, on either path.
+    """
+
+    def __init__(self, model):
+        self.model = model
+        self.device = torch.device(model.device)
+        self.stream = torch.cuda.Stream(device=self.device)
+        self.warm = False
+        self.graph = None
+        self.state = self.metrics = None
+        self.launches = None          # each counter's launches in one replay
+        self.capture_seconds = None   # host seconds the capture took
+        self.pool_bytes = None        # device memory the capture reserved
+
+    def __call__(self, env_state):
+        if not self.warm:
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = self.model.learning_iteration(env_state)
+            current.wait_stream(self.stream)
+            self.warm = True
+            return out
+        if self.graph is None:
+            self.capture(env_state)
+        self.replay()
+        return self.state, self.metrics
+
+    def capture(self, env_state):
+        """Record one learning iteration from a static copy of ``env_state``."""
+        model = self.model
+        self.state = env_state.map_tensors(torch.clone)
+        graph = torch.cuda.CUDAGraph()
+        for generator in (model.generator, *self.state.generators()):
+            graph.register_generator_state(generator)
+        counters = launch_counters()
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self.stream):
+            new_state, self.metrics = model.learning_iteration(self.state)
+            self.state.copy_(new_state)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.launches = [c.launches - n for c, n in zip(counters, before)]
+        for c, n in zip(counters, self.launches):
+            c.launches -= n
+        self.graph = graph
+
+    def replay(self):
+        """One learning iteration: the graph replayed on the current stream."""
+        self.graph.replay()
+        for c, n in zip(launch_counters(), self.launches):
+            c.launches += n
+
+    def close(self):
+        """Drop the graph and its memory pool (the static env state stays)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.metrics = None
 
 
 def train_reset_seed(model):

@@ -28,6 +28,7 @@ class CartPolePhysics(NamedTuple):
 
 class CartPole(DeviceEnv):
     parallel_seeds = True
+    capturable = True
     gravity = 9.8
     masscart = 1.0
     masspole = 0.1

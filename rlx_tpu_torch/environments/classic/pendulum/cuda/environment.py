@@ -24,6 +24,7 @@ class PendulumPhysics(NamedTuple):
 
 class Pendulum(DeviceEnv):
     parallel_seeds = True
+    capturable = True
     g = 10.0
     m = 1.0
     l = 1.0

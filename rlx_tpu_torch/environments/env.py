@@ -18,12 +18,18 @@ an env also runs under the dp mesh (``parallel/mesh.py``): with
 ``dp_rows = (first, total)`` set (``shard_env``) it holds rows ``first ..
 first + nr_envs`` of ``total`` envs and draws each from the global draw
 (``RankRows``), as the dp = 1 env would.
+
+An env whose ``step`` a CUDA graph can capture sets ``capturable = True``
+(``algorithms/training_program.py``): every draw comes from the state's
+generator, the auto-reset is the masked select below, and nothing reads a
+device value back to the host.
 """
 
 import dataclasses
 from typing import Any, Dict
 
 import torch
+import torch.utils._pytree as pytree
 
 from rlx_tpu_torch.parallel.mesh import RankRows
 
@@ -43,6 +49,48 @@ class EnvState:
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
+
+    # the fields that hold tensors (nested in NamedTuples and dicts)
+    TENSOR_FIELDS = ("physics", "observation", "final_observation", "reward", "terminated", "truncated", "info",
+                     "episode_store")
+
+    def generators(self):
+        """The ``torch.Generator``s the state draws from: its one, or each
+        seed's with parallel seeds (a captured learning iteration registers
+        them with its CUDA graph)."""
+        return [self.generator] if isinstance(self.generator, torch.Generator) else list(self.generator)
+
+    def _leaves(self):
+        return pytree.tree_flatten([getattr(self, f) for f in self.TENSOR_FIELDS])
+
+    def map_tensors(self, fn):
+        """A copy with ``fn`` applied to each of the state's tensors (the
+        generators and ``eval_mode`` kept)."""
+        leaves, spec = self._leaves()
+        fields = pytree.tree_unflatten([fn(x) if isinstance(x, torch.Tensor) else x for x in leaves], spec)
+        return self.replace(**dict(zip(self.TENSOR_FIELDS, fields)))
+
+    def copy_(self, other):
+        """In place: each of the state's tensors takes the value of the same
+        tensor of ``other``, a state of the same structure, shapes and types
+        (the end of a captured learning iteration).  A tensor of ``other``
+        that is one of this state's is read before any is written."""
+        (mine, spec), (theirs, other_spec) = self._leaves(), other._leaves()
+        if spec != other_spec:
+            raise ValueError("the env states differ in structure")
+        written = {x.data_ptr() for x in mine if isinstance(x, torch.Tensor)}
+        pairs = []
+        for dst, src in zip(mine, theirs):
+            if not isinstance(dst, torch.Tensor):
+                continue
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"an env state tensor {tuple(src.shape)} {src.dtype} cannot take the place "
+                                 f"of {tuple(dst.shape)} {dst.dtype}")
+            pairs.append((dst, src.clone() if src is not dst and src.data_ptr() in written else src))
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
+        return self
 
 
 def draw(generator, sample, shape, **kwargs):
@@ -92,6 +140,7 @@ class DeviceEnv:
     horizon: int
     device: torch.device
     parallel_seeds = False
+    capturable = False
 
     def initial_physics(self, generator, eval_mode):
         raise NotImplementedError

@@ -37,6 +37,7 @@ class AntPhysics(NamedTuple):
 
 class Ant(DeviceEnv):
     parallel_seeds = True
+    capturable = True
 
     def __init__(self, nr_envs, horizon=1000, action_scaling_factor=0.3, nr_substeps=4,
                  initial_state_noise=0.0, perturbation_chance=0.0, perturbation_velocity=0.5,

@@ -47,6 +47,13 @@ class _Wrapper:
         randomization wrapper's own draws go through ``env.draw``)."""
         return getattr(self.env, "parallel_seeds", False)
 
+    @property
+    def capturable(self):
+        """A CUDA graph captures the wrapper's step where it captures the
+        inner env's (the wrappers draw through ``env.draw`` from the
+        state's generator and select branchlessly)."""
+        return getattr(self.env, "capturable", False)
+
     def _unbounded_observations(self, size):
         return BoxSpace(low=-math.inf, high=math.inf, shape=(size,), device=self.device)
 

@@ -1,0 +1,285 @@
+"""The learning iteration that a CUDA graph captures, checked on the CPU:
+
+- (a) no host read: for the PPO family's registrations (PPO on the Ant,
+  discrete PPO on CartPole, ESPO, PPO-DTRL, PPO over an observation window
+  and PPO with memory actions), one learning iteration after a warm-up
+  iteration runs under a dispatch mode that raises on
+  ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``bool()`` of a
+  tensor) and on ``aten.lift_fresh`` (a tensor made from host data, which
+  a graph would freeze at its capture value), with ``torch.Generator``
+  refusing to make a new generator; the env state's ``map_tensors`` /
+  ``copy_`` round trip that ends a captured iteration;
+- (b) ESPO's branchless stop against the JAX package's ESPO: parameters,
+  Adam's moments and step counts, ``nr_active_epochs`` and every metric,
+  with the stop firing in the second epoch (f32 on both sides, 1e-5, as
+  the ESPO test of ``test_torch_ppo_variants.py``);
+- (c) the learning-rate schedule on the device against ``learning_rate_at``
+  (exactly: the same float64 arithmetic) and against the JAX package's
+  optax schedule (f32 rounding, 1e-7 relative), over two iterations'
+  worth of updates with annealing on, and through two learning iterations;
+- (d) the selection rule (``capture_choice``) on stub models on
+  ``torch.device("cuda")``, which needs no card: capture for the five
+  registrations on the Ant, CartPole and Pendulum (wrapped or not), eager
+  with its reason for a dp or tp mesh, parallel seeds, a host env, the
+  robot, soccer and pixel envs, an algorithm without a captured
+  iteration, and the CPU.
+
+The capture itself runs only on the card: ``chip_smoke.py`` phase 48.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from rlx_tpu_torch import convert
+from rlx_tpu_torch.algorithms.training_program import capture_choice
+from rlx_tpu_torch.config import create_model, make_config
+from rlx_tpu_torch.environments.env import EnvState
+from torch_parity import close, np_tree
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
+
+NETS = {"algorithm.policy_hidden_sizes": (16, 16), "algorithm.critic_hidden_sizes": (16, 16),
+        "algorithm.activation": "elu", "algorithm.layer_norm": True, "algorithm.logging_active": False,
+        "algorithm.evaluation_active": False, "runner.device": "cpu"}
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on an op that reads a tensor's value on the host or, unless
+    ``host_constants``, makes a tensor from host data; inside it
+    ``torch.Generator(...)`` raises too."""
+
+    def __init__(self, host_constants=False):
+        super().__init__()
+        self.forbidden = {torch.ops.aten._local_scalar_dense.default}
+        if not host_constants:
+            self.forbidden.add(torch.ops.aten.lift_fresh.default)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.forbidden:
+            raise AssertionError(f"{func} inside the learning iteration")
+        return func(*args, **(kwargs or {}))
+
+    def __enter__(self):
+        real = torch.Generator
+
+        class Refuse(type):
+            def __instancecheck__(cls, obj):
+                return isinstance(obj, real)
+
+            def __call__(cls, *args, **kwargs):
+                raise AssertionError("a new torch.Generator inside the learning iteration")
+
+        self._real = real
+        torch.Generator = Refuse("Generator", (), {})
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        torch.Generator = self._real
+        return super().__exit__(*exc)
+
+
+REGISTRATIONS = {
+    "ppo on the Ant": ("ppo", "locomotion.ant", {}),
+    "discrete ppo on CartPole": ("ppo", "classic.cart_pole", {}),
+    "espo": ("espo", "classic.pendulum", {"algorithm.nr_epochs": 3}),
+    "ppo_dtrl": ("ppo_dtrl", "classic.pendulum", {}),
+    "ppo_history_window": ("ppo_history_window", "classic.pendulum", {"environment.mask_velocity": True}),
+    "ppo_memory_actions": ("ppo_memory_actions", "classic.pendulum", {"environment.mask_velocity": True}),
+}
+
+
+@pytest.mark.parametrize("name", list(REGISTRATIONS))
+def test_learning_iteration_reads_nothing_back(name):
+    algorithm, environment, overrides = REGISTRATIONS[name]
+    model = create_model(make_config(f"{algorithm}.cuda", f"{environment}.cuda", **{
+        **NETS, "environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 8,
+        "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 64, "environment.horizon": 3, **overrides}))
+    state = model.train_env.reset(0)
+    state, _ = model.learning_iteration(state)           # the warm-up
+    steps = model.nr_optimizer_steps
+    static = state.map_tensors(torch.clone)
+    generators = static.generators()
+    assert len(generators) == 1 and generators[0] is state.generator
+    # the Ant's physics runs its plain version here, whose constants are made
+    # from host data at each call; on the card B2 runs in its place
+    with NoHostRead(host_constants=environment == "locomotion.ant"):
+        new_state, metrics = model.learning_iteration(static)
+        static.copy_(new_state)                           # how a captured iteration ends
+    assert model.nr_optimizer_steps > steps
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    ours, refs = (pytree.tree_leaves([getattr(s, f) for f in EnvState.TENSOR_FIELDS]) for s in (static, new_state))
+    assert len(ours) == len(refs) > 6
+    for mine, ref in zip(ours, refs):
+        assert mine is not ref and torch.equal(mine, ref)
+
+
+def test_state_copy_refuses_another_structure():
+    model = create_model(make_config("ppo.cuda", "classic.pendulum.cuda", **NETS))
+    state = model.train_env.reset(0)
+    with pytest.raises(ValueError, match="structure"):
+        state.copy_(state.replace(info={}))
+    with pytest.raises(ValueError, match="cannot take the place"):
+        state.copy_(state.map_tensors(lambda t: t.double() if t.is_floating_point() else t))
+
+
+def _adam_nodes(opt_state):
+    """The Adam state (``mu``, ``nu``, ``count``) inside an optax state."""
+    import jax
+
+    return [node for node in jax.tree.leaves(opt_state, is_leaf=lambda x: hasattr(x, "nu")) if hasattr(node, "nu")][0]
+
+
+@pytest.mark.parametrize("operator", ["mean", "median"])
+def test_branchless_espo_matches_jax(operator):
+    """``max_ratio_delta`` 1e-3 lets epochs 0 and 1 step (epoch 0's ratio
+    is exactly 1) and stops epochs 2-5 with a device flag: the parameters,
+    both moments and the counts must be the JAX package's, whose scan
+    selects the whole train state by ``active``."""
+    import jax
+
+    from rlx_tpu.config import create_model as jax_create_model
+    from rlx_tpu.config import make_config as jax_make_config
+
+    N = 32
+    shared = {"environment.nr_envs": 4, "algorithm.nr_steps": 8, "algorithm.minibatch_size": N,
+              "algorithm.nr_epochs": 6, "algorithm.total_timesteps": 4 * N, "algorithm.max_ratio_delta": 1e-3,
+              "algorithm.delta_calc_operator": operator, "algorithm.learning_rate": 1e-2,
+              **{k: v for k, v in NETS.items() if k != "runner.device"}}
+    jmodel = jax_create_model(jax_make_config("espo.tpu", "locomotion.ant.tpu", **shared, **{"runner.mesh_dp": 1}))
+    model = create_model(make_config("espo.cuda", "locomotion.ant.cuda", **shared, **{"runner.device": "cpu"}))
+    model.policy.module.load_state_dict(convert.policy_state_dict(np_tree(jmodel.policy_state.params)))
+    model.critic.load_state_dict(convert.critic_state_dict(np_tree(jmodel.critic_state.params)))
+    rng = np.random.default_rng(5)
+    batch = [rng.normal(size=(N, 34)).astype(np.float32), rng.normal(size=(N, 8)).astype(np.float32),
+             None, rng.normal(size=N).astype(np.float32), rng.normal(size=N).astype(np.float32)]
+    batch[2] = model.policy.log_prob_entropy(torch.tensor(batch[0]), torch.tensor(batch[1]))[0].detach().numpy()
+    policy_state, critic_state, jmetrics = jax.jit(jmodel._optimize)(
+        jmodel.policy_state, jmodel.critic_state, tuple(batch), jax.random.PRNGKey(0))
+    batch = tuple(torch.tensor(x) for x in batch)
+    with NoHostRead():
+        metrics = model._optimize(batch)
+    assert float(metrics["policy_ratio/nr_active_epochs"]) == float(jmetrics["policy_ratio/nr_active_epochs"]) == 2.0
+    for k in jmetrics:
+        close(float(metrics[k]), float(jmetrics[k]), 1e-5, k)
+    for module, optimizer, state, to_torch in (
+            (model.policy.module, model.policy_optimizer, policy_state, convert.policy_state_dict),
+            (model.critic, model.critic_optimizer, critic_state, convert.critic_state_dict)):
+        adam = _adam_nodes(state.opt_state)
+        refs = {"params": to_torch(np_tree(state.params)), "exp_avg": to_torch(np_tree(adam.mu)),
+                "exp_avg_sq": to_torch(np_tree(adam.nu))}
+        for name, p in module.named_parameters():
+            close(p, refs["params"][name], 1e-5, f"{name}")
+            for key in ("exp_avg", "exp_avg_sq"):
+                close(optimizer.state[p][key], refs[key][name], 1e-5, f"{name} {key}")
+            assert float(optimizer.state[p]["step"]) == int(adam.count) == 2
+    assert model.nr_optimizer_steps == 2
+
+
+def test_device_learning_rate_schedule():
+    """Two learning iterations of 2 epochs x 4 minibatches over a run of 4
+    updates: the rate anneals from 3e-4 by a quarter an iteration."""
+    import optax
+
+    from rlx_tpu.config import create_model as jax_create_model
+    from rlx_tpu.config import make_config as jax_make_config
+
+    shared = {"environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 4,
+              "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 4 * 16, "algorithm.anneal_learning_rate": True,
+              **{k: v for k, v in NETS.items() if k != "runner.device"}}
+    model = create_model(make_config("ppo.cuda", "classic.pendulum.cuda", **shared, **{"runner.device": "cpu"}))
+    jmodel = jax_create_model(jax_make_config("ppo.tpu", "classic.pendulum.tpu", **shared, **{"runner.mesh_dp": 1}))
+    per_update = model.nr_minibatches * model.nr_epochs
+    assert per_update == 8 and model.nr_updates == 4
+    tx = jmodel.policy_state.tx
+    params = jmodel.policy_state.params
+    opt_state = tx.init(params)
+    zeros = optax.tree_utils.tree_zeros_like(params)
+    for count in range(2 * per_update + 1):
+        rate = model.learning_rate_tensor(torch.tensor(count))
+        assert rate.dtype == torch.float64 and float(rate) == model.learning_rate_at(count)
+        _, opt_state = tx.update(zeros, opt_state, params)
+        close(float(rate), float(opt_state[1].hyperparams["learning_rate"]), 1e-7, f"count {count}")
+    state = model.train_env.reset(0)
+    for iteration in (1, 2):
+        state, metrics = model.learning_iteration(state)
+        assert model.nr_optimizer_steps == iteration * per_update
+        assert float(metrics["lr/learning_rate"]) == pytest.approx(3e-4 * (1.0 - (iteration - 1) / 4), rel=1e-6)
+
+
+def _stub(cls, env, device="cuda", dp=1, tp=1, parallel=None):
+    model = object.__new__(cls)
+    model.device = torch.device(device)
+    model.mesh = types.SimpleNamespace(dp=dp, tp=tp)
+    model.parallel = parallel
+    model.train_env = env
+    return model
+
+
+def _env_classes():
+    from rlx_tpu_torch.environments.classic.cart_pole.cuda.environment import CartPole
+    from rlx_tpu_torch.environments.classic.pendulum.cuda.environment import Pendulum
+    from rlx_tpu_torch.environments.classic.pixel_chase.cuda.environment import PixelChase
+    from rlx_tpu_torch.environments.classic.pixel_grid.cuda.environment import PixelGrid
+    from rlx_tpu_torch.environments.gym.host_bridge import HostEnv
+    from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import Ant
+    from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
+    from rlx_tpu_torch.environments.locomotion.soccer.cuda.environment import SoccerEnv
+    from rlx_tpu_torch.environments.native.batcher import NativeEnvBatch
+
+    return dict(Ant=Ant, CartPole=CartPole, Pendulum=Pendulum, PixelChase=PixelChase, PixelGrid=PixelGrid,
+                HostEnv=HostEnv, NativeEnvBatch=NativeEnvBatch, LocomotionEnv=LocomotionEnv, SoccerEnv=SoccerEnv)
+
+
+def _algorithm_class(name):
+    from rlx_tpu_torch.algorithms import algorithm_manager
+    from rlx_tpu_torch.config import import_for
+
+    import_for("algorithms", f"{name}.cuda")
+    return algorithm_manager.get_algorithm_model_class(f"{name}.cuda")()
+
+
+@pytest.mark.parametrize("algorithm", ["ppo", "espo", "ppo_dtrl", "ppo_history_window", "ppo_memory_actions"])
+def test_capture_choice_takes_the_slice(algorithm):
+    from rlx_tpu_torch.environments.classic.pendulum.cuda.environment import Pendulum
+    from rlx_tpu_torch.environments.wrappers import (
+        DomainRandomizationWrapper, MemoryActionsWrapper, ObservationMaskWrapper, ObservationWindowWrapper,
+    )
+
+    cls = _algorithm_class(algorithm)
+    pendulum = Pendulum(4, device="cpu")
+    envs = [object.__new__(_env_classes()[name]) for name in ("Ant", "CartPole", "Pendulum")] + [
+        ObservationMaskWrapper(pendulum, [0, 1]), ObservationWindowWrapper(ObservationMaskWrapper(pendulum, [0, 1]), 3),
+        MemoryActionsWrapper(pendulum, 2), DomainRandomizationWrapper(pendulum, 0.1, 0.1)]
+    for env in envs:
+        capture, reason = capture_choice(_stub(cls, env))
+        assert capture, (type(env).__name__, reason)
+        assert type(env).__name__ in reason and cls.__name__ in reason
+
+
+def test_capture_choice_runs_everything_else_eagerly():
+    from rlx_tpu_torch.environments.wrappers import ObservationWindowWrapper
+
+    envs = _env_classes()
+    ppo = _algorithm_class("ppo")
+    ant = object.__new__(envs["Ant"])
+    cases = {
+        "the CPU": (_stub(ppo, ant, device="cpu"), "only a CUDA device"),
+        "a dp mesh": (_stub(ppo, ant, dp=2), "dp = 2"),
+        "a tp mesh": (_stub(ppo, ant, tp=2), "tp = 2"),
+        "parallel seeds": (_stub(ppo, ant, parallel=types.SimpleNamespace(nr_seeds=4)), "4 parallel seeds"),
+        "an algorithm without it": (_stub(_algorithm_class("sac"), ant), "SAC has no captured"),
+        "the recurrent PPO": (_stub(_algorithm_class("ppo_lstm"), ant), "has no captured"),
+    }
+    for name in ("HostEnv", "NativeEnvBatch", "LocomotionEnv", "SoccerEnv", "PixelChase", "PixelGrid"):
+        env = object.__new__(envs[name])
+        cases[name] = (_stub(ppo, env), f"the env {name} does not declare capture")
+    window = object.__new__(ObservationWindowWrapper)
+    window.env = object.__new__(envs["LocomotionEnv"])
+    cases["a wrapped robot"] = (_stub(ppo, window), "ObservationWindowWrapper does not declare")
+    for what, (model, reason) in cases.items():
+        capture, why = capture_choice(model)
+        assert not capture and reason in why, (what, why)
