@@ -75,8 +75,8 @@ Phases (each prints one line; any failure exits nonzero):
     end, and its times and bound at both;
 16. DQN, DDQN and DQN-HL-Gauss on CartPole at their recipes: the prefill and
     64 learning steps each, no kernel launched, env-steps/s;
-17. PQN on CartPole through the Runner at its recipe: 2 learning iterations,
-    2 evaluations and saves, then test mode, no kernel launched;
+17. PQN on CartPole through the Runner at its recipe: 2 learning iterations
+    (the second a replay of the captured iteration), 2 evaluations and saves, then test mode, no kernel launched;
 18. discrete PPO on CartPole at the flagship rollout and update shape (4096
     envs x 64 steps, minibatch 32768, 4 epochs) with the PPO defaults'
     network: 2 iterations, B1 launched exactly twice; B1 against its plain
@@ -123,19 +123,22 @@ Phases (each prints one line; any failure exits nonzero):
     (learning_starts = nr_envs) and FastMPO (its 10 per-env prefill steps)
     at their defaults, 16 learning steps each: B2 exactly 17, 17 and 26
     launches, no B1 or B3;
-26. REPPO on the Ant at its defaults (4096 envs x 128 steps): 2 iterations,
-    B2 exactly 256 and no B1; one more iteration under torch.profiler; then
+26. REPPO on the Ant at its defaults (4096 envs x 128 steps): 2 iterations
+    (the second a replay of the captured iteration), B2 exactly 256 and no
+    B1; one more iteration's wall, busy time and idle share from the
+    device's events (as phase 28); then
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 328), then test mode from latest.model with both nets
     and the normalizer equal bit for bit;
 27. PPO with an LSTM, GRU, Mamba-2 and transformer memory on the Ant at
     the JAX package's recurrent shape (4096 envs x 32 steps, 4 minibatches
     of 1024 envs, 4 epochs, LSTM/GRU 128 wide; horizon 20, so every env
-    resets inside each window): 2 iterations each, B1 exactly 2 and B2
-    exactly 64 launches, finite losses, env-steps/s a iteration; the
-    policy's sequence re-run over a fresh window from its start carry
-    gives the rollout's log-probabilities within 1e-4; one LSTM and one
-    transformer iteration under torch.profiler, as phase 6; PPO-LSTM
+    resets inside each window): 1 iteration each (eager; phase 49 holds a
+    replay against it), B1 exactly 1 and B2 exactly 32 launches, finite
+    losses, env-steps/s; the policy's sequence re-run over a fresh window
+    from its start carry gives the rollout's log-probabilities within
+    1e-4; one more LSTM and transformer iteration's wall, busy time and
+    idle share from the device's events (as phase 28); PPO-LSTM
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 232, B1 exactly 1), then test mode from latest.model
     with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097];
@@ -144,7 +147,7 @@ Phases (each prints one line; any failure exits nonzero):
     shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 1
     iteration on the default heightfield, whose physics runs the eager
     engine on the card (B1 exactly 1, B2 none), then 2 on the plane (B1 2,
-    B2 exactly 64); one more iteration of each profiled from the device's
+    B2 exactly 64); one more plane iteration profiled from the device's
     events (wall, busy, idle share); the heightfield physics alone a
     control step; the projected wall time of one 50M-step
     ``locomotion_lstm`` seed;
@@ -307,7 +310,20 @@ Phases (each prints one line; any failure exits nonzero):
     and then),
     env-steps/s over 10 eager and 10 replayed iterations (each read as
     ``train()`` reads it), the device idle share of one replay and of one
-    eager iteration, the capture's seconds and the graph pool's MiB.
+    eager iteration, the capture's seconds and the graph pool's MiB;
+49. (run right after phase 48) the captured learning iteration of the
+    recurrent PPOs, REPPO and PQN (``capture_families_phase``): PPO-LSTM,
+    -GRU, -Mamba-2 and -transformer on the Ant at phase 27's shape, REPPO at
+    phase 26's and PQN on CartPole at phase 17's recipe: one eager
+    iteration against the first replay from the same state (nets, Adam's
+    moments and counts, the device step counts, REPPO's normalizer and
+    old-policy snapshot, the policy carry and PQN's update step, both
+    generators, the env state, every metric) bit for bit; a second replay
+    from the same state draws fresh noise; each replay's launches (B1 1 and
+    B2 32 for the recurrent PPOs, B2 128 for REPPO, none for PQN); PPO-LSTM's
+    graph nodes by name (32 B2, 1 B1); for PPO-LSTM, the transformer and
+    REPPO env-steps/s over 5 eager and 5 replayed iterations and the idle
+    share of one of each from the device's events.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -1448,6 +1464,170 @@ def capture_phase(launches_by_path, workdir):
     return rows
 
 
+def held_tensors(model, state, carry=(), metrics=None):
+    """name -> tensor of everything a learning iteration of any family
+    reads or changes: what the model holds (``training_program.model_tensors``:
+    the nets, the optimizers' state, the device step count, REPPO's
+    normalizer and old-policy snapshot), the env state, the carry and
+    (given) the metrics."""
+    import torch.utils._pytree as pytree
+
+    from rlx_tpu_torch.algorithms.training_program import model_tensors
+    from rlx_tpu_torch.environments.env import EnvState
+
+    out = model_tensors(model)
+    for i, t in enumerate(pytree.tree_leaves([getattr(state, f) for f in EnvState.TENSOR_FIELDS])):
+        out[f"env.{i}"] = t
+    for i, t in enumerate(pytree.tree_leaves(tuple(carry))):
+        out[f"carry.{i}"] = t
+    for key, value in (metrics or {}).items():
+        out[f"metric.{key}"] = value
+    return out
+
+
+def capture_families_phase(launches_by_path, workdir):
+    """Phase 49: the captured learning iteration of the recurrent PPOs,
+    REPPO and PQN against the eager iteration, at phases 27, 26 and 17's
+    shapes."""
+    from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice, copy_carry_
+    from rlx_tpu_torch.benchmarks.curves import RUNS
+    from rlx_tpu_torch.config import create_model, make_config
+
+    rec_steps = 32
+    recurrent = {"runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps,
+                 "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4, "environment.horizon": 20,
+                 "algorithm.total_timesteps": 4 * 4096 * rec_steps, "algorithm.evaluation_active": False}
+    width = {"algorithm.rnn_hidden_dim": 128}
+    cases = {   # name: (algorithm, environment, overrides, launches a replay (B2, B1), timed)
+        "ppo_lstm": ("ppo_lstm.cuda", "locomotion.ant.cuda", {**recurrent, **width}, (rec_steps, 1), True),
+        "ppo_gru": ("ppo_gru.cuda", "locomotion.ant.cuda", {**recurrent, **width}, (rec_steps, 1), False),
+        "ppo_mamba2": ("ppo_mamba2.cuda", "locomotion.ant.cuda", recurrent, (rec_steps, 1), False),
+        "ppo_transformer": ("ppo_transformer.cuda", "locomotion.ant.cuda", recurrent, (rec_steps, 1), True),
+        "reppo": ("reppo.cuda", "locomotion.ant.cuda",
+                  {"runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.total_timesteps": 4 * 4096 * 128,
+                   "algorithm.evaluation_active": False}, (128, 0), True),
+        "pqn": ("pqn.cuda", "classic.cart_pole.cuda",
+                {"runner.device": "cuda", **RUNS["cartpole_spot_pqn"]["overrides"],
+                 "algorithm.total_timesteps": RUNS["cartpole_spot_pqn"]["budget"],
+                 "algorithm.evaluation_active": False}, (0, 0), False),
+    }
+    rows = {}
+    for name, (algorithm, environment, overrides, (b2, b1), timed) in cases.items():
+        model = create_model(make_config(algorithm, environment, **overrides))
+        capture, reason = capture_choice(model)
+        if not capture:
+            fail(f"phase 49 {name}: capture_choice says eager ({reason})")
+        # the carry a train() call starts from: the recurrent policy's zero
+        # carry, PQN's update step 0, nothing for REPPO
+        carry = ()
+        if hasattr(model, "policy_carry"):
+            carry = (model.policy.initialize_carry(model.nr_envs),)
+        elif name == "pqn":
+            carry = (torch.zeros((), dtype=torch.int64, device="cuda"),)
+        graph = CapturedIteration(model)
+        state, *carry, _ = graph(model.train_env.reset(model.seed), *carry)   # the warm-up, eager
+        if name == "ppo_lstm":
+            torch.cuda.CUDAGraph = DebugGraph   # its kernel nodes are read back below
+        torch.cuda.synchronize()
+        live = held_tensors(model, state, carry)
+        # detached: a clone of a parameter would keep its gradient
+        # accumulator, made on this stream, alive into the capture
+        saved = {k: v.detach().clone() for k, v in live.items()}
+        generators = (model.generator, state.generator)
+        generator_states = [gen.get_state() for gen in generators]
+
+        @torch.no_grad()
+        def restore(noise=True):
+            for k, v in saved.items():
+                if not k.startswith(("env.", "carry.")):
+                    live[k].copy_(v)
+            if noise:
+                for gen, s in zip(generators, generator_states):
+                    gen.set_state(s)
+
+        def snapshot(state, carry, metrics):
+            out = {k: v.detach().clone() for k, v in held_tensors(model, state, carry, metrics).items()}
+            out.update({f"generator.{i}": gen.get_state() for i, gen in enumerate(generators)})
+            return out
+
+        eager_state, *eager_carry, eager_metrics = model.learning_iteration(state, *carry)
+        eager = snapshot(eager_state, eager_carry, eager_metrics)
+        restore()
+        torch.cuda.synchronize()
+        before = counts()
+        try:
+            graph_state, *graph_carry, graph_metrics = graph(state, *carry)   # capture, then the first replay
+        finally:
+            torch.cuda.CUDAGraph = DebugGraph.__base__
+        torch.cuda.synchronize()
+        after = counts()
+        replayed = snapshot(graph_state, graph_carry, graph_metrics)
+        equal, total, worst, where = differences(eager, replayed)
+        if equal != total:
+            fail(f"phase 49 {name}: the replay differs from the eager iteration in {total - equal} of {total} "
+                 f"tensors, max |diff| {worst:.3g} at {where}")
+        counted = {"engine_substep": after["engine_substep"] - before["engine_substep"],
+                   "gae": after["gae"] - before["gae"]}
+        expected = {"engine_substep": b2, "gae": b1}
+        recorded = dict(zip(("engine_substep", "gae"), graph.launches))
+        if counted != expected or recorded != expected or graph.launches[2] or after["categorical_projection"] != \
+                before["categorical_projection"]:
+            fail(f"phase 49 {name}: a replay launched {counted} (the capture recorded {graph.launches}), "
+                 f"expected {expected} and no B3")
+        launches_by_path[f"{name}_captured_replay"] = dict(counted, categorical_projection=0)
+        # the same nets, env state and carry again, the generators as the
+        # replay left them: fresh noise gives another rollout
+        offsets = [gen.get_offset() for gen in generators]
+        restore(noise=False)
+        graph.state.copy_(state)
+        copy_carry_(graph.carry, tuple(carry))
+        graph.replay()
+        torch.cuda.synchronize()
+        again = held_tensors(model, graph.state)
+        fresh = sum(not torch.equal(again[k], replayed[k]) for k in again if k.startswith("env."))
+        advanced = [gen.get_offset() > offset for gen, offset in zip(generators, offsets)]
+        if fresh == 0 or not advanced[0]:
+            fail(f"phase 49 {name}: a second replay from the same state drew the same noise "
+                 f"({fresh} env tensors changed, generators advanced {advanced})")
+        row = {"equal_tensors": f"{equal} of {total}", "generators_advanced": advanced,
+               "capture_s": graph.capture_seconds, "pool_mib": graph.pool_bytes / 2**20,
+               "env_tensors_changed_by_fresh_noise": fresh, "launches_per_replay": counted}
+        if name == "ppo_lstm":
+            names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel"}
+            nodes, kernel_nodes = graph_nodes(graph.graph, os.path.join(workdir, "graph.dot"), names)
+            if nodes != expected:
+                fail(f"phase 49: PPO-LSTM's graph holds {nodes} kernel nodes, expected {expected}")
+            row["graph_kernel_nodes"] = dict(nodes, all=kernel_nodes)
+        if timed:
+            batch = model.nr_envs * model.nr_steps
+
+            # env-steps/s of 5 iterations each way, each read as train() reads it
+            def iterations(step, state, carry):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    state, *carry, metrics = step(state, *carry)
+                    {k: float(v) for k, v in metrics.items()}
+                torch.cuda.synchronize()
+                return 5 * batch / (time.perf_counter() - t0), state, carry
+
+            row["eager_env_steps_per_s"], state, carry = iterations(model.learning_iteration, graph.state,
+                                                                    graph.carry)
+            graph.state.copy_(state)
+            copy_carry_(graph.carry, tuple(carry))
+            row["replay_env_steps_per_s"], _, _ = iterations(graph, graph.state, graph.carry)
+            row["replay_speedup"] = row["replay_env_steps_per_s"] / row["eager_env_steps_per_s"]
+            prefix = "reppo/" if name == "reppo" else "recurrent_ppo/"
+            row["replay_profile"] = device_idle(graph.replay, prefix)
+            row["eager_profile"] = device_idle(lambda: model.learning_iteration(graph.state, *graph.carry), prefix)
+        graph.close()
+        rows[name] = row
+        print(f"captured {name}: " + json.dumps(row))
+        del model, graph, state, carry, live, saved, eager, replayed, again
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke runs the CUDA kernels and has no CPU fallback")
@@ -1688,6 +1868,12 @@ def main():
     phase_t0 = time.perf_counter()
     capture_phase(launches_by_path, workdir.name)
     print(f"phase 48 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 49. the captured iteration of the recurrent PPOs, REPPO and PQN against
+    # eager, also while the tracer is reliable
+    phase_t0 = time.perf_counter()
+    capture_families_phase(launches_by_path, workdir.name)
+    print(f"phase 49 took {time.perf_counter() - phase_t0:.1f} s")
 
     # 7. B3: C51 projection
     from rlx_tpu_torch.ops.distributional import categorical_projection_reference
@@ -2571,7 +2757,7 @@ def main():
     def reppo_iteration():
         model.env_state, _ = model.learning_iteration(model.env_state)
 
-    print("profile reppo: " + json.dumps(profile_spans(reppo_iteration, "reppo/")))
+    print("profile reppo: " + json.dumps(device_idle(reppo_iteration, "reppo/")))
     del model
     reppo_args = ["--algorithm.name=reppo.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
                   f"--environment.horizon={horizon}"]
@@ -2619,8 +2805,9 @@ def main():
     # minibatches of 1024 envs with the time axis intact, 4 epochs; LSTM
     # and GRU 128 wide, obs encoding 128, Mamba-2 state 16 and conv 4, the
     # transformer 16 tokens, 4 heads, 2 blocks; critic 512/256/128
-    # ELU+LayerNorm, f32): 2 iterations each, one GAE launch an iteration
-    # and one substep launch an env step.  The horizon is cut to 20 so that
+    # ELU+LayerNorm, f32): 1 iteration each (eager: phase 49 holds the
+    # replayed one against it), one GAE launch and one substep launch an env
+    # step.  The horizon is cut to 20 so that
     # every env resets inside each 32-step window; then the policy's
     # sequence re-run over a fresh window (1024 envs, the resets inside)
     # from its start carry must give the rollout's own log-probabilities
@@ -2635,7 +2822,7 @@ def main():
         width = {"algorithm.rnn_hidden_dim": 128} if name in ("ppo_lstm", "ppo_gru") else {}
         config = make_config(f"{name}.cuda", "locomotion.ant.cuda", **{
             "runner.device": "cuda", **recurrent_shape, **width, "environment.horizon": 20,
-            "algorithm.total_timesteps": 2 * rec_batch, "algorithm.evaluation_active": False,
+            "algorithm.total_timesteps": rec_batch, "algorithm.evaluation_active": False,
         })
         model = create_model(config)
         zero_counts()
@@ -2644,10 +2831,10 @@ def main():
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         path_launches = counts()
-        expected = {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0}
+        expected = {"engine_substep": rec_steps, "gae": 1, "categorical_projection": 0}
         if path_launches != expected:
             fail(f"{name}: launch counts {path_launches} != {expected}")
-        check_logged(name, model.metrics_history, [16, 32])
+        check_logged(name, model.metrics_history, [16])
         launches_by_path[name] = path_launches
         # the carry check, after the counts were read
         with torch.no_grad():
@@ -2662,8 +2849,8 @@ def main():
         nr_dones = int(dones[:, mb].sum())
         if nr_dones < 1024:
             fail(f"{name}: {nr_dones} dones in the checked window, expected every env to reset")
-        print(f"train: {name} on the Ant, 2 iterations at 4096x{rec_steps} in {elapsed:.2f} s "
-              f"({2 * rec_batch / elapsed:.0f} env-steps/s overall), env-steps/s a iteration "
+        print(f"train: {name} on the Ant, 1 iteration at 4096x{rec_steps} in {elapsed:.2f} s "
+              f"({rec_batch / elapsed:.0f} env-steps/s overall), env-steps/s a iteration "
               f"{[m['time/sps'] for m in model.metrics_history]}, launches {path_launches}, sequence re-run of "
               f"{rec_steps}x1024 with {nr_dones} resets inside: log-prob max|err| {carry_err:.3g} (rtol=atol=1e-4), "
               "last losses " + json.dumps({k: v for k, v in model.metrics_history[-1].items()
@@ -2672,7 +2859,7 @@ def main():
             def recurrent_iteration():
                 model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
 
-            print(f"profile {name}: " + json.dumps(profile_spans(recurrent_iteration, "recurrent_ppo/")))
+            print(f"profile {name}: " + json.dumps(device_idle(recurrent_iteration, "recurrent_ppo/")))
         del model, batch, init_carry
 
     # PPO-LSTM through the Runner: 1 iteration, an evaluation and a save at
@@ -2746,9 +2933,8 @@ def main():
     # curriculum): 1 PPO-LSTM iteration on the default heightfield, where
     # the physics runs the engine's eager path on the card (as the JAX
     # package sends terrain to XLA), so B1 is launched once and B2 never;
-    # 2 on the plane, B2 once an env step; one profiled iteration of
-    # each, read from the device's events alone (~7 x 10^5 on the
-    # heightfield: the host spans' parsing took minutes); the eager
+    # 2 on the plane, B2 once an env step; one more plane iteration
+    # profiled, read from the device's events alone; the eager
     # heightfield physics alone a control step; the
     # projected wall time of one 50M-step locomotion_lstm seed
     from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
@@ -2759,7 +2945,7 @@ def main():
                   "algorithm.evaluation_active": False}
     robot_rates = {}
 
-    def recurrent_path(path, env_name, expected, overrides=(), iterations=2):
+    def recurrent_path(path, env_name, expected, overrides=(), iterations=2, profiled=True):
         config = make_config("ppo_lstm.cuda", env_name, **{
             "runner.device": "cuda", **loco_shape, **dict(overrides),
             "algorithm.total_timesteps": iterations * rec_batch,
@@ -2781,9 +2967,11 @@ def main():
         def iteration():
             model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
 
-        t0 = time.perf_counter()
-        profile = device_idle(iteration, "recurrent_ppo/")
-        profile["profiled_s"] = time.perf_counter() - t0
+        if profiled:
+            t0 = time.perf_counter()
+            profile = device_idle(iteration, "recurrent_ppo/")
+            profile["profiled_s"] = time.perf_counter() - t0
+            print(f"profile {path}: " + json.dumps(profile))
         tracking = model.env_state.info["rollout/episode_tracking"]
         print(f"train: {path}, {iterations} PPO-LSTM iterations at 4096x{rec_steps} in {elapsed:.2f} s, env-steps/s a "
               f"iteration {sps}, launches {path_launches}, observation {tuple(model.env_state.observation.shape)} "
@@ -2791,11 +2979,13 @@ def main():
               f"{len(model.train_env.critic_observation_indices)}), rollout/episode_tracking mean "
               f"{float(tracking.mean()):.4f}, last losses "
               + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
-        print(f"profile {path}: " + json.dumps(profile))
         return model
 
+    # not profiled: the heightfield iteration's ~7 x 10^5 device events took
+    # ~47 s to trace and read
     model = recurrent_path("robot_lstm_heightfield", "locomotion.robot.cuda",
-                           {"engine_substep": 0, "gae": 1, "categorical_projection": 0}, iterations=1)
+                           {"engine_substep": 0, "gae": 1, "categorical_projection": 0}, iterations=1,
+                           profiled=False)
     env = model.train_env
     internal = model.env_state.physics["internal"]
     qpos, qvel = model.env_state.physics["qpos"], model.env_state.physics["qvel"]

@@ -19,7 +19,8 @@ Per learning iteration:
 Nothing in ``learning_iteration`` reads a device value back to the host:
 the optimizer step count is a device tensor (``optimizer_steps``; the host's
 ``nr_optimizer_steps`` reads it), the learning rate is computed from it on
-the device (``learning_rate_tensor``), Adam is ``train_state.adam_step_``
+the device (``learning_rate_tensor``; both from
+``train_state.DeviceStepSchedule``), Adam is ``train_state.adam_step_``
 and the permutations come from the model's device generator.  So on one
 CUDA device the iteration is captured as a CUDA graph and replayed
 (``training_program.CapturedIteration``, ``capturable`` below), B1 and B2
@@ -91,7 +92,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
 )
 from rlx_tpu_torch.algorithms.ppo.cuda.general_properties import GeneralProperties
 from rlx_tpu_torch.algorithms.train_state import (
-    adam_step_, clip_by_global_norm_, load_module_state_dict, module_state_dict,
+    DeviceStepSchedule, clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
 from rlx_tpu_torch.algorithms.training_program import (
     eval_means, eval_reset_seed, run_training_program, train_reset_seed,
@@ -106,7 +107,7 @@ from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
-class PPO:
+class PPO(DeviceStepSchedule):
     # the learning iteration runs as a captured CUDA graph on one device
     # (``training_program.capture_choice``)
     capturable = True
@@ -192,8 +193,7 @@ class PPO:
         self.critic_optimizer = torch.optim.Adam(
             self.critic.parameters(), lr=self.learning_rate, eps=1e-8
         )
-        # the optimizer steps taken, on the device (``nr_optimizer_steps``)
-        self.optimizer_steps = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.init_optimizer_steps(self.device)
         if self.parallel is None:
             self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
             # seeds of the eval and test resets
@@ -205,42 +205,6 @@ class PPO:
         self.captured_iteration = None   # a train() call's CapturedIteration
         self.metrics_history = []  # per-iteration float metrics when logging is active
         self.eval_history = None
-
-    @property
-    def nr_optimizer_steps(self):
-        """The optimizer steps taken, read from the device count (the
-        checkpoint's count, and the schedule's)."""
-        return int(self.optimizer_steps)
-
-    @nr_optimizer_steps.setter
-    def nr_optimizer_steps(self, count):
-        self.optimizer_steps.fill_(int(count))
-
-    def learning_rate_at(self, count):
-        """Learning rate for the update that follows ``count`` updates."""
-        if not self.anneal_learning_rate:
-            return self.learning_rate
-        fraction = 1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / max(self.nr_updates, 1)
-        return self.learning_rate * fraction
-
-    def learning_rate_tensor(self, count):
-        """``learning_rate_at`` of a device count (an int64 0-dim tensor), on
-        its device in float64, with the host's arithmetic."""
-        if not self.anneal_learning_rate:
-            return torch.full((), self.learning_rate, dtype=torch.float64, device=count.device)
-        period = self.nr_minibatches * self.nr_epochs
-        fraction = 1.0 - torch.div(count, period, rounding_mode="floor").double() / max(self.nr_updates, 1)
-        return self.learning_rate * fraction
-
-    def _step_optimizers(self, active=None):
-        """One Adam step of the policy and the critic at the rate of the
-        device step count, which it advances; with ``active`` (a 0-dim
-        bool tensor) only where it is true.  Returns the rate (float64)."""
-        lr = self.learning_rate_tensor(self.optimizer_steps)
-        for optimizer in (self.policy_optimizer, self.critic_optimizer):
-            adam_step_(optimizer, lr, active)
-        self.optimizer_steps += 1 if active is None else active.long()
-        return lr
 
     # ----------------------------------------------------------- parallel seeds
 

@@ -15,6 +15,12 @@ Per learning iteration:
   global-norm gradient clip at ``max_grad_norm`` and Adam (eps 1e-8), the
   learning rate annealed linearly on the optimizer step count when asked.
 
+The iteration reads nothing back to the host: the update step that sets
+epsilon is a device count in the training carry, the optimizer step count
+and the rate live on the device (``train_state.DeviceStepSchedule``), Adam
+is ``train_state.adam_step_``.  So on one CUDA device it is captured as a
+CUDA graph and replayed (``training_program.CapturedIteration``).
+
 The Q-network is flax's default (lecun) init with a LayerNorm after every
 Dense (on an IMAGES env a ``NatureCNN`` trunk, fed the rollout's float32
 frames) and has no target network.  Evaluation, save, load and test mode
@@ -46,7 +52,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
     NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
 )
 from rlx_tpu_torch.algorithms.pqn.cuda.general_properties import GeneralProperties
-from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
+from rlx_tpu_torch.algorithms.train_state import DeviceStepSchedule, clip_by_global_norm_
 from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.algorithms.training_program import (
     eval_reset_seed, run_training_program, train_reset_seed,
@@ -57,7 +63,12 @@ from rlx_tpu_torch.utils import checkpoint as ckpt
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
-class PQN:
+class PQN(DeviceStepSchedule):
+    # the learning iteration runs as a captured CUDA graph on one device
+    # (``training_program.capture_choice``)
+    capturable = True
+    optimizer_names = ("optimizer",)
+
     def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
         self.config = config
         self.train_env = train_env
@@ -119,7 +130,7 @@ class PQN:
             self.q_net = stack_modules(self.parallel.init(build))
         self.q_net.to(self.device)
         self.optimizer = torch.optim.Adam(self.q_net.parameters(), lr=self.learning_rate, eps=1e-8)
-        self.nr_optimizer_steps = 0
+        self.init_optimizer_steps(self.device)
         if self.parallel is None:
             self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
             # seeds of the eval and test resets
@@ -128,18 +139,17 @@ class PQN:
             self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
+        self.captured_iteration = None   # a train() call's CapturedIteration
         self.metrics_history = []  # per-iteration float metrics when logging is active
         self.eval_history = None
 
     def epsilon(self, update_step):
-        fraction = min(update_step / self.epsilon_decay_updates, 1.0)
+        """The exploration rate after ``update_step`` learning iterations of
+        this ``train()`` call (an int64 0-dim tensor, or an int): a float32
+        0-dim tensor on the count's device, JAX's ``start + min(step /
+        decay, 1) * (end - start)`` in float32."""
+        fraction = torch.clamp(torch.as_tensor(update_step) / self.epsilon_decay_updates, max=1.0)
         return self.epsilon_start + fraction * (self.epsilon_end - self.epsilon_start)
-
-    def learning_rate_at(self, count):
-        """Learning rate for the optimizer step that follows ``count`` steps."""
-        if not self.anneal_learning_rate:
-            return self.learning_rate
-        return self.learning_rate * (1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / self.nr_updates)
 
     @torch.no_grad()
     def greedy_action(self, observation):
@@ -209,14 +219,17 @@ class PQN:
         return torch.stack(targets)
 
     def learning_iteration(self, env_state, update_step):
-        """One rollout, its Q(lambda) targets and the minibatch epochs; returns
-        the new env state and the iteration's metrics (device scalars)."""
+        """One rollout, its Q(lambda) targets and the minibatch epochs at the
+        exploration rate of ``update_step`` (the learning iterations this
+        ``train()`` call has run: an int64 0-dim tensor on the device);
+        returns the new env state, the next update step and the
+        iteration's metrics (device scalars)."""
         epsilon = self.epsilon(update_step)
         with record_function("pqn/rollout"):
             env_state, batch, infos = self._rollout(env_state, epsilon)
         metrics = self._learn(batch)
-        metrics["epsilon/epsilon"] = torch.tensor(epsilon)
-        return env_state, self.mesh.mean_metrics({**infos, **metrics})
+        metrics["epsilon/epsilon"] = epsilon
+        return env_state, update_step + 1, self.mesh.mean_metrics({**infos, **metrics})
 
     def _learn(self, batch, epoch_indices=None):
         """Q(lambda) targets of a rollout ``(observations, final_observations,
@@ -264,7 +277,6 @@ class PQN:
         minibatches = self.mesh.rows(minibatches, 1)
         params = list(self.q_net.parameters())
         history = []
-        lr = self.learning_rate
         for idx in minibatches:
             q = self.q_net(observations[idx])
             q_action = torch.gather(q, -1, actions[idx].long()[:, None]).squeeze(-1)
@@ -275,14 +287,11 @@ class PQN:
                 grad_norm = clip_by_global_norm_(list(grads), self.max_grad_norm)
             for p, g in zip(params, grads):
                 p.grad = g
-            lr = self.learning_rate_at(self.nr_optimizer_steps)
-            self.optimizer.param_groups[0]["lr"] = lr
-            self.optimizer.step()
-            self.nr_optimizer_steps += 1
+            lr = self._step_optimizers()
             history.append({"loss/q_loss": loss.detach(), "q_value/q_value": q_action.detach().mean(),
                             "gradients/critic_grad_norm": grad_norm})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     def _minibatch_loss(self, observations, actions, q_targets):
@@ -301,7 +310,6 @@ class PQN:
         minibatches = epoch_indices.to(self.device).reshape(P.nr_seeds, -1, self.minibatch_size)
         params = list(self.q_net.parameters())
         history = []
-        lr = self.learning_rate
         for m in range(minibatches.shape[1]):
             mb = tuple(P.take(x, minibatches[:, m]) for x in batch_arrays)
             loss, q_mean = P.map(self._minibatch_loss, {"q_net": self.q_net}, *mb)
@@ -310,14 +318,11 @@ class PQN:
                 grad_norm = clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=True)
             for p, g in zip(params, grads):
                 p.grad = g
-            lr = self.learning_rate_at(self.nr_optimizer_steps)
-            self.optimizer.param_groups[0]["lr"] = lr
-            self.optimizer.step()
-            self.nr_optimizer_steps += 1
+            lr = self._step_optimizers()
             history.append({"loss/q_loss": loss.detach(), "q_value/q_value": q_mean,
                             "gradients/critic_grad_norm": grad_norm})
         out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     # ------------------------------------------------------- eval/save loop
@@ -342,15 +347,19 @@ class PQN:
         return eval_metrics
 
     def _init_train_carry(self):
+        """(env state from the reset that starts this ``train()`` call, the
+        device update step at 0: JAX's ``outer_step * n + step`` restarts
+        with every call)."""
         self.env_state = self.train_env.reset(train_reset_seed(self))
-        return self.env_state
+        return self.env_state, torch.zeros((), dtype=torch.int64, device=self.device)
 
-    def _eval_save_iteration(self, env_state, eval_save_iteration):
+    def _eval_save_iteration(self, carry, eval_save_iteration):
+        env_state, update_step = carry
+        iterate = self.captured_iteration or self.learning_iteration
         for j in range(self.nr_updates_per_eval_save_iteration):
-            update_step = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j
-            env_state, metrics = self.learning_iteration(env_state, update_step)
+            env_state, update_step, metrics = iterate(env_state, update_step)
             if self.logging_active:
-                iteration = update_step + 1
+                iteration = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j + 1
                 values = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
                 values["time/sps"] = int(self.batch_size / max(now - self._last_log_time, 1e-9))
@@ -363,11 +372,11 @@ class PQN:
         eval_metrics = self._eval_iteration(eval_save_iteration) if self.evaluation_active else None
         if self.save_model:
             self.save()
-        return env_state, eval_metrics
+        return (env_state, update_step), eval_metrics
 
     def train(self):
         start = self._last_log_time = time.time()
-        self.env_state, eval_history = run_training_program(self)
+        (self.env_state, _), eval_history = run_training_program(self)
         if self.parallel is not None:
             finish(self, (self.q_net, self.optimizer))
         self.eval_history = None

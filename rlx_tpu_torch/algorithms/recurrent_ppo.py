@@ -20,6 +20,12 @@ Per learning iteration:
   annealed on the optimizer step count (``nr_minibatches * nr_epochs`` a
   learning iteration).
 
+As PPO's, the iteration reads nothing back to the host: the step count
+and the rate live on the device (``train_state.DeviceStepSchedule``), Adam
+is ``train_state.adam_step_``.  So on one CUDA device it is captured as a
+CUDA graph over the env state and the policy carry and replayed
+(``training_program.CapturedIteration``), B1 and B2 inside it.
+
 Evaluation runs ``horizon`` steps of the mean action from a fresh eval
 reset and a fresh carry; ``save``, ``load`` and ``test`` follow the JAX
 package's (checkpoint ``policy`` and ``critic``, with the optimizer state
@@ -55,7 +61,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
     NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
 )
 from rlx_tpu_torch.algorithms.train_state import (
-    clip_by_global_norm_, load_module_state_dict, module_state_dict,
+    DeviceStepSchedule, clip_by_global_norm_, load_module_state_dict, module_state_dict,
 )
 from rlx_tpu_torch.algorithms.training_program import (
     eval_means, eval_reset_seed, run_training_program, train_reset_seed,
@@ -69,8 +75,11 @@ from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.utils.logging import MetricsLogger, rlx_logger
 
 
-class RecurrentPPO:
+class RecurrentPPO(DeviceStepSchedule):
     cell_type = "lstm"   # set by each registered subclass
+    # the learning iteration runs as a captured CUDA graph on one device
+    # (``training_program.capture_choice``)
+    capturable = True
 
     def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
         self.config = config
@@ -149,7 +158,7 @@ class RecurrentPPO:
         self.critic.to(self.device)
         self.policy_optimizer = torch.optim.Adam(self.policy.parameters(), lr=self.learning_rate, eps=1e-8)
         self.critic_optimizer = torch.optim.Adam(self.critic.parameters(), lr=self.learning_rate, eps=1e-8)
-        self.nr_optimizer_steps = 0
+        self.init_optimizer_steps(self.device)
 
         if a.action_clipping_and_rescaling:
             low, high = train_env.single_action_space.low, train_env.single_action_space.high
@@ -166,14 +175,9 @@ class RecurrentPPO:
         self.env_state = None
         self.policy_carry = None
         self.nr_train_resets = 0
+        self.captured_iteration = None   # a train() call's CapturedIteration
         self.metrics_history = []  # per-iteration float metrics when logging is active
         self.eval_history = None
-
-    def learning_rate_at(self, count):
-        """Learning rate for the update that follows ``count`` updates."""
-        if not self.anneal_learning_rate:
-            return self.learning_rate
-        return self.learning_rate * (1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / self.nr_updates)
 
     # ----------------------------------------------------------- parallel seeds
 
@@ -235,7 +239,6 @@ class RecurrentPPO:
         policy_params = list(self.policy.parameters())
         critic_params = list(self.critic.parameters())
         history = []
-        lr = self.learning_rate
         for m in range(env_indices.shape[1]):
             idx = env_indices[:, m].to(self.device)
             mb = tuple(P.take(x, idx).transpose(1, 2) for x in arrays)   # [S, T, envs, ...]
@@ -249,14 +252,10 @@ class RecurrentPPO:
                     [p.grad for p in policy_params], self.max_grad_norm, per_seed=True)
                 metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
                     [p.grad for p in critic_params], self.max_grad_norm, per_seed=True)
-            lr = self.learning_rate_at(self.nr_optimizer_steps)
-            for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                optimizer.param_groups[0]["lr"] = lr
-                optimizer.step()
-            self.nr_optimizer_steps += 1
+            lr = self._step_optimizers()
             history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean(dim=0) for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     def _minibatch_loss(self, obs, actions, log_probs, returns, adv, dones, init_carry):
@@ -381,7 +380,6 @@ class RecurrentPPO:
         policy_params = list(self.policy.parameters())
         critic_params = list(self.critic.parameters())
         history = []
-        lr = self.learning_rate
         local = self.nr_minibatch_envs // self.dp
         for idx in env_indices.to(self.device):
             idx = idx[self.mesh.dp_rank * local:(self.mesh.dp_rank + 1) * local]
@@ -397,14 +395,10 @@ class RecurrentPPO:
                     [p.grad for p in policy_params], self.max_grad_norm)
                 metrics["gradients/critic_grad_norm"] = clip_by_global_norm_(
                     [p.grad for p in critic_params], self.max_grad_norm)
-            lr = self.learning_rate_at(self.nr_optimizer_steps)
-            for optimizer in (self.policy_optimizer, self.critic_optimizer):
-                optimizer.param_groups[0]["lr"] = lr
-                optimizer.step()
-            self.nr_optimizer_steps += 1
+            lr = self._step_optimizers()
             history.append({k: v.detach() for k, v in metrics.items()})
         out = {k: torch.stack([h[k] for h in history]).mean() for k in history[0]}
-        out["lr/learning_rate"] = torch.tensor(lr)
+        out["lr/learning_rate"] = lr.float()
         return out
 
     # ------------------------------------------------------- eval/save loop
@@ -446,8 +440,9 @@ class RecurrentPPO:
 
     def _eval_save_iteration(self, carry, eval_save_iteration):
         env_state, policy_carry, best_return = carry
+        iterate = self.captured_iteration or self.learning_iteration
         for j in range(self.nr_updates_per_eval_save_iteration):
-            env_state, policy_carry, metrics = self.learning_iteration(env_state, policy_carry)
+            env_state, policy_carry, metrics = iterate(env_state, policy_carry)
             if self.logging_active:
                 iteration = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j + 1
                 values = {k: float(v) for k, v in metrics.items()}

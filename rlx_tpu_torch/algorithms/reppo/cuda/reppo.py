@@ -18,7 +18,13 @@ Per learning iteration, from the policy frozen at its start:
   while a KL to the frozen policy, estimated from ``nr_kl_samples`` of its
   actions, stays under ``kl_bound``; past the bound the loss is the KL
   alone, and a learned KL coefficient weighs it.  Global-norm clipping and
-  Adam on both nets.
+  Adam on both nets (``train_state.adam_step_`` at a constant device rate).
+
+The iteration keeps one set of tensors: the observation normalizer is
+updated in place and the frozen policy is one persistent snapshot module
+(``old_policy``) whose parameters are copied in at the iteration's start.
+So on one CUDA device it is captured as a CUDA graph and replayed
+(``training_program.CapturedIteration``), B2 inside it.
 
 Evaluation, test mode and the checkpoint (``policy``, ``critic``,
 ``obs_normalizer``; ``latest.model`` only) follow the JAX package's.  The
@@ -55,7 +61,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
     NoGenerator, ParallelSeeds, check_config, finish, nr_parallel_seeds, stack_modules,
 )
 from rlx_tpu_torch.algorithms.reppo.cuda.general_properties import GeneralProperties
-from rlx_tpu_torch.algorithms.train_state import clip_by_global_norm_
+from rlx_tpu_torch.algorithms.train_state import adam_step_, clip_by_global_norm_
 from rlx_tpu_torch.parallel.mesh import mesh_for
 from rlx_tpu_torch.algorithms.training_program import (
     eval_reset_seed, run_training_program, train_reset_seed,
@@ -126,6 +132,10 @@ def log_prob_at(loc, log_std, action):
 
 
 class REPPO:
+    # the learning iteration runs as a captured CUDA graph on one device
+    # (``training_program.capture_choice``)
+    capturable = True
+
     def __init__(self, config, train_env, eval_env, run_path=None, writer=None):
         self.config = config
         self.train_env = train_env
@@ -206,6 +216,10 @@ class REPPO:
         self.critic.to(self.device)
         self.policy_optimizer = torch.optim.Adam(self.policy.parameters(), lr=a.learning_rate, eps=1e-8)
         self.critic_optimizer = torch.optim.Adam(self.critic.parameters(), lr=a.learning_rate, eps=1e-8)
+        # Adam's constant rate, on the device (JAX's ``inject_hyperparams(adam)``)
+        self.learning_rate_tensor = torch.full((), a.learning_rate, dtype=torch.float64, device=self.device)
+        # the policy as it stood at the iteration's start, copied in place
+        self.old_policy = self._snapshot_module()
         self.obs_normalizer = normalizers.obs_normalizer_init(self.os_shape, self.device)
         if self.parallel is None:
             self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -216,8 +230,24 @@ class REPPO:
             self.generator = self.host_generator = NoGenerator()
         self.env_state = None
         self.nr_train_resets = 0
+        self.captured_iteration = None   # a train() call's CapturedIteration
         self.metrics_history = []
         self.eval_history = None
+
+    def _snapshot_module(self):
+        return copy.deepcopy(self.policy).requires_grad_(False)
+
+    @torch.no_grad()
+    def _snapshot_policy(self):
+        """``old_policy`` takes the policy's parameters, in place; it is built
+        anew only where the policy's parameters changed type or shape (a
+        cast, or parallel seeds' end cutting the nets to seed 0)."""
+        olds, news = list(self.old_policy.parameters()), list(self.policy.parameters())
+        if any((o.dtype, o.shape, o.device) != (p.dtype, p.shape, p.device) for o, p in zip(olds, news)):
+            self.old_policy = self._snapshot_module()
+            return self.old_policy
+        torch._foreach_copy_(olds, news)
+        return self.old_policy
 
     def _norm(self, observation, normalizer=None):
         if self.normalize_obs:
@@ -242,8 +272,7 @@ class REPPO:
                 loc, log_std, noise=normal() if act_noise is None else act_noise[t])
             env_state = self.train_env.step(env_state, action)
             if self.normalize_obs:
-                self.obs_normalizer = normalizers.obs_normalizer_update(self.obs_normalizer, env_state.observation,
-                                                                        self.mesh)
+                normalizers.obs_normalizer_update_(self.obs_normalizer, env_state.observation, self.mesh)
             next_observation = self._norm(env_state.final_observation)
             n_loc, n_log_std, _, _ = self.policy(next_observation)
             next_action, _ = D.tanh_gaussian_sample_and_log_prob(
@@ -308,7 +337,7 @@ class REPPO:
         clip_by_global_norm_(list(grads), self.max_grad_norm, per_seed=self.parallel is not None)
         for p, g in zip(params, grads):
             p.grad = g
-        optimizer.step()
+        adam_step_(optimizer, self.learning_rate_tensor)
 
     def _update(self, batch, old_policy, permutations=None, sample_noise=None, kl_noise=None):
         """The epochs of minibatch critic and policy steps; the metrics are
@@ -342,7 +371,7 @@ class REPPO:
         mb, A]`` and ``kl_noise`` ``[E, M, nr_kl_samples, mb, A]``; what it
         does not hold is drawn from the generator."""
         draws = draws or {}
-        old_policy = copy.deepcopy(self.policy).requires_grad_(False)
+        old_policy = self._snapshot_policy()
         if self.parallel is not None:
             return self._learning_iteration_seeds(env_state, old_policy)
         with record_function("reppo/rollout"):
@@ -402,8 +431,10 @@ class REPPO:
             observation, action = self._seed_map(act, P.split(env_state.observation), act_noise)
             env_state = self.train_env.step(env_state, P.merge(action))
             if self.normalize_obs:
-                self.obs_normalizer = P.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
-                                            P.split(env_state.observation))
+                merged = P.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
+                               P.split(env_state.observation))
+                for k, v in merged.items():
+                    self.obs_normalizer[k].copy_(v)
             next_value, next_features = self._seed_map(bootstrap, P.split(env_state.final_observation),
                                                        self._normals(shape))
             steps.append((P.merge(observation), P.merge(action), env_state.reward, P.merge(next_value),
@@ -485,8 +516,9 @@ class REPPO:
         return self.env_state
 
     def _eval_save_iteration(self, env_state, eval_save_iteration):
+        iterate = self.captured_iteration or self.learning_iteration
         for j in range(self.nr_updates_per_eval_save_iteration):
-            env_state, metrics = self.learning_iteration(env_state)
+            env_state, metrics = iterate(env_state)
             if self.logging_active:
                 iteration = eval_save_iteration * self.nr_updates_per_eval_save_iteration + j + 1
                 values = {k: float(v) for k, v in metrics.items()}

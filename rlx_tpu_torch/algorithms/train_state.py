@@ -106,6 +106,61 @@ def adam_step_(optimizer, learning_rate, active=None):
             old.copy_(torch.where(active, new, old))
 
 
+class DeviceStepSchedule:
+    """The optimizer step count on the device and the learning rate read
+    from it, for the on-policy families whose Adam steps every net together
+    once a minibatch (PPO, the recurrent PPO, PQN): nothing reads the count
+    back inside a learning iteration, so a CUDA graph can capture it.
+
+    A subclass sets ``learning_rate``, ``anneal_learning_rate``,
+    ``nr_updates``, ``nr_minibatches``, ``nr_epochs`` and
+    ``optimizer_names`` (the attributes holding its ``torch.optim.Adam``
+    objects) and calls ``init_optimizer_steps`` once its device is known.
+    The rate anneals linearly per learning iteration of ``nr_minibatches *
+    nr_epochs`` steps, as the JAX packages' optax schedules."""
+
+    optimizer_names = ("policy_optimizer", "critic_optimizer")
+
+    def init_optimizer_steps(self, device):
+        self.optimizer_steps = torch.zeros((), dtype=torch.int64, device=device)
+
+    @property
+    def nr_optimizer_steps(self):
+        """The optimizer steps taken, read from the device count (the
+        checkpoint's count, and the schedule's)."""
+        return int(self.optimizer_steps)
+
+    @nr_optimizer_steps.setter
+    def nr_optimizer_steps(self, count):
+        self.optimizer_steps.fill_(int(count))
+
+    def learning_rate_at(self, count):
+        """Learning rate for the update that follows ``count`` updates."""
+        if not self.anneal_learning_rate:
+            return self.learning_rate
+        fraction = 1.0 - (count // (self.nr_minibatches * self.nr_epochs)) / max(self.nr_updates, 1)
+        return self.learning_rate * fraction
+
+    def learning_rate_tensor(self, count):
+        """``learning_rate_at`` of a device count (an int64 0-dim tensor), on
+        its device in float64, with the host's arithmetic."""
+        if not self.anneal_learning_rate:
+            return torch.full((), self.learning_rate, dtype=torch.float64, device=count.device)
+        period = self.nr_minibatches * self.nr_epochs
+        fraction = 1.0 - torch.div(count, period, rounding_mode="floor").double() / max(self.nr_updates, 1)
+        return self.learning_rate * fraction
+
+    def _step_optimizers(self, active=None):
+        """One Adam step of every net at the rate of the device step count,
+        which it advances; with ``active`` (a 0-dim bool tensor) only where
+        it is true.  Returns the rate (float64)."""
+        lr = self.learning_rate_tensor(self.optimizer_steps)
+        for name in self.optimizer_names:
+            adam_step_(getattr(self, name), lr, active)
+        self.optimizer_steps += 1 if active is None else active.long()
+        return lr
+
+
 def module_state_dict(module, optimizer, target=None):
     """A network's full state, named as flax's ``TrainState`` fields:
     ``params``, ``opt_state`` and, with a target, ``target_params``."""

@@ -13,14 +13,15 @@ saving and logging stay on the host between learning iterations.
 
 On the card, torch's counterpart of a jitted learning iteration is a
 captured CUDA graph (``CapturedIteration``): the rollout with its B2
-launches, the value passes, B1 and the minibatch updates recorded once and
-replayed once per learning iteration, with no host work between the
-kernels.  ``capture_choice`` says when: a model on a CUDA device, at dp =
-tp = 1, with one seed, whose class and env both declare ``capturable``
-(the PPO family on the Ant, CartPole and Pendulum, through any wrapper).
-Everything else, the CPU always, runs the eager loop.  ``train()`` logs
-one INFO line with the path and the reason.  A capture or a replay that
-fails raises; nothing falls back to the eager loop.
+launches, the value passes, B1 or the family's own targets and the
+minibatch updates recorded once and replayed once per learning iteration,
+with no host work between the kernels.  ``capture_choice`` says when: a
+model on a CUDA device, at dp = tp = 1, with one seed, whose class and env
+both declare ``capturable`` (the PPO family, the recurrent PPOs, REPPO and
+PQN on the Ant, CartPole and Pendulum, through any wrapper).  Everything
+else, the CPU always, runs the eager loop.  ``train()`` logs one INFO line
+with the path and the reason.  A capture or a replay that fails raises;
+nothing falls back to the eager loop.
 
 Each ``train()`` call starts from a fresh env reset (``train_reset_seed``)
 and captures anew.  With parallel seeds (``model.parallel``,
@@ -33,6 +34,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from rlx_tpu_torch.utils.logging import rlx_logger
 
@@ -101,26 +103,75 @@ def launch_counters():
     return step_cuda, gae_advantages_cuda, categorical_projection_cuda
 
 
+def model_tensors(model):
+    """name -> every tensor ``model`` holds: its nets' parameters and
+    buffers (a net or an object with a ``module`` net), its optimizers'
+    state, its tensor attributes and dicts of tensors.  A captured
+    iteration reads and writes these tensors themselves, so an iteration
+    must update each in place and bind no attribute to a new one."""
+    out = {}
+    for name, value in vars(model).items():
+        module = value if isinstance(value, torch.nn.Module) else getattr(value, "module", None)
+        if isinstance(module, torch.nn.Module):
+            out.update({f"{name}.{k}": t for k, t in [*module.named_parameters(), *module.named_buffers()]})
+        elif isinstance(value, torch.optim.Optimizer):
+            for i, p in enumerate(value.param_groups[0]["params"]):
+                out.update({f"{name}.{i}.{k}": t for k, t in value.state[p].items()})
+        elif isinstance(value, torch.Tensor):
+            out[name] = value
+        elif isinstance(value, dict) and value and all(isinstance(t, torch.Tensor) for t in value.values()):
+            out.update({f"{name}.{k}": t for k, t in value.items()})
+    return out
+
+
+def copy_carry_(dst, src):
+    """In place: each tensor of the carry ``dst`` (tensors in tuples, lists
+    and dicts) takes the value of the same tensor of ``src``, a carry of the
+    same structure, shapes and types (the end of a captured learning
+    iteration, as ``EnvState.copy_``).  A tensor of ``src`` that is one of
+    ``dst``'s is read before any is written."""
+    (mine, spec), (theirs, other_spec) = pytree.tree_flatten(dst), pytree.tree_flatten(src)
+    if spec != other_spec:
+        raise ValueError("the carries differ in structure")
+    written = {x.data_ptr() for x in mine}
+    pairs = []
+    for d, s in zip(mine, theirs):
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"a carry tensor {tuple(s.shape)} {s.dtype} cannot take the place of "
+                             f"{tuple(d.shape)} {d.dtype}")
+        pairs.append((d, s.clone() if s is not d and s.data_ptr() in written else s))
+    for d, s in pairs:
+        if s is not d:
+            d.copy_(s)
+    return dst
+
+
 class CapturedIteration:
     """``model.learning_iteration`` captured once as a ``torch.cuda.CUDAGraph``
-    and replayed; called as it, ``(env_state) -> (env_state, metrics)``.
+    and replayed; called as it, ``(env_state, *carry) -> (env_state, *carry,
+    metrics)``, where ``carry`` is the rest of the iteration's device carry,
+    tensors in tuples and dicts: the recurrent policy's carry, PQN's update
+    step, nothing for the PPO family.
 
     - The first call runs the iteration eagerly on the capture stream: a
       real iteration, and the warm-up (the kernels built, B2's tables
       uploaded and its shared memory granted, Adam's state and the
       gradients allocated).
-    - The second copies its env state into static tensors, allocated
-      outside the graph's memory pool, captures one iteration from them
-      that ends by copying the new env state into them, and replays it.
+    - The second copies its env state and carry into static tensors,
+      allocated outside the graph's memory pool, captures one iteration
+      from them that ends by copying the new env state and carry into
+      them, and replays it.
     - Every later call replays it.
 
-    A replay returns the static env state and the graph's metric tensors;
-    the next replay overwrites both, so read the metrics before it.  The
-    nets' parameters and gradients, Adam's moments and step counts and the
-    model's device step count are the same tensors eagerly and in the
-    graph, updated in place.  The model's generator and the env state's
-    are registered with the graph: each replay draws fresh noise, the
-    noise the eager iteration draws from the same generator states.
+    A replay returns the static env state and carry and the graph's metric
+    tensors; the next replay overwrites them, so read the metrics before
+    it.  Everything else an iteration changes is the same tensors eagerly
+    and in the graph, updated in place: the nets' parameters and gradients,
+    Adam's moments and step counts, the model's device step count, REPPO's
+    observation normalizer and old-policy snapshot.  The model's generator
+    and the env state's are registered with the graph: each replay draws
+    fresh noise, the noise the eager iteration draws from the same
+    generator states.
 
     The kernel wrappers' launch counters tick once while the capture
     records (which launches nothing); the capture takes that tick back and
@@ -134,29 +185,31 @@ class CapturedIteration:
         self.stream = torch.cuda.Stream(device=self.device)
         self.warm = False
         self.graph = None
-        self.state = self.metrics = None
+        self.state = self.carry = self.metrics = None
         self.launches = None          # each counter's launches in one replay
         self.capture_seconds = None   # host seconds the capture took
         self.pool_bytes = None        # device memory the capture reserved
 
-    def __call__(self, env_state):
+    def __call__(self, env_state, *carry):
         if not self.warm:
             current = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
-                out = self.model.learning_iteration(env_state)
+                out = self.model.learning_iteration(env_state, *carry)
             current.wait_stream(self.stream)
             self.warm = True
             return out
         if self.graph is None:
-            self.capture(env_state)
+            self.capture(env_state, carry)
         self.replay()
-        return self.state, self.metrics
+        return (self.state, *self.carry, self.metrics)
 
-    def capture(self, env_state):
-        """Record one learning iteration from a static copy of ``env_state``."""
+    def capture(self, env_state, carry=()):
+        """Record one learning iteration from a static copy of ``env_state``
+        and ``carry``."""
         model = self.model
         self.state = env_state.map_tensors(torch.clone)
+        self.carry = pytree.tree_map(torch.clone, tuple(carry))
         graph = torch.cuda.CUDAGraph()
         for generator in (model.generator, *self.state.generators()):
             graph.register_generator_state(generator)
@@ -167,7 +220,8 @@ class CapturedIteration:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, stream=self.stream):
-            new_state, self.metrics = model.learning_iteration(self.state)
+            new_state, *new_carry, self.metrics = model.learning_iteration(self.state, *self.carry)
+            copy_carry_(self.carry, tuple(new_carry))
             self.state.copy_(new_state)
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -183,7 +237,8 @@ class CapturedIteration:
             c.launches += n
 
     def close(self):
-        """Drop the graph and its memory pool (the static env state stays)."""
+        """Drop the graph and its memory pool (the static env state and
+        carry stay)."""
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.metrics = None

@@ -85,7 +85,10 @@ def hl_gauss_targets(values, v_min, v_max, nr_bins, sigma_ratio=0.75):
     [v_min, v_max], normalised by the mass inside the support (at least
     1e-8)."""
     bin_width = (v_max - v_min) / nr_bins
-    sigma = torch.tensor(sigma_ratio * bin_width, dtype=values.dtype, device=values.device)
+    # made on the device, not copied from the host (a graph can capture it),
+    # and divided by as a tensor: CUDA divides by a host scalar as a product
+    # with its reciprocal
+    sigma = torch.full((), sigma_ratio * bin_width, dtype=values.dtype, device=values.device)
     edges = v_min + bin_width * torch.arange(nr_bins + 1, dtype=values.dtype, device=values.device)
     cdf = normal_cdf((edges[None, :] - values.reshape(-1, 1)) / sigma)
     mass = cdf[:, -1] - cdf[:, 0]

@@ -3,7 +3,10 @@
 The same semantics as the JAX package's ``ops/normalizers.py``: a
 Welford-merged running mean and population variance for observations, and
 a discounted-return RMS with a G_max floor for rewards.  Counts start at
-1e-4.  ``*_update`` returns a new state and leaves the old one as it was.
+1e-4.  ``*_update`` returns a new state and leaves the old one as it was;
+``obs_normalizer_update_`` writes the same values into the state's own
+tensors (a model whose learning iteration a CUDA graph captures keeps one
+set of tensors).
 """
 
 import torch
@@ -37,6 +40,14 @@ def obs_normalizer_update(state, batch, mesh=None):
     m2 = (state["var"] * state["count"] + batch_var * batch_count
           + delta ** 2 * state["count"] * batch_count / total)
     return {"mean": new_mean, "var": m2 / total, "count": total}
+
+
+def obs_normalizer_update_(state, batch, mesh=None):
+    """``obs_normalizer_update`` written into ``state``'s tensors, in place;
+    returns ``state``."""
+    for key, value in obs_normalizer_update(state, batch, mesh).items():
+        state[key].copy_(value)
+    return state
 
 
 def obs_normalize(state, observation, epsilon=1e-8):

@@ -432,11 +432,11 @@ def limit_damping(model, limit_stiffness, d):
 
 
 def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_dampratio,
-                        limit_stiffness, dr=None, anchorsT=None, terrain=None):
+                        limit_stiffness, dr=None, anchorsT=None, terrain=None, include_contacts=True):
     M, f_net, Rs, ps, v_list, cols = _dynamics_T(model, qposT, qvelT, dr)
     lam, dof_body = dof_structure(model)
 
-    if len(model.con_body) > 0:
+    if include_contacts and len(model.con_body) > 0:
         if anchorsT is None:
             anchorsT = contact_points_T(model, qposT)
         wrenches, anchorsT = _contact_wrenches_T(
@@ -477,6 +477,17 @@ def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_d
             )
 
     return bl.ltdl_solve(M, tau - C, lam), anchorsT
+
+
+def forward_dynamics(model: PhysicsModel, qpos, qvel, ctrl, contact_timeconst=0.015, contact_dampratio=1.0,
+                     limit_stiffness=200.0, include_contacts=True, dr=None, terrain=None):
+    """Batched joint accelerations ``qacc [B, nv]`` at one state (the JAX
+    package's public ``forward_dynamics``): batch-first over the batch-last
+    internals, the contact anchors at the entry pose, no contact forces
+    without ``include_contacts``.  Returns ``(qacc, None)``, as JAX's."""
+    qaccT, _ = _forward_dynamics_T(model, qpos.T, qvel.T, ctrl.T, contact_timeconst, contact_dampratio,
+                                   limit_stiffness, dr, None, terrain, include_contacts)
+    return qaccT.T.contiguous(), None
 
 
 def _integrate_T(model, qposT, qvelT, qaccT, dt):

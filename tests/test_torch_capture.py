@@ -1,30 +1,39 @@
 """The learning iteration that a CUDA graph captures, checked on the CPU:
 
-- (a) no host read: for the PPO family's registrations (PPO on the Ant,
+- (a) no host read: for every registration that captures (PPO on the Ant,
   discrete PPO on CartPole, ESPO, PPO-DTRL, PPO over an observation window
-  and PPO with memory actions), one learning iteration after a warm-up
-  iteration runs under a dispatch mode that raises on
-  ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``bool()`` of a
-  tensor) and on ``aten.lift_fresh`` (a tensor made from host data, which
-  a graph would freeze at its capture value), with ``torch.Generator``
-  refusing to make a new generator; the env state's ``map_tensors`` /
-  ``copy_`` round trip that ends a captured iteration;
-- (b) ESPO's branchless stop against the JAX package's ESPO: parameters,
+  and PPO with memory actions; PPO-LSTM, -GRU, -Mamba-2 and -transformer on
+  the masked Pendulum, REPPO on the Ant and on Pendulum, PQN on CartPole),
+  one learning iteration after a warm-up iteration runs under a dispatch
+  mode that raises on ``aten._local_scalar_dense`` (``.item()``, ``float()``,
+  ``bool()`` of a tensor) and on ``aten.lift_fresh`` (a tensor made from
+  host data, which a graph would freeze at its capture value), with
+  ``torch.Generator`` refusing to make a new generator; the env state's
+  ``map_tensors`` / ``copy_`` and the carry's ``copy_carry_`` round trip
+  (the recurrent policy's carry, PQN's update step) that ends a captured
+  iteration;
+- (b) no rebinding: every tensor the model holds (the nets' parameters,
+  Adam's state, REPPO's normalizer and old-policy snapshot, the device
+  counts and rates) is the same tensor, at the same address, after an
+  eager iteration as before it, for every registration that captures;
+- (c) ESPO's branchless stop against the JAX package's ESPO: parameters,
   Adam's moments and step counts, ``nr_active_epochs`` and every metric,
   with the stop firing in the second epoch (f32 on both sides, 1e-5, as
   the ESPO test of ``test_torch_ppo_variants.py``);
-- (c) the learning-rate schedule on the device against ``learning_rate_at``
-  (exactly: the same float64 arithmetic) and against the JAX package's
-  optax schedule (f32 rounding, 1e-7 relative), over two iterations'
-  worth of updates with annealing on, and through two learning iterations;
-- (d) the selection rule (``capture_choice``) on stub models on
-  ``torch.device("cuda")``, which needs no card: capture for the five
+- (d) the learning-rate schedule on the device for PPO, the recurrent PPO
+  and PQN against ``learning_rate_at`` (exactly: the same float64
+  arithmetic) and against the JAX package's optax schedule (f32 rounding,
+  1e-7 relative), over two iterations' worth of updates with annealing
+  on, and through two learning iterations; PQN's device epsilon against
+  JAX's ``PQN.epsilon`` and its restart at every ``train()`` call;
+- (e) the selection rule (``capture_choice``) on stub models on
+  ``torch.device("cuda")``, which needs no card: capture for the eleven
   registrations on the Ant, CartPole and Pendulum (wrapped or not), eager
   with its reason for a dp or tp mesh, parallel seeds, a host env, the
   robot, soccer and pixel envs, an algorithm without a captured
   iteration, and the CPU.
 
-The capture itself runs only on the card: ``chip_smoke.py`` phase 48.
+The capture itself runs only on the card: ``chip_smoke.py`` phases 48-49.
 """
 
 import types
@@ -36,7 +45,7 @@ import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from rlx_tpu_torch import convert
-from rlx_tpu_torch.algorithms.training_program import capture_choice
+from rlx_tpu_torch.algorithms.training_program import capture_choice, copy_carry_, model_tensors
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.environments.env import EnvState
 from torch_parity import close, np_tree
@@ -82,39 +91,105 @@ class NoHostRead(TorchDispatchMode):
         return super().__exit__(*exc)
 
 
+PPO_SIZES = {**NETS, "environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 8,
+             "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 64, "environment.horizon": 3}
+ON_POLICY = {"algorithm.logging_active": False, "algorithm.evaluation_active": False, "runner.device": "cpu",
+             "environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.nr_minibatches": 2,
+             "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 64, "environment.horizon": 3}
+RECURRENT = {**ON_POLICY, "environment.mask_velocity": True, "algorithm.obs_encoding_dim": 8,
+             "algorithm.rnn_hidden_dim": 4, "algorithm.critic_hidden_sizes": (16, 16)}
 REGISTRATIONS = {
-    "ppo on the Ant": ("ppo", "locomotion.ant", {}),
-    "discrete ppo on CartPole": ("ppo", "classic.cart_pole", {}),
-    "espo": ("espo", "classic.pendulum", {"algorithm.nr_epochs": 3}),
-    "ppo_dtrl": ("ppo_dtrl", "classic.pendulum", {}),
-    "ppo_history_window": ("ppo_history_window", "classic.pendulum", {"environment.mask_velocity": True}),
-    "ppo_memory_actions": ("ppo_memory_actions", "classic.pendulum", {"environment.mask_velocity": True}),
+    "ppo on the Ant": ("ppo", "locomotion.ant", PPO_SIZES),
+    "discrete ppo on CartPole": ("ppo", "classic.cart_pole", PPO_SIZES),
+    "espo": ("espo", "classic.pendulum", {**PPO_SIZES, "algorithm.nr_epochs": 3}),
+    "ppo_dtrl": ("ppo_dtrl", "classic.pendulum", PPO_SIZES),
+    "ppo_history_window": ("ppo_history_window", "classic.pendulum", {**PPO_SIZES, "environment.mask_velocity": True}),
+    "ppo_memory_actions": ("ppo_memory_actions", "classic.pendulum", {**PPO_SIZES, "environment.mask_velocity": True}),
+    "ppo_lstm": ("ppo_lstm", "classic.pendulum", RECURRENT),
+    "ppo_gru": ("ppo_gru", "classic.pendulum", RECURRENT),
+    "ppo_mamba2": ("ppo_mamba2", "classic.pendulum",
+                   {**RECURRENT, "algorithm.cell_state_dim": 4, "algorithm.cell_conv_kernel": 3}),
+    "ppo_transformer": ("ppo_transformer", "classic.pendulum",
+                        {**RECURRENT, "algorithm.tf_context_len": 4, "algorithm.tf_nr_heads": 2,
+                         "algorithm.tf_nr_blocks": 2}),
+    "reppo on the Ant": ("reppo", "locomotion.ant",
+                         {**ON_POLICY, "algorithm.policy_hidden_dim": 16, "algorithm.critic_hidden_dim": 16}),
+    # REPPO where no physics makes host constants: its own ops are held too
+    "reppo on Pendulum": ("reppo", "classic.pendulum",
+                          {**ON_POLICY, "algorithm.policy_hidden_dim": 16, "algorithm.critic_hidden_dim": 16}),
+    "pqn on CartPole": ("pqn", "classic.cart_pole", {**ON_POLICY, "algorithm.critic_hidden_sizes": (16, 16)}),
 }
+
+
+def _registration(name):
+    algorithm, environment, overrides = REGISTRATIONS[name]
+    return create_model(make_config(f"{algorithm}.cuda", f"{environment}.cuda", **overrides))
+
+
+def _initial_carry(model):
+    """The rest of a ``train()`` call's device carry at its start: the
+    recurrent policy's zero carry, PQN's update step 0, or nothing."""
+    if hasattr(model, "policy_carry"):
+        return (model.policy.initialize_carry(model.nr_envs),)
+    if hasattr(model, "epsilon"):
+        return (torch.zeros((), dtype=torch.int64),)
+    return ()
+
+
+def _adam_steps(model):
+    """Each optimizer's step count (of its first parameter with a state)."""
+    out = []
+    for value in vars(model).values():
+        if isinstance(value, torch.optim.Optimizer):
+            out += [int(state["step"]) for state in value.state.values()][:1]
+    return out
 
 
 @pytest.mark.parametrize("name", list(REGISTRATIONS))
 def test_learning_iteration_reads_nothing_back(name):
-    algorithm, environment, overrides = REGISTRATIONS[name]
-    model = create_model(make_config(f"{algorithm}.cuda", f"{environment}.cuda", **{
-        **NETS, "environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 8,
-        "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 64, "environment.horizon": 3, **overrides}))
-    state = model.train_env.reset(0)
-    state, _ = model.learning_iteration(state)           # the warm-up
-    steps = model.nr_optimizer_steps
+    model = _registration(name)
+    state, *carry, _ = model.learning_iteration(model.train_env.reset(0), *_initial_carry(model))   # the warm-up
+    steps = _adam_steps(model)
     static = state.map_tensors(torch.clone)
+    static_carry = pytree.tree_map(torch.clone, tuple(carry))
     generators = static.generators()
     assert len(generators) == 1 and generators[0] is state.generator
     # the Ant's physics runs its plain version here, whose constants are made
     # from host data at each call; on the card B2 runs in its place
-    with NoHostRead(host_constants=environment == "locomotion.ant"):
-        new_state, metrics = model.learning_iteration(static)
-        static.copy_(new_state)                           # how a captured iteration ends
-    assert model.nr_optimizer_steps > steps
+    with NoHostRead(host_constants=REGISTRATIONS[name][1] == "locomotion.ant"):
+        new_state, *new_carry, metrics = model.learning_iteration(static, *static_carry)
+        copy_carry_(static_carry, tuple(new_carry))       # how a captured iteration ends
+        static.copy_(new_state)
+    assert steps and all(after > before for after, before in zip(_adam_steps(model), steps))
     assert all(torch.isfinite(v).all() for v in metrics.values())
     ours, refs = (pytree.tree_leaves([getattr(s, f) for f in EnvState.TENSOR_FIELDS]) for s in (static, new_state))
     assert len(ours) == len(refs) > 6
     for mine, ref in zip(ours, refs):
         assert mine is not ref and torch.equal(mine, ref)
+    ours, refs = pytree.tree_leaves(static_carry), pytree.tree_leaves(tuple(new_carry))
+    assert len(ours) == len(refs) == len(pytree.tree_leaves(carry))
+    for mine, ref in zip(ours, refs):
+        assert mine is not ref and torch.equal(mine, ref)
+    if name == "pqn on CartPole":
+        assert int(static_carry[0]) == 2
+
+
+@pytest.mark.parametrize("name", list(REGISTRATIONS))
+def test_learning_iteration_rebinds_no_model_state(name):
+    """A graph reads and writes the tensors it was captured with: a model
+    that binds an attribute to a new tensor inside its iteration (a
+    normalizer's update returning a fresh dict, a deep copy of the policy)
+    would have every replay read the tensors of the capture."""
+    model = _registration(name)
+    state, *carry, _ = model.learning_iteration(model.train_env.reset(0), *_initial_carry(model))   # the warm-up
+    before = model_tensors(model)
+    model.learning_iteration(state, *carry)
+    after = model_tensors(model)
+    assert set(after) == set(before) and any("optimizer" in k for k in before)
+    rebound = [k for k in before if after[k] is not before[k] or after[k].data_ptr() != before[k].data_ptr()]
+    assert not rebound, rebound
+    if name == "reppo on the Ant":
+        assert "obs_normalizer.mean" in before and any(k.startswith("old_policy.") for k in before)
 
 
 def test_state_copy_refuses_another_structure():
@@ -124,6 +199,17 @@ def test_state_copy_refuses_another_structure():
         state.copy_(state.replace(info={}))
     with pytest.raises(ValueError, match="cannot take the place"):
         state.copy_(state.map_tensors(lambda t: t.double() if t.is_floating_point() else t))
+    carry = (torch.zeros(4, 3), torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="structure"):
+        copy_carry_(carry, (torch.zeros(4, 3),))
+    with pytest.raises(ValueError, match="structure"):
+        copy_carry_((carry,), ([*carry],))
+    with pytest.raises(ValueError, match="cannot take the place"):
+        copy_carry_(carry, (torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.float64)))
+    # a source that is one of the destinations is read before any is written
+    a, b = torch.ones(2), torch.full((2,), 2.0)
+    copy_carry_((a, b), (b, a))
+    assert a.tolist() == [2.0, 2.0] and b.tolist() == [1.0, 1.0]
 
 
 def _adam_nodes(opt_state):
@@ -179,23 +265,54 @@ def test_branchless_espo_matches_jax(operator):
     assert model.nr_optimizer_steps == 2
 
 
-def test_device_learning_rate_schedule():
-    """Two learning iterations of 2 epochs x 4 minibatches over a run of 4
-    updates: the rate anneals from 3e-4 by a quarter an iteration."""
-    import optax
+SCHEDULES = {   # name: (algorithm, environment, the sizes, the JAX model's tx)
+    "ppo": ("ppo", "classic.pendulum", {"algorithm.minibatch_size": 4,
+                                        **{k: v for k, v in NETS.items() if k != "runner.device"}},
+            lambda jmodel: jmodel.policy_state.tx),
+    "ppo_lstm": ("ppo_lstm", "classic.pendulum", {"algorithm.nr_minibatches": 4, "algorithm.rnn_hidden_dim": 4,
+                                                  "algorithm.obs_encoding_dim": 8,
+                                                  "algorithm.critic_hidden_sizes": (16, 16)},
+                 lambda jmodel: jmodel.policy_state.tx),
+    "pqn": ("pqn", "classic.cart_pole", {"algorithm.nr_minibatches": 4, "algorithm.critic_hidden_sizes": (16, 16)},
+            lambda jmodel: jmodel.critic_state.tx),
+}
 
+
+def _jax_model(algorithm, environment, overrides):
     from rlx_tpu.config import create_model as jax_create_model
     from rlx_tpu.config import make_config as jax_make_config
 
-    shared = {"environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 4,
-              "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 4 * 16, "algorithm.anneal_learning_rate": True,
-              **{k: v for k, v in NETS.items() if k != "runner.device"}}
-    model = create_model(make_config("ppo.cuda", "classic.pendulum.cuda", **shared, **{"runner.device": "cpu"}))
-    jmodel = jax_create_model(jax_make_config("ppo.tpu", "classic.pendulum.tpu", **shared, **{"runner.mesh_dp": 1}))
+    return jax_create_model(jax_make_config(f"{algorithm}.tpu", f"{environment}.tpu", **overrides,
+                                            **{"runner.mesh_dp": 1}))
+
+
+def test_device_learning_rate_schedule():
+    """Two learning iterations of 2 epochs x 4 minibatches over a run of 4
+    updates: the rate anneals from 3e-4 by a quarter an iteration."""
+    _check_device_schedule("ppo")
+
+
+@pytest.mark.parametrize("name", ["ppo_lstm", "pqn"])
+def test_recurrent_and_pqn_device_learning_rate_schedules(name):
+    """As PPO's, for the recurrent PPO's and PQN's schedules (the same
+    ``train_state.DeviceStepSchedule``)."""
+    _check_device_schedule(name)
+
+
+def _check_device_schedule(name):
+    import optax
+
+    algorithm, environment, sizes, jax_tx = SCHEDULES[name]
+    shared = {"environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.nr_epochs": 2,
+              "algorithm.total_timesteps": 4 * 16, "algorithm.anneal_learning_rate": True,
+              "algorithm.logging_active": False, "algorithm.evaluation_active": False, **sizes}
+    model = create_model(make_config(f"{algorithm}.cuda", f"{environment}.cuda", **shared,
+                                     **{"runner.device": "cpu"}))
+    jmodel = _jax_model(algorithm, environment, shared)
     per_update = model.nr_minibatches * model.nr_epochs
     assert per_update == 8 and model.nr_updates == 4
-    tx = jmodel.policy_state.tx
-    params = jmodel.policy_state.params
+    tx = jax_tx(jmodel)
+    params = (jmodel.critic_state if name == "pqn" else jmodel.policy_state).params
     opt_state = tx.init(params)
     zeros = optax.tree_utils.tree_zeros_like(params)
     for count in range(2 * per_update + 1):
@@ -203,11 +320,36 @@ def test_device_learning_rate_schedule():
         assert rate.dtype == torch.float64 and float(rate) == model.learning_rate_at(count)
         _, opt_state = tx.update(zeros, opt_state, params)
         close(float(rate), float(opt_state[1].hyperparams["learning_rate"]), 1e-7, f"count {count}")
-    state = model.train_env.reset(0)
+    state, carry = model.train_env.reset(0), _initial_carry(model)
     for iteration in (1, 2):
-        state, metrics = model.learning_iteration(state)
+        state, *carry, metrics = model.learning_iteration(state, *carry)
         assert model.nr_optimizer_steps == iteration * per_update
-        assert float(metrics["lr/learning_rate"]) == pytest.approx(3e-4 * (1.0 - (iteration - 1) / 4), rel=1e-6)
+        assert float(metrics["lr/learning_rate"]) == pytest.approx(
+            model.learning_rate * (1.0 - (iteration - 1) / 4), rel=1e-6)
+
+
+def test_pqn_device_epsilon_matches_jax_and_restarts():
+    """PQN's epsilon from its device update step: JAX's ``PQN.epsilon`` in
+    f32 over counts 0 ... decay + 2, and every ``train()`` call starts
+    again at epsilon_start, as JAX's ``outer_step * n + step``."""
+    shared = {**REGISTRATIONS["pqn on CartPole"][2], "algorithm.epsilon_decay_fraction": 0.5,
+              "algorithm.logging_active": True, "algorithm.total_timesteps": 4 * 16 * 2}
+    shared.pop("runner.device")
+    model = create_model(make_config("pqn.cuda", "classic.cart_pole.cuda", **shared, **{"runner.device": "cpu"}))
+    jmodel = _jax_model("pqn", "classic.cart_pole", shared)
+    decay = model.epsilon_decay_updates
+    assert decay == jmodel.epsilon_decay_updates == 4
+    for count in range(decay + 3):
+        ours = model.epsilon(torch.tensor(count))
+        assert ours.dtype == torch.float32 and ours.shape == ()
+        assert float(ours) == float(np.float32(jmodel.epsilon(count))), count
+    calls = []
+    for _ in range(2):
+        model.train()
+        calls.append([m["epsilon/epsilon"] for m in model.metrics_history[-model.nr_updates:]])
+    assert calls[0] == calls[1] and len(calls[0]) == model.nr_updates == 8
+    assert calls[0][0] == float(np.float32(model.epsilon_start))
+    assert calls[0][-1] == pytest.approx(model.epsilon_end, abs=1e-6)
 
 
 def _stub(cls, env, device="cuda", dp=1, tp=1, parallel=None):
@@ -242,7 +384,11 @@ def _algorithm_class(name):
     return algorithm_manager.get_algorithm_model_class(f"{name}.cuda")()
 
 
-@pytest.mark.parametrize("algorithm", ["ppo", "espo", "ppo_dtrl", "ppo_history_window", "ppo_memory_actions"])
+CAPTURING = ["ppo", "espo", "ppo_dtrl", "ppo_history_window", "ppo_memory_actions",
+             "ppo_lstm", "ppo_gru", "ppo_mamba2", "ppo_transformer", "reppo", "pqn"]
+
+
+@pytest.mark.parametrize("algorithm", CAPTURING)
 def test_capture_choice_takes_the_slice(algorithm):
     from rlx_tpu_torch.environments.classic.pendulum.cuda.environment import Pendulum
     from rlx_tpu_torch.environments.wrappers import (
@@ -272,11 +418,13 @@ def test_capture_choice_runs_everything_else_eagerly():
         "a tp mesh": (_stub(ppo, ant, tp=2), "tp = 2"),
         "parallel seeds": (_stub(ppo, ant, parallel=types.SimpleNamespace(nr_seeds=4)), "4 parallel seeds"),
         "an algorithm without it": (_stub(_algorithm_class("sac"), ant), "SAC has no captured"),
-        "the recurrent PPO": (_stub(_algorithm_class("ppo_lstm"), ant), "has no captured"),
+        "an off-policy family": (_stub(_algorithm_class("fasttd3"), ant), "FastTD3 has no captured"),
     }
-    for name in ("HostEnv", "NativeEnvBatch", "LocomotionEnv", "SoccerEnv", "PixelChase", "PixelGrid"):
-        env = object.__new__(envs[name])
-        cases[name] = (_stub(ppo, env), f"the env {name} does not declare capture")
+    for algorithm in CAPTURING:
+        cls = _algorithm_class(algorithm)
+        for name in ("HostEnv", "NativeEnvBatch", "LocomotionEnv", "SoccerEnv", "PixelChase", "PixelGrid"):
+            env = object.__new__(envs[name])
+            cases[f"{algorithm} on {name}"] = (_stub(cls, env), f"the env {name} does not declare capture")
     window = object.__new__(ObservationWindowWrapper)
     window.env = object.__new__(envs["LocomotionEnv"])
     cases["a wrapped robot"] = (_stub(ppo, window), "ObservationWindowWrapper does not declare")

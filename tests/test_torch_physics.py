@@ -14,7 +14,7 @@ import torch
 from rlx_tpu.physics import engine as jax_engine
 from rlx_tpu.physics import load_mjcf as jax_load_mjcf
 from rlx_tpu_torch.environments.locomotion.ant.cuda.environment import ANT_MODEL
-from rlx_tpu_torch.physics import engine, load_mjcf, load_model, save_model
+from rlx_tpu_torch.physics import engine, forward_dynamics, load_mjcf, load_model, save_model
 from rlx_tpu_torch.ops.engine_substep_cuda import (
     BLOCK_THREADS, MAX_BLOCK_SHARED, body_levels, chain_entries, env_layout, lanes_per_env,
     ltdl_schedule, model_tables, step_cuda, substep_flops,
@@ -128,6 +128,50 @@ def test_step_ctrl_sequence_matches_jax():
                       nr_substeps=S, ctrl_sequence=torch.tensor(seq))
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("contacts,with_dr,with_terrain", [
+    (True, False, False),
+    (False, False, False),
+    (True, True, False),
+    (False, True, False),
+    (True, False, True),
+    (True, True, True),
+])
+def test_forward_dynamics_matches_jax(contacts, with_dr, with_terrain):
+    """The public batch-first ``forward_dynamics`` on the Ant at B = 8:
+    contacts on and off, with and without DomainParams, on a heightfield.
+    In float64 on both sides: the random states' accelerations reach ~1e3,
+    where the two f32 solves part by f32 rounding (~4e-5 relative), which
+    a step's dt scales down but ``qacc`` shows as it is."""
+    import jax
+
+    jax_model, model, m, height = _models("ant")
+    B = 8
+    f64 = lambda x: np.asarray(x, np.float64)
+    qpos, qvel, ctrl = (f64(x) for x in _batch(m, model, B, 8, height))
+    kw, tkw = dict(include_contacts=contacts), dict(include_contacts=contacts)
+    if with_dr:
+        dr = {k: f64(v) for k, v in _dr(model, B, 9).items()}
+        kw["dr"] = jax_engine.DomainParams(**dr)
+        tkw["dr"] = engine.DomainParams(**{k: torch.tensor(v) for k, v in dr.items()})
+    if with_terrain:
+        n, half = 8, 2.0
+        heights = np.random.default_rng(10).uniform(0.0, 0.5, size=(n * n, B))
+        kw["terrain"] = jax_engine.Terrain(height=heights, n=n, half_extent_m=half)
+        tkw["terrain"] = engine.Terrain(height=torch.tensor(heights), n=n, half_extent_m=half)
+    with jax.enable_x64(True):
+        ref, ref_none = jax_engine.forward_dynamics(jax_model, qpos, qvel, ctrl, **kw)
+        ref = np.asarray(ref)
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        out, none = forward_dynamics(model, torch.tensor(qpos), torch.tensor(qvel), torch.tensor(ctrl), **tkw)
+    finally:
+        torch.set_default_dtype(dtype)
+    assert none is None and ref_none is None
+    assert tuple(out.shape) == (B, model.nv) and out.dtype == torch.float64 and ref.dtype == np.float64
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("which", ["chain", "ant"])
