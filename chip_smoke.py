@@ -115,7 +115,7 @@ Phases (each prints one line; any failure exits nonzero):
     exactly 2 and B2 exactly 128 launches, ESPO's active epochs in [1, 10],
     PPO-DTRL's projected KL parts within 1e-3 of their bounds; one
     PPO-DTRL iteration's wall, device busy time and idle share from the
-    device's events (as phase 28);
+    device's events (``device_idle``);
 25. BRO through the Runner at its defaults (1024 envs, learning_starts =
     nr_envs, 16 learning steps of 10 critic updates, a reset at step 14)
     with its optimizer state and init_copy, then test mode with every
@@ -125,8 +125,7 @@ Phases (each prints one line; any failure exits nonzero):
     launches, no B1 or B3;
 26. REPPO on the Ant at its defaults (4096 envs x 128 steps): 2 iterations
     (the second a replay of the captured iteration), B2 exactly 256 and no
-    B1; one more iteration's wall, busy time and idle share from the
-    device's events (as phase 28); then
+    B1 (phase 49 profiles REPPO at this shape, eager and replayed); then
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 328), then test mode from latest.model with both nets
     and the normalizer equal bit for bit;
@@ -137,31 +136,30 @@ Phases (each prints one line; any failure exits nonzero):
     replay against it), B1 exactly 1 and B2 exactly 32 launches, finite
     losses, env-steps/s; the policy's sequence re-run over a fresh window
     from its start carry gives the rollout's log-probabilities within
-    1e-4; one more LSTM and transformer iteration's wall, busy time and
-    idle share from the device's events (as phase 28); PPO-LSTM
+    1e-4 (phase 49 profiles the LSTM and the transformer, eager and
+    replayed); PPO-LSTM
     through the Runner: 1 iteration, an evaluation and a save at horizon
     200 (B2 exactly 232, B1 exactly 1), then test mode from latest.model
     with every tensor equal bit for bit; B1 at [32, 4096] and [32, 4097];
 28. PPO-LSTM on ``locomotion.robot.cuda`` (the quadruped, its default
     randomization and curriculum) at the JAX package's ``locomotion_lstm``
-    shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 1
-    iteration on the default heightfield, whose physics runs the eager
-    engine on the card (B1 exactly 1, B2 none), then 2 on the plane (B1 2,
-    B2 exactly 64); one more plane iteration profiled from the device's
-    events (wall, busy, idle share); the heightfield physics alone a
-    control step; the projected wall time of one 50M-step
-    ``locomotion_lstm`` seed;
+    shape (4096 envs x 32 steps, 4 minibatches, 4 epochs, LSTM 128): 2
+    iterations on the plane (B1 2, B2 exactly 64: the second a replay of
+    the captured iteration, whose launches the counters count as they
+    ran); the default heightfield is phase 50's;
 29. B2 against ``engine.step_reference`` at the quadruped's and the
     Booster T1's shapes (B=4096, evaluation mode, two env steps after the
     reset): the env's own DomainParams with a per-dof damping scale and
     its delayed PD targets as a ctrl_sequence, within 1e-4 on the envs the
     last step did not reset; times and bound at both;
 30. feedforward PPO at the ``locomotion_ppo`` widths (minibatch 32768,
-    its 32 steps cut to 8) on the heightfield: 1 iteration, B1 exactly 1,
+    its 32 steps cut to 8) on the heightfield: 1 iteration (eager, as a
+    ``train()`` call's first; phase 50 replays this shape), B1 exactly 1,
     B2 none;
 31. PPO-LSTM on ``locomotion.soccer.cuda`` (the Booster T1 on the plane)
-    at the ``soccer_lstm`` shape: 2 iterations (B1 2, B2 exactly 64), one
-    profiled as in 28; then through the Runner: 1 iteration, an evaluation
+    at the ``soccer_lstm`` shape: 1 iteration (B1 1, B2 exactly 32; cut
+    from 2: phase 50 replays this shape, phase 44 soccer's train()); then
+    through the Runner: 1 iteration, an evaluation
     and a save with the episode cut to 1 s (B2 exactly 82, B1 1), then
     test mode from latest.model with every tensor equal bit for bit and at
     most 50 B2 launches;
@@ -275,8 +273,9 @@ Phases (each prints one line; any failure exits nonzero):
     iteration equal bit for bit to the run with no group (a mesh of one
     rank makes no collective: NCCL at dp > 1 needs a card a rank);
 47. deployment (``deployment_phase``): PPO at the ``locomotion_ppo``
-    recipe on the Go2 on the plane (4096 envs x 32 steps, 1 iteration, B1
-    exactly 1 and B2 exactly 32: one launch a control step); B2 at the
+    recipe on the Go2 on the plane (4096 envs x 32 steps, 1 iteration:
+    eager, a ``train()`` call's first; B1 exactly 1 and B2 exactly 32: one
+    launch a control step); B2 at the
     Go2's shape against ``engine.step_reference`` held as in phase 44
     (against float64, at twice the f32 plain version's own error); the
     checkpoint through ``load_policy_apply`` on the card and on the CPU,
@@ -308,7 +307,7 @@ Phases (each prints one line; any failure exits nonzero):
     as the counters count a replay) and one replay under torch.profiler
     with 64 and 1 seen (up to three windows: the tracer drops a record now
     and then),
-    env-steps/s over 10 eager and 10 replayed iterations (each read as
+    env-steps/s over 5 eager and 5 replayed iterations (each read as
     ``train()`` reads it), the device idle share of one replay and of one
     eager iteration, the capture's seconds and the graph pool's MiB;
 49. (run right after phase 48) the captured learning iteration of the
@@ -322,8 +321,29 @@ Phases (each prints one line; any failure exits nonzero):
     from the same state draws fresh noise; each replay's launches (B1 1 and
     B2 32 for the recurrent PPOs, B2 128 for REPPO, none for PQN); PPO-LSTM's
     graph nodes by name (32 B2, 1 B1); for PPO-LSTM, the transformer and
-    REPPO env-steps/s over 5 eager and 5 replayed iterations and the idle
-    share of one of each from the device's events.
+    REPPO env-steps/s over 3 eager and 3 replayed iterations and the idle
+    share of one of each from the device's events;
+50. (run right after phase 49) the captured learning iteration on the
+    robot and soccer envs (``capture_robot_phase``): PPO-LSTM on the
+    robot's plane and on soccer at phases 28 and 31's shape (4096 envs x 32
+    steps, LSTM 128), feedforward PPO on the default heightfield at phase
+    30's shape, and PPO-LSTM on the heightfield at 4096 envs with its 32
+    steps cut to 8: one eager iteration against the first replay from the
+    same state bit for bit, as phase 49; a second replay draws fresh noise;
+    each replay's launches (B2 32 and B1 1 on the plane and soccer, B2 0
+    and B1 1 over the heightfield, whose graph holds the engine's eager
+    path); the capture's seconds, pool MiB and graph nodes (CUDA's own
+    count); eager (the reference iteration) and replayed (3) env-steps/s,
+    with the idle share of one of each from the device's events (for
+    feedforward PPO on the heightfield the wall clock only); the 50M-step
+    the heightfield's eager physics alone a control step (no B2 launch);
+    then ``locomotion_lstm`` at its own shape, 4096 envs x 32 steps on the
+    heightfield, through ``model.train()`` for 3 iterations
+    (``heightfield_recipes``; it runs the two PPO recipes too when called
+    alone): the captured path logged, B1 3 and B2 0 launches, one graph of
+    B1 1 a replay, the capture's seconds, pool MiB and graph nodes, each
+    iteration's env-steps/s and the recipe's budget in hours a seed at the
+    replayed and the eager rate.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -1029,8 +1049,10 @@ def go2_ticks(seed=47):
 def deployment_phase(kernels, launches_by_path, workdir):
     """Phase 47: a policy leaves the framework.  (a) The Go2: one PPO
     iteration at the ``locomotion_ppo`` recipe (4096 envs x 32 steps, the
-    algorithm's default widths) on the ``go2`` on the plane, B1 once and B2
-    once a control step (each launch runs the step's ``nr_substeps``); B2
+    algorithm's default widths) on the ``go2`` on the plane (eager, as a
+    ``train()`` call's first iteration; a one-iteration call captures
+    nothing), B1 once and B2 once a control step (each launch runs the
+    step's ``nr_substeps``); B2
     at the Go2's shape against its plain version, held against float64 as
     in phase 44 (``robot_substep_check``); the checkpoint loaded by
     ``load_policy_apply`` on the card and on the CPU, each driving
@@ -1439,15 +1461,15 @@ def capture_phase(launches_by_path, workdir):
             launches_by_path["ppo_captured_replay"] = dict(counted, categorical_projection=0)
             row["graph_kernel_nodes"] = dict(nodes, all=kernel_nodes)
             row["profiled_replay_windows"] = windows
-            # env-steps/s of 10 iterations each way, each read as train() reads it
+            # env-steps/s of 5 iterations each way, each read as train() reads it
             def iterations(step, state):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(10):
+                for _ in range(5):
                     state, metrics = step(state)
                     {k: float(v) for k, v in metrics.items()}
                 torch.cuda.synchronize()
-                return 10 * batch / (time.perf_counter() - t0), state
+                return 5 * batch / (time.perf_counter() - t0), state
 
             row["eager_env_steps_per_s"], state = iterations(model.learning_iteration, graph.state)
             graph.state.copy_(state)
@@ -1485,11 +1507,157 @@ def held_tensors(model, state, carry=(), metrics=None):
     return out
 
 
+def graph_node_count(graph):
+    """All nodes of a captured ``DebugGraph``, as the CUDA runtime counts them
+    (``cuGraphGetNodes`` on its ``cudaGraph_t``); None where this torch
+    does not hand the graph out."""
+    import ctypes
+
+    if not hasattr(graph, "raw_cuda_graph"):
+        return None
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                                     ctypes.byref(n))
+    if rc != 0:
+        fail(f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def replay_against_eager(phase, name, model, carry, expected, workdir, node_names=False):
+    """The checks of one captured learning iteration (phases 49 and 50):
+    ``capture_choice`` says capture; after an eager warm-up on the capture
+    stream, an eager iteration and the first replay of the captured one from
+    the same state are equal bit for bit in every tensor (``held_tensors``:
+    the nets, the optimizers' state, the device step counts, REPPO's
+    normalizer and old-policy snapshot, the env state, the carry, every
+    metric) and in both generators' states; a second replay from the same
+    state draws fresh noise; one replay launches ``expected`` (B2, B1) and
+    no B3.  The graph is a ``DebugGraph``: its nodes are counted, and with
+    ``node_names`` its B2 and B1 kernel nodes by name, which must be
+    ``expected``.  -> (the ``CapturedIteration``, its row)."""
+    from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice, copy_carry_
+
+    capture, reason = capture_choice(model)
+    if not capture:
+        fail(f"phase {phase} {name}: capture_choice says eager ({reason})")
+    graph = CapturedIteration(model)
+    state, *carry, _ = graph(model.train_env.reset(model.seed), *carry)   # the warm-up, eager
+    torch.cuda.synchronize()
+    live = held_tensors(model, state, carry)
+    # detached: a clone of a parameter would keep its gradient
+    # accumulator, made on this stream, alive into the capture
+    saved = {k: v.detach().clone() for k, v in live.items()}
+    generators = (model.generator, state.generator)
+    generator_states = [gen.get_state() for gen in generators]
+
+    @torch.no_grad()
+    def restore(noise=True):
+        for k, v in saved.items():
+            if not k.startswith(("env.", "carry.")):
+                live[k].copy_(v)
+        if noise:
+            for gen, s in zip(generators, generator_states):
+                gen.set_state(s)
+
+    def snapshot(state, carry, metrics):
+        out = {k: v.detach().clone() for k, v in held_tensors(model, state, carry, metrics).items()}
+        out.update({f"generator.{i}": gen.get_state() for i, gen in enumerate(generators)})
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_state, *eager_carry, eager_metrics = model.learning_iteration(state, *carry)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = snapshot(eager_state, eager_carry, eager_metrics)
+    del eager_state, eager_carry, eager_metrics
+    restore()
+    torch.cuda.synchronize()
+    before = counts()
+    torch.cuda.CUDAGraph = DebugGraph   # its nodes are read back below
+    try:
+        graph_state, *graph_carry, graph_metrics = graph(state, *carry)   # capture, then the first replay
+    finally:
+        torch.cuda.CUDAGraph = DebugGraph.__base__
+    torch.cuda.synchronize()
+    after = counts()
+    replayed = snapshot(graph_state, graph_carry, graph_metrics)
+    equal, total, worst, where = differences(eager, replayed)
+    if equal != total:
+        fail(f"phase {phase} {name}: the replay differs from the eager iteration in {total - equal} of {total} "
+             f"tensors, max |diff| {worst:.3g} at {where}")
+    b2, b1 = expected
+    counted = {"engine_substep": after["engine_substep"] - before["engine_substep"],
+               "gae": after["gae"] - before["gae"]}
+    expected = {"engine_substep": b2, "gae": b1}
+    recorded = dict(zip(("engine_substep", "gae"), graph.launches))
+    if counted != expected or recorded != expected or graph.launches[2] or after["categorical_projection"] != \
+            before["categorical_projection"]:
+        fail(f"phase {phase} {name}: a replay launched {counted} (the capture recorded {graph.launches}), "
+             f"expected {expected} and no B3")
+    # the same nets, env state and carry again, the generators as the
+    # replay left them: fresh noise gives another rollout
+    offsets = [gen.get_offset() for gen in generators]
+    restore(noise=False)
+    graph.state.copy_(state)
+    copy_carry_(graph.carry, tuple(carry))
+    graph.replay()
+    torch.cuda.synchronize()
+    again = held_tensors(model, graph.state)
+    fresh = sum(not torch.equal(again[k], replayed[k]) for k in again if k.startswith("env."))
+    advanced = [gen.get_offset() > offset for gen, offset in zip(generators, offsets)]
+    if fresh == 0 or not advanced[0]:
+        fail(f"phase {phase} {name}: a second replay from the same state drew the same noise "
+             f"({fresh} env tensors changed, generators advanced {advanced})")
+    row = {"equal_tensors": f"{equal} of {total}", "generators_advanced": advanced,
+           "capture_s": graph.capture_seconds, "pool_mib": graph.pool_bytes / 2**20,
+           "graph_nodes": graph_node_count(graph.graph), "env_tensors_changed_by_fresh_noise": fresh,
+           "launches_per_replay": counted, "eager_reference_s": eager_s}
+    if node_names:
+        names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel"}
+        nodes, kernel_nodes = graph_nodes(graph.graph, os.path.join(workdir, "graph.dot"), names)
+        if nodes != expected:
+            fail(f"phase {phase} {name}: the graph holds {nodes} kernel nodes, expected {expected}")
+        row["graph_kernel_nodes"] = dict(nodes, all=kernel_nodes)
+    return graph, row
+
+
+def timed_iterations(model, graph, row, eager_n, replay_n, prefix=None):
+    """Into ``row``: env-steps/s of ``eager_n`` eager (none: ``row`` has the
+    eager rate already) and ``replay_n`` replayed learning iterations from
+    the graph's static state (each read as ``train()`` reads it: its
+    metrics as floats), their ratio, and with a ``prefix`` the idle share
+    of one replay and of one eager iteration from the device's events
+    (``device_idle``)."""
+    from rlx_tpu_torch.algorithms.training_program import copy_carry_
+
+    batch = model.nr_envs * model.nr_steps
+
+    def iterations(step, n, state, carry):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, *carry, metrics = step(state, *carry)
+            {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        return n * batch / (time.perf_counter() - t0), state, carry
+
+    if eager_n:
+        row["eager_env_steps_per_s"], state, carry = iterations(model.learning_iteration, eager_n, graph.state,
+                                                                graph.carry)
+        graph.state.copy_(state)
+        copy_carry_(graph.carry, tuple(carry))
+    row["replay_env_steps_per_s"], _, _ = iterations(graph, replay_n, graph.state, graph.carry)
+    row["replay_speedup"] = row["replay_env_steps_per_s"] / row["eager_env_steps_per_s"]
+    if prefix is not None:
+        row["replay_profile"] = device_idle(graph.replay, prefix)
+        row["eager_profile"] = device_idle(lambda: model.learning_iteration(graph.state, *graph.carry), prefix)
+
+
 def capture_families_phase(launches_by_path, workdir):
     """Phase 49: the captured learning iteration of the recurrent PPOs,
     REPPO and PQN against the eager iteration, at phases 27, 26 and 17's
     shapes."""
-    from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice, copy_carry_
     from rlx_tpu_torch.benchmarks.curves import RUNS
     from rlx_tpu_torch.config import create_model, make_config
 
@@ -1512,11 +1680,8 @@ def capture_families_phase(launches_by_path, workdir):
                  "algorithm.evaluation_active": False}, (0, 0), False),
     }
     rows = {}
-    for name, (algorithm, environment, overrides, (b2, b1), timed) in cases.items():
+    for name, (algorithm, environment, overrides, expected, timed) in cases.items():
         model = create_model(make_config(algorithm, environment, **overrides))
-        capture, reason = capture_choice(model)
-        if not capture:
-            fail(f"phase 49 {name}: capture_choice says eager ({reason})")
         # the carry a train() call starts from: the recurrent policy's zero
         # carry, PQN's update step 0, nothing for REPPO
         carry = ()
@@ -1524,106 +1689,170 @@ def capture_families_phase(launches_by_path, workdir):
             carry = (model.policy.initialize_carry(model.nr_envs),)
         elif name == "pqn":
             carry = (torch.zeros((), dtype=torch.int64, device="cuda"),)
-        graph = CapturedIteration(model)
-        state, *carry, _ = graph(model.train_env.reset(model.seed), *carry)   # the warm-up, eager
-        if name == "ppo_lstm":
-            torch.cuda.CUDAGraph = DebugGraph   # its kernel nodes are read back below
-        torch.cuda.synchronize()
-        live = held_tensors(model, state, carry)
-        # detached: a clone of a parameter would keep its gradient
-        # accumulator, made on this stream, alive into the capture
-        saved = {k: v.detach().clone() for k, v in live.items()}
-        generators = (model.generator, state.generator)
-        generator_states = [gen.get_state() for gen in generators]
-
-        @torch.no_grad()
-        def restore(noise=True):
-            for k, v in saved.items():
-                if not k.startswith(("env.", "carry.")):
-                    live[k].copy_(v)
-            if noise:
-                for gen, s in zip(generators, generator_states):
-                    gen.set_state(s)
-
-        def snapshot(state, carry, metrics):
-            out = {k: v.detach().clone() for k, v in held_tensors(model, state, carry, metrics).items()}
-            out.update({f"generator.{i}": gen.get_state() for i, gen in enumerate(generators)})
-            return out
-
-        eager_state, *eager_carry, eager_metrics = model.learning_iteration(state, *carry)
-        eager = snapshot(eager_state, eager_carry, eager_metrics)
-        restore()
-        torch.cuda.synchronize()
-        before = counts()
-        try:
-            graph_state, *graph_carry, graph_metrics = graph(state, *carry)   # capture, then the first replay
-        finally:
-            torch.cuda.CUDAGraph = DebugGraph.__base__
-        torch.cuda.synchronize()
-        after = counts()
-        replayed = snapshot(graph_state, graph_carry, graph_metrics)
-        equal, total, worst, where = differences(eager, replayed)
-        if equal != total:
-            fail(f"phase 49 {name}: the replay differs from the eager iteration in {total - equal} of {total} "
-                 f"tensors, max |diff| {worst:.3g} at {where}")
-        counted = {"engine_substep": after["engine_substep"] - before["engine_substep"],
-                   "gae": after["gae"] - before["gae"]}
-        expected = {"engine_substep": b2, "gae": b1}
-        recorded = dict(zip(("engine_substep", "gae"), graph.launches))
-        if counted != expected or recorded != expected or graph.launches[2] or after["categorical_projection"] != \
-                before["categorical_projection"]:
-            fail(f"phase 49 {name}: a replay launched {counted} (the capture recorded {graph.launches}), "
-                 f"expected {expected} and no B3")
-        launches_by_path[f"{name}_captured_replay"] = dict(counted, categorical_projection=0)
-        # the same nets, env state and carry again, the generators as the
-        # replay left them: fresh noise gives another rollout
-        offsets = [gen.get_offset() for gen in generators]
-        restore(noise=False)
-        graph.state.copy_(state)
-        copy_carry_(graph.carry, tuple(carry))
-        graph.replay()
-        torch.cuda.synchronize()
-        again = held_tensors(model, graph.state)
-        fresh = sum(not torch.equal(again[k], replayed[k]) for k in again if k.startswith("env."))
-        advanced = [gen.get_offset() > offset for gen, offset in zip(generators, offsets)]
-        if fresh == 0 or not advanced[0]:
-            fail(f"phase 49 {name}: a second replay from the same state drew the same noise "
-                 f"({fresh} env tensors changed, generators advanced {advanced})")
-        row = {"equal_tensors": f"{equal} of {total}", "generators_advanced": advanced,
-               "capture_s": graph.capture_seconds, "pool_mib": graph.pool_bytes / 2**20,
-               "env_tensors_changed_by_fresh_noise": fresh, "launches_per_replay": counted}
-        if name == "ppo_lstm":
-            names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel"}
-            nodes, kernel_nodes = graph_nodes(graph.graph, os.path.join(workdir, "graph.dot"), names)
-            if nodes != expected:
-                fail(f"phase 49: PPO-LSTM's graph holds {nodes} kernel nodes, expected {expected}")
-            row["graph_kernel_nodes"] = dict(nodes, all=kernel_nodes)
+        graph, row = replay_against_eager(49, name, model, carry, expected, workdir, node_names=name == "ppo_lstm")
+        launches_by_path[f"{name}_captured_replay"] = dict(row["launches_per_replay"], categorical_projection=0)
         if timed:
-            batch = model.nr_envs * model.nr_steps
-
-            # env-steps/s of 5 iterations each way, each read as train() reads it
-            def iterations(step, state, carry):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    state, *carry, metrics = step(state, *carry)
-                    {k: float(v) for k, v in metrics.items()}
-                torch.cuda.synchronize()
-                return 5 * batch / (time.perf_counter() - t0), state, carry
-
-            row["eager_env_steps_per_s"], state, carry = iterations(model.learning_iteration, graph.state,
-                                                                    graph.carry)
-            graph.state.copy_(state)
-            copy_carry_(graph.carry, tuple(carry))
-            row["replay_env_steps_per_s"], _, _ = iterations(graph, graph.state, graph.carry)
-            row["replay_speedup"] = row["replay_env_steps_per_s"] / row["eager_env_steps_per_s"]
-            prefix = "reppo/" if name == "reppo" else "recurrent_ppo/"
-            row["replay_profile"] = device_idle(graph.replay, prefix)
-            row["eager_profile"] = device_idle(lambda: model.learning_iteration(graph.state, *graph.carry), prefix)
+            timed_iterations(model, graph, row, 3, 3, "reppo/" if name == "reppo" else "recurrent_ppo/")
         graph.close()
         rows[name] = row
         print(f"captured {name}: " + json.dumps(row))
-        del model, graph, state, carry, live, saved, eager, replayed, again
+        del model, graph, carry
+        torch.cuda.empty_cache()
+    return rows
+
+
+def capture_robot_phase(launches_by_path, workdir):
+    """Phase 50: the captured learning iteration on the robot and soccer
+    envs against the eager iteration: PPO-LSTM on the robot's plane and on
+    soccer at phases 28 and 31's shape (B2 and B1 inside the graph),
+    feedforward PPO on the heightfield at phase 30's and PPO-LSTM on the
+    heightfield at 4096 envs with its 32 steps cut to 8 (the eager engine
+    inside the graph, no B2).  Each path's eager rate is its reference
+    iteration's; the idle shares come from the device's events, except for
+    feedforward PPO on the heightfield (the wall clock only).  Then
+    ``locomotion_lstm`` at its own 32 steps through ``train()``
+    (``heightfield_recipes``).  -> the rows."""
+    from rlx_tpu_torch.config import create_model, make_config
+    from rlx_tpu_torch.physics import engine
+
+    lstm = {"runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": 32,
+            "algorithm.nr_minibatches": 4, "algorithm.nr_epochs": 4, "algorithm.rnn_hidden_dim": 128,
+            "algorithm.learning_rate": 3e-4, "algorithm.evaluation_active": False}
+    heightfield_steps = 8   # the locomotion_lstm shape's 32 cut to 8: an eager iteration at 32 takes ~17 s
+    ppo_steps = 8           # phase 30's cut of locomotion_ppo's 32
+    plane = {"environment.terrain.type": "plane"}
+    cases = {   # name: (algorithm, environment, overrides, launches a replay (B2, B1), idle shares)
+        "robot_lstm_plane": ("ppo_lstm.cuda", "locomotion.robot.cuda", {**lstm, **plane}, (32, 1), True),
+        "soccer_lstm": ("ppo_lstm.cuda", "locomotion.soccer.cuda", lstm, (32, 1), True),
+        "robot_ppo_heightfield": ("ppo.cuda", "locomotion.robot.cuda",
+                                  {"runner.device": "cuda", "environment.nr_envs": 4096,
+                                   "algorithm.nr_steps": ppo_steps, "algorithm.minibatch_size": 32768,
+                                   "algorithm.nr_epochs": 4, "algorithm.learning_rate": 3e-4,
+                                   "algorithm.evaluation_active": False}, (0, 1), False),
+        # at 8 steps its ~1.7 x 10^5 device events trace in a few seconds
+        "robot_lstm_heightfield": ("ppo_lstm.cuda", "locomotion.robot.cuda",
+                                   {**lstm, "algorithm.nr_steps": heightfield_steps}, (0, 1), True),
+    }
+    rows = {}
+    for name, (algorithm, environment, overrides, expected, idle) in cases.items():
+        t0 = time.perf_counter()
+        model = create_model(make_config(algorithm, environment, **overrides,
+                                         **{"algorithm.total_timesteps": 4 * 4096 * overrides["algorithm.nr_steps"]}))
+        carry = (model.policy.initialize_carry(model.nr_envs),) if hasattr(model, "policy_carry") else ()
+        graph, row = replay_against_eager(50, name, model, carry, expected, workdir)
+        launches_by_path[f"{name}_captured_replay"] = dict(row["launches_per_replay"], categorical_projection=0)
+        row["eager_env_steps_per_s"] = model.nr_envs * model.nr_steps / row["eager_reference_s"]
+        timed_iterations(model, graph, row, 0, 3, ("recurrent_ppo/" if carry else "ppo/") if idle else None)
+        if name == "robot_lstm_heightfield":
+            # the eager physics alone a control step, from the static state
+            env, physics = model.train_env, graph.state.physics
+            internal = physics["internal"]
+            targets = env.control_function.process_action(
+                torch.zeros(env.nr_substeps, env.nr_envs, env.nr_actuator_joints, device="cuda"), internal)
+            terrain_step = lambda: engine.step(
+                env.model, physics["qpos"], physics["qvel"], targets[0], nr_substeps=env.nr_substeps,
+                dr=env._domain_params(internal), terrain=env.terrain_function.engine_terrain(internal),
+                ctrl_sequence=targets, contact_state=physics["contact_anchor"])
+            before = counts()["engine_substep"]
+            row["eager_physics_ms_a_control_step"] = time_ms(terrain_step, 3)
+            if counts()["engine_substep"] != before:
+                fail("a heightfield step launched the substep kernel")
+        graph.close()
+        row["phase_s"] = time.perf_counter() - t0
+        rows[name] = row
+        print(f"captured {name}: " + json.dumps(row))
+        del model, graph, carry
+        torch.cuda.empty_cache()
+    # locomotion_lstm alone: the ppo recipes add ~65 s to a script near its
+    # limit (run them alone: heightfield_recipes({}))
+    rows.update(heightfield_recipes(launches_by_path, ("locomotion_lstm",)))
+    return rows
+
+
+def heightfield_recipes(launches_by_path, names=("locomotion_lstm", "locomotion_ppo", "locomotion_ppo_bf16"),
+                        iterations=3):
+    """The heightfield recipes ``names`` of ``benchmarks/curves.py`` at their
+    own shape, 4096 envs x 32 steps, through ``model.train()``:
+    ``iterations`` learning iterations, the first eager, the second
+    captured and replayed, the rest replayed.  Each must log the captured
+    path, launch B1 once an iteration and B2 never, and log finite values;
+    its capture's seconds, pool MiB and graph nodes are read as ``train()``
+    closes the graph, and the rate of its last (replayed) and first (eager)
+    iteration gives the recipe's budget in hours a seed.  -> the rows."""
+    import logging
+
+    from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice
+    from rlx_tpu_torch.benchmarks.curves import RUNS
+    from rlx_tpu_torch.config import create_model, make_config
+    from rlx_tpu_torch.utils.logging import rlx_logger
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    closed = []
+    close = CapturedIteration.close
+
+    def recording_close(graph):
+        if graph.graph is not None:
+            closed.append({"capture_s": graph.capture_seconds, "pool_mib": graph.pool_bytes / 2**20,
+                           "graph_nodes": graph_node_count(graph.graph),
+                           "launches_per_replay": dict(zip(("engine_substep", "gae"), graph.launches))})
+        close(graph)
+
+    rows = {}
+    for name in names:
+        run = RUNS[name]
+        t0 = time.perf_counter()
+        model = create_model(make_config(run["algorithm"], run["environment"], **{
+            "runner.device": "cuda", **run["overrides"], "algorithm.logging_active": True,
+            "algorithm.evaluation_active": False,
+            "algorithm.total_timesteps": iterations * run["overrides"]["environment.nr_envs"]
+            * run["overrides"]["algorithm.nr_steps"]}))
+        capture, reason = capture_choice(model)
+        if not capture:
+            fail(f"{name}: capture_choice says eager ({reason})")
+        lines, closed[:], level = Lines(), [], rlx_logger.level
+        rlx_logger.addHandler(lines)
+        rlx_logger.setLevel(logging.INFO)   # as the runner sets it
+        CapturedIteration.close = recording_close
+        torch.cuda.CUDAGraph = DebugGraph   # its nodes are counted as train() closes it
+        zero_counts()
+        try:
+            model.train()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.CUDAGraph = DebugGraph.__base__
+            CapturedIteration.close = close
+            rlx_logger.removeHandler(lines)
+            rlx_logger.setLevel(level)
+        launches = counts()
+        if model.train_env.terrain_function.engine_terrain(model.env_state.physics["internal"]) is None:
+            fail(f"{name}: the recipe's terrain is no heightfield")
+        expected = {"engine_substep": 0, "gae": iterations, "categorical_projection": 0}
+        if launches != expected:
+            fail(f"{name}: launch counts {launches} != {expected}")
+        if not any(line.startswith("Learning iterations: one captured CUDA graph, replayed") for line in lines.lines):
+            fail(f"{name}: train() did not log the captured path: {lines.lines}")
+        if len(closed) != 1 or closed[0]["launches_per_replay"] != {"engine_substep": 0, "gae": 1}:
+            fail(f"{name}: train() closed {closed}, expected one graph of B2 0 and B1 1 launches a replay")
+        check_logged(name, model.metrics_history, [16 * (i + 1) for i in range(iterations)])
+        launches_by_path[f"{name}_train"] = launches
+        sps = [m["time/sps"] for m in model.metrics_history]
+        hours = {way: run["budget"] / rate / 3600 for way, rate in (("eager", sps[0]), ("replay", sps[-1]))}
+        row = {**closed[0], "env_steps_per_s_an_iteration": sps, "phase_s": time.perf_counter() - t0,
+               "budget_hours_a_seed": hours}
+        rows[f"{name}_train"] = row
+        print(f"captured {name} through train(): " + json.dumps(row))
+        print(f"learning check projection: one {run['budget'] / 1e6:.0f}M-step {name} seed at its own shape "
+              f"(4096 x 32 on the heightfield) takes {hours['replay']:.2f} h alone at the replayed rate of "
+              f"train()'s last iteration ({sps[-1]} env-steps/s), {hours['eager']:.2f} h at the eager first "
+              f"iteration's ({sps[0]}); evaluation and saving not included")
+        del model
         torch.cuda.empty_cache()
     return rows
 
@@ -1874,6 +2103,13 @@ def main():
     phase_t0 = time.perf_counter()
     capture_families_phase(launches_by_path, workdir.name)
     print(f"phase 49 took {time.perf_counter() - phase_t0:.1f} s")
+
+    # 50. the captured iteration on the robot and soccer envs against eager:
+    # B2 and B1 inside the graph on the plane and soccer, the eager engine
+    # over the heightfield
+    phase_t0 = time.perf_counter()
+    capture_robot_phase(launches_by_path, workdir.name)
+    print(f"phase 50 took {time.perf_counter() - phase_t0:.1f} s")
 
     # 7. B3: C51 projection
     from rlx_tpu_torch.ops.distributional import categorical_projection_reference
@@ -2754,10 +2990,6 @@ def main():
                         if k.startswith(("loss/", "kl/", "q_value/"))}))
     launches_by_path["reppo"] = reppo_launches
 
-    def reppo_iteration():
-        model.env_state, _ = model.learning_iteration(model.env_state)
-
-    print("profile reppo: " + json.dumps(device_idle(reppo_iteration, "reppo/")))
     del model
     reppo_args = ["--algorithm.name=reppo.cuda", "--environment.name=locomotion.ant.cuda", "--runner.device=cuda",
                   f"--environment.horizon={horizon}"]
@@ -2855,11 +3087,6 @@ def main():
               f"{rec_steps}x1024 with {nr_dones} resets inside: log-prob max|err| {carry_err:.3g} (rtol=atol=1e-4), "
               "last losses " + json.dumps({k: v for k, v in model.metrics_history[-1].items()
                                            if k.startswith("loss/")}))
-        if name in ("ppo_lstm", "ppo_transformer"):
-            def recurrent_iteration():
-                model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
-
-            print(f"profile {name}: " + json.dumps(device_idle(recurrent_iteration, "recurrent_ppo/")))
         del model, batch, init_carry
 
     # PPO-LSTM through the Runner: 1 iteration, an evaluation and a save at
@@ -2930,27 +3157,28 @@ def main():
     # 28. robot locomotion (locomotion.robot.cuda, the quadruped) at the
     # JAX package's locomotion_lstm shape (4096 envs x 32 steps, 4
     # minibatches, 4 epochs, LSTM 128; its default randomization and
-    # curriculum): 1 PPO-LSTM iteration on the default heightfield, where
-    # the physics runs the engine's eager path on the card (as the JAX
-    # package sends terrain to XLA), so B1 is launched once and B2 never;
-    # 2 on the plane, B2 once an env step; one more plane iteration
-    # profiled, read from the device's events alone; the eager
-    # heightfield physics alone a control step; the
-    # projected wall time of one 50M-step locomotion_lstm seed
+    # curriculum): 2 PPO-LSTM iterations on the plane, B2 once an env step
+    # (the second iteration a replay of the captured one: the counters count
+    # a replay's launches, so the expectations are the eager loop's).  The
+    # default heightfield, its eager physics a control step and the 50M-step
+    # locomotion_lstm projection are phase 50's
     from rlx_tpu_torch.environments.locomotion.robot.cuda.environment import LocomotionEnv
     from rlx_tpu_torch.environments.locomotion.soccer.cuda.environment import SoccerEnv
 
+    robot_phases_t0 = time.perf_counter()
     loco_shape = {"environment.nr_envs": 4096, "algorithm.nr_steps": rec_steps, "algorithm.nr_minibatches": 4,
                   "algorithm.nr_epochs": 4, "algorithm.rnn_hidden_dim": 128, "algorithm.learning_rate": 3e-4,
                   "algorithm.evaluation_active": False}
-    robot_rates = {}
 
-    def recurrent_path(path, env_name, expected, overrides=(), iterations=2, profiled=True):
+    def recurrent_path(path, env_name, expected, overrides=(), iterations=2):
         config = make_config("ppo_lstm.cuda", env_name, **{
             "runner.device": "cuda", **loco_shape, **dict(overrides),
             "algorithm.total_timesteps": iterations * rec_batch,
         })
         model = create_model(config)
+        captured, reason = capture_choice(model)
+        if not captured:
+            fail(f"{path}: train() does not replay a captured iteration: {reason}")
         zero_counts()
         t0 = time.perf_counter()
         model.train()
@@ -2962,16 +3190,6 @@ def main():
         check_logged(path, model.metrics_history, [16, 32][:iterations])
         launches_by_path[path] = path_launches
         sps = [m["time/sps"] for m in model.metrics_history]
-        robot_rates[path] = sps[-1]
-
-        def iteration():
-            model.env_state, model.policy_carry, _ = model.learning_iteration(model.env_state, model.policy_carry)
-
-        if profiled:
-            t0 = time.perf_counter()
-            profile = device_idle(iteration, "recurrent_ppo/")
-            profile["profiled_s"] = time.perf_counter() - t0
-            print(f"profile {path}: " + json.dumps(profile))
         tracking = model.env_state.info["rollout/episode_tracking"]
         print(f"train: {path}, {iterations} PPO-LSTM iterations at 4096x{rec_steps} in {elapsed:.2f} s, env-steps/s a "
               f"iteration {sps}, launches {path_launches}, observation {tuple(model.env_state.observation.shape)} "
@@ -2981,34 +3199,9 @@ def main():
               + json.dumps({k: v for k, v in model.metrics_history[-1].items() if k.startswith("loss/")}))
         return model
 
-    # not profiled: the heightfield iteration's ~7 x 10^5 device events took
-    # ~47 s to trace and read
-    model = recurrent_path("robot_lstm_heightfield", "locomotion.robot.cuda",
-                           {"engine_substep": 0, "gae": 1, "categorical_projection": 0}, iterations=1,
-                           profiled=False)
-    env = model.train_env
-    internal = model.env_state.physics["internal"]
-    qpos, qvel = model.env_state.physics["qpos"], model.env_state.physics["qvel"]
-    targets = env.control_function.process_action(
-        torch.zeros(env.nr_substeps, 4096, env.nr_actuator_joints, device=dev), internal)
-    terrain_step = lambda: engine.step(
-        env.model, qpos, qvel, targets[0], nr_substeps=env.nr_substeps, dr=env._domain_params(internal),
-        terrain=env.terrain_function.engine_terrain(internal), ctrl_sequence=targets,
-        contact_state=model.env_state.physics["contact_anchor"])
-    zero_counts()
-    eager_ms = time_ms(terrain_step, 3)
-    if counts()["engine_substep"]:
-        fail("a heightfield step launched the substep kernel")
-    print(f"heightfield physics: engine.step over the heightfield at B=4096 ({env.nr_substeps} substeps, the "
-          f"eager path on the card) {eager_ms:.1f} ms a control step")
-    del model, internal, qpos, qvel, targets
     recurrent_path("robot_lstm_plane", "locomotion.robot.cuda",
                    {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0},
                    {"environment.terrain.type": "plane"})
-    seed_s = 50_000_000 / robot_rates["robot_lstm_heightfield"]
-    print(f"learning check projection: one 50M-step locomotion_lstm seed at "
-          f"{robot_rates['robot_lstm_heightfield']} env-steps/s takes {seed_s / 3600:.2f} h alone; three seeds at "
-          f"once on this card take at least {3 * seed_s / 3600:.2f} h if they share it evenly")
 
     # 29. B2 against engine.step_reference at the robots' shapes: the
     # quadruped (plane) and the Booster T1 (soccer) at B=4096, with the env's
@@ -3019,8 +3212,9 @@ def main():
 
     # 30. feedforward PPO at the JAX package's locomotion_ppo widths (4096
     # envs, minibatch 32768, 4 epochs, lr 3e-4; its 32 steps cut to 8, one
-    # minibatch an epoch) on the default heightfield: 1 iteration, B1 once,
-    # B2 never
+    # minibatch an epoch) on the default heightfield: 1 iteration (a train()
+    # call's first, eager on the capture stream; phase 50 replays this
+    # shape), B1 once, B2 never
     ppo_steps = 8
     config = make_config("ppo.cuda", "locomotion.robot.cuda", **{
         "runner.device": "cuda", "environment.nr_envs": 4096, "algorithm.nr_steps": ppo_steps,
@@ -3043,12 +3237,14 @@ def main():
     del model
 
     # 31. soccer (locomotion.soccer.cuda: the Booster T1 on the plane) at the
-    # JAX package's soccer_lstm shape: 2 PPO-LSTM iterations, B2 once an env
-    # step, one profiled as in phase 28; then through the Runner: 1 iteration, an
+    # JAX package's soccer_lstm shape: 1 PPO-LSTM iteration (cut from 2:
+    # phase 50 replays soccer at this shape against eager, phase 44 replays
+    # it through train() at 1024 envs), B2 once an env step; then through
+    # the Runner: 1 iteration, an
     # evaluation and a save with the episode cut to 1 s (50 steps), then
     # test mode from latest.model, every tensor equal bit for bit
     recurrent_path("soccer_lstm", "locomotion.soccer.cuda",
-                   {"engine_substep": 2 * rec_steps, "gae": 2, "categorical_projection": 0})
+                   {"engine_substep": rec_steps, "gae": 1, "categorical_projection": 0}, iterations=1)
     soccer_horizon = 50
     soccer_args = ["--algorithm.name=ppo_lstm.cuda", "--environment.name=locomotion.soccer.cuda",
                    "--runner.device=cuda", "--environment.episode_length_in_seconds=1", "--environment.nr_envs=4096",
@@ -3092,6 +3288,7 @@ def main():
     launches_by_path["soccer_runner"] = runner_launches
     launches_by_path["soccer_test"] = test_launches
     del trained, tester
+    print(f"phases 28-31 took {time.perf_counter() - robot_phases_t0:.1f} s")
 
     # 32. the pixel envs on the card against the CPU: 128 envs, 64 steps of
     # the same actions from the same draws (the card's initial states handed

@@ -18,8 +18,12 @@ minibatch updates recorded once and replayed once per learning iteration,
 with no host work between the kernels.  ``capture_choice`` says when: a
 model on a CUDA device, at dp = tp = 1, with one seed, whose class and env
 both declare ``capturable`` (the PPO family, the recurrent PPOs, REPPO and
-PQN on the Ant, CartPole and Pendulum, through any wrapper).  Everything
-else, the CPU always, runs the eager loop.  ``train()`` logs one INFO line
+PQN on the Ant, CartPole and Pendulum, and the continuous ones on the robot
+envs, ``locomotion.robot`` on the plane or a heightfield and
+``locomotion.soccer``, through any wrapper).  On the plane the graph holds
+the substep kernel's launches; over a heightfield the engine's eager path,
+whose constants live on the device.  Everything else, the CPU always, runs
+the eager loop.  ``train()`` logs one INFO line
 with the path and the reason.  A capture or a replay that fails raises;
 nothing falls back to the eager loop.
 

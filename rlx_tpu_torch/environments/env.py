@@ -21,8 +21,10 @@ first + nr_envs`` of ``total`` envs and draws each from the global draw
 
 An env whose ``step`` a CUDA graph can capture sets ``capturable = True``
 (``algorithms/training_program.py``): every draw comes from the state's
-generator, the auto-reset is the masked select below, and nothing reads a
-device value back to the host.
+generator, the auto-reset is the masked select below, nothing reads a
+device value back to the host and nothing makes a tensor from host data
+(the Ant, CartPole and Pendulum on ``DeviceEnv``; the robot and soccer envs,
+``LocomotionEnv``, with their own masked auto-reset).
 """
 
 import dataclasses

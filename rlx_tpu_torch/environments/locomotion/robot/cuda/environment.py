@@ -59,6 +59,11 @@ class LocomotionEnv:
     # every draw goes through a Draws whose rows come from each seed's own
     # generator (draws.py): an env of S * N envs runs S seeds
     parallel_seeds = True
+    # a CUDA graph captures the step (training_program.py): every draw comes
+    # from the state's generators, the auto-reset is a masked select, the
+    # indices the step takes are device tensors and the engine's constants
+    # are uploaded once, so nothing is read back or copied up from the host
+    capturable = True
 
     def __init__(self, env_config, nr_envs, device="cuda"):
         self.env_config = env_config
@@ -82,8 +87,12 @@ class LocomotionEnv:
 
         # --- static robot indices -----------------------------------------
         self.nr_actuator_joints = len(m.act_dof)
-        self.actuator_dof_adr = np.asarray([m.dof_adr[b] for b in m.act_joint_body], dtype=np.int64)
-        self.actuator_qpos_adr = np.asarray([m.qpos_adr[b] for b in m.act_joint_body], dtype=np.int64)
+        # every index set the step takes is a device tensor: a capture
+        # refuses the upload that indexing with a numpy array makes
+        self.actuator_dof_adr = torch.as_tensor([m.dof_adr[b] for b in m.act_joint_body], dtype=torch.int64,
+                                                device=dev)
+        self.actuator_qpos_adr = torch.as_tensor([m.qpos_adr[b] for b in m.act_joint_body], dtype=torch.int64,
+                                                 device=dev)
         self.nominal_joint_positions = self.qpos0[self.actuator_qpos_adr]
         self.max_joint_velocities = torch.as_tensor(
             self.robot_config["actuator_joint_max_velocities"], dtype=dtype, device=dev
@@ -103,7 +112,7 @@ class LocomotionEnv:
         # feet: geoms named '*_foot'; collision spheres: group 5
         foot_geoms = [g for g, name in enumerate(m.geom_name) if name.endswith("_foot")]
         self.nr_feet = len(foot_geoms)
-        self.feet_body = np.asarray([m.geom_body[g] for g in foot_geoms], dtype=np.int64)
+        self.feet_body = torch.as_tensor([m.geom_body[g] for g in foot_geoms], dtype=torch.int64, device=dev)
         self.feet_local_pos = torch.as_tensor(
             np.asarray([m.geom_pos[g] for g in foot_geoms], dtype=np.float32), dtype=dtype, device=dev
         )
@@ -123,7 +132,7 @@ class LocomotionEnv:
         self.foot_same_group = torch.as_tensor(same, device=dev)
 
         col_geoms = [g for g in range(len(m.geom_name)) if m.geom_group[g] == 5]
-        self.collision_body = np.asarray([m.geom_body[g] for g in col_geoms], dtype=np.int64)
+        self.collision_body = torch.as_tensor([m.geom_body[g] for g in col_geoms], dtype=torch.int64, device=dev)
         self.collision_local_pos = torch.as_tensor(
             np.asarray([m.geom_pos[g] for g in col_geoms], dtype=np.float32), dtype=dtype, device=dev
         )
@@ -132,8 +141,8 @@ class LocomotionEnv:
 
         # nominal standing pose: heights and baseline collision overlaps
         R0, p0 = engine.kinematics(m, self.qpos0.cpu()[None].to(dtype))
-        feet0 = self._bodies_points(R0, p0, self.feet_body, self.feet_local_pos.cpu())[0].numpy()
-        col0 = self._bodies_points(R0, p0, self.collision_body, self.collision_local_pos.cpu())[0].numpy()
+        feet0 = self._bodies_points(R0, p0, self.feet_body.cpu(), self.feet_local_pos.cpu())[0].numpy()
+        col0 = self._bodies_points(R0, p0, self.collision_body.cpu(), self.collision_local_pos.cpu())[0].numpy()
         self.feet_symmetry_pairs = _symmetry_pairs(feet0)
         self.nominal_imu_height_over_ground = float(m.qpos0[2])
         self.nominal_qpos_height_over_ground = float(m.qpos0[2])

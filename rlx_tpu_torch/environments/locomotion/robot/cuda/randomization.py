@@ -119,6 +119,8 @@ class RandomInitialState:
         self.joint_velocity_max_factor = cfg["joint_velocity_max_factor"]
         self.trunk_velocity_clip_mass_factor = cfg["trunk_velocity_clip_mass_factor"]
         self.trunk_velocity_clip_limit = cfg["trunk_velocity_clip_limit"]
+        self.rpy_max = torch.tensor([self.roll, self.pitch, self.yaw], dtype=torch.float32,
+                                    device=env.device).to(env.dtype)
 
     def setup(self, internal, draws, curriculum_coeff):
         """-> (qpos [B, nq], qvel [B, nv])."""
@@ -126,8 +128,7 @@ class RandomInitialState:
         B = curriculum_coeff.shape[0]
         cc = curriculum_coeff
         dev = cc.device
-        rpy_max = torch.tensor([self.roll, self.pitch, self.yaw], dtype=torch.float32, device=dev).to(env.dtype)
-        rpy = cc[:, None] * draws.uniform((B, 3), -1.0, 1.0) * rpy_max
+        rpy = cc[:, None] * draws.uniform((B, 3), -1.0, 1.0) * self.rpy_max
         quat = _rpy_to_quat(rpy)
 
         nominal = internal["actuator_joint_nominal_positions"]      # [B, nu]

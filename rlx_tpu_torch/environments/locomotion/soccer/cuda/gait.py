@@ -24,9 +24,10 @@ class GaitManager:
         self.gait_period = cfg["gait_period"]
         self.width = cfg["gait_period_randomization_width"]
         self.mean_freq = 1.0 / self.gait_period
+        self.canonical_phase = torch.tensor([0.0, -math.pi], device=env.device)
 
     def _canonical(self, nr_envs):
-        return torch.tensor([0.0, -math.pi], device=self.env.device)[None].repeat(nr_envs, 1)
+        return self.canonical_phase[None].repeat(nr_envs, 1)
 
     def init_state(self, nr_envs):
         freq = torch.full((nr_envs,), self.mean_freq, device=self.env.device)

@@ -17,7 +17,7 @@ one-thread-per-env design:
    of chain entries; a model whose block would not fit raises;
 3. per-launch constant uploads: the model's numeric tables and the schedule
    are one flat 32-bit device buffer (``model_tables``; floats bit-cast),
-   uploaded once per model and contact/limit parameters (``_TableCache``)
+   uploaded once per model and contact/limit parameters (``_tables``)
    and staged into shared memory once per block; its header names are
    checked against the library's when it loads;
 4. transposes: qpos, qvel, ctrl (or ctrl_sequence) and contact_state go in
@@ -31,7 +31,7 @@ import torch
 
 from rlx_tpu_torch.ops import _build
 from rlx_tpu_torch.physics.engine import (
-    DomainParams, dof_structure, limit_damping, quat_to_mat_np,
+    DomainParams, PerModelCache, dof_structure, limit_damping, quat_to_mat_np,
 )
 from rlx_tpu_torch.physics.model import FREE, HINGE
 
@@ -420,24 +420,14 @@ def _dr_tensors(model, dr, B, device):
     return out
 
 
-class _TableCache:
-    """Device tables per (model, device, contact and limit parameters),
-    uploaded once."""
-
-    def __init__(self):
-        self._entries = {}
-
-    def get(self, model, device, *params):
-        key = (id(model), str(device)) + params
-        entry = self._entries.get(key)
-        if entry is None or entry[0] is not model:
-            tables = model_tables(model, *params)
-            entry = (model, tables, torch.as_tensor(tables.words, device=device))
-            self._entries[key] = entry
-        return entry[1], entry[2]
+def _device_tables(model, device, *params):
+    """(``model_tables``, its words as one device buffer)."""
+    tables = model_tables(model, *params)
+    return tables, torch.as_tensor(tables.words, device=device)
 
 
-_tables = _TableCache()
+# uploaded once per model, device and contact and limit parameters
+_tables = PerModelCache(_device_tables)
 
 
 def step_cuda(model, qpos, qvel, ctrl, nr_substeps=1,
@@ -456,8 +446,8 @@ def step_cuda(model, qpos, qvel, ctrl, nr_substeps=1,
     for t in (qpos, qvel, ctrl, ctrl_sequence, contact_state):
         if t is not None and (t.dtype != torch.float32 or t.device != device):
             raise ValueError(f"step_cuda takes float32 tensors on {device}")
-    tables, table = _tables.get(model, device, float(contact_timeconst),
-                                float(contact_dampratio), float(limit_stiffness))
+    tables, table = _tables(model, device, float(contact_timeconst),
+                            float(contact_dampratio), float(limit_stiffness))
 
     qpos, qvel = qpos.contiguous(), qvel.contiguous()
     if ctrl_sequence is not None:

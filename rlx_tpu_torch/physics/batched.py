@@ -7,14 +7,13 @@ reads address ``b`` of each row).
 
 Contractions are written as broadcast-multiply + sum over a leading axis,
 the same formulation as the JAX engine, so both sum in the same order.
+A ``*_const`` helper takes its constant as a float32 tensor already on the
+device (the engine uploads its model's constants once, ``engine.constants``),
+so a call makes no tensor from host data.
 """
 
 import numpy as np
 import torch
-
-
-def _const(c, like):
-    return torch.as_tensor(np.asarray(c, dtype=np.float32), device=like.device)
 
 
 def matmul(A, B):
@@ -24,7 +23,7 @@ def matmul(A, B):
 
 def matmul_const(A, C):
     """[m, k, B] @ const [k, n] -> [m, n, B]."""
-    return (A[:, :, None, :] * _const(C, A)[None, :, :, None]).sum(1)
+    return (A[:, :, None, :] * C[None, :, :, None]).sum(1)
 
 
 def matvec(A, v):
@@ -34,7 +33,7 @@ def matvec(A, v):
 
 def matvec_const(A, c):
     """[m, k, B] @ const [k] -> [m, B]."""
-    return (A * _const(c, A)[None, :, None]).sum(1)
+    return (A * c[None, :, None]).sum(1)
 
 
 def transpose(A):
@@ -116,9 +115,9 @@ def quat_integrate(q, omega_local, dt):
     return out / torch.sqrt((out ** 2).sum(0))[None]
 
 
-def rodrigues_sc(axis, s, c):
-    """Rotation about the constant ``axis`` [3] from precomputed sin/cos [B]
-    -> [3, 3, B]."""
+def rodrigues_matrices(axis):
+    """(I, K, K @ K), float32 [3, 3] each, of the rotation about the
+    constant ``axis`` [3]: R = I + sin K + (1 - cos) K^2."""
     K = np.array(
         [
             [0.0, -float(axis[2]), float(axis[1])],
@@ -127,12 +126,17 @@ def rodrigues_sc(axis, s, c):
         ],
         dtype=np.float32,
     )
-    KK = K @ K
-    eye = np.eye(3, dtype=np.float32)
+    return np.eye(3, dtype=np.float32), K, K @ K
+
+
+def rodrigues_sc(matrices, s, c):
+    """Rotation from ``rodrigues_matrices`` (as float32 tensors on the
+    device) and precomputed sin/cos [B] -> [3, 3, B]."""
+    eye, K, KK = matrices
     return (
-        _const(eye, s)[:, :, None]
-        + s[None, None, :] * _const(K, s)[:, :, None]
-        + (1.0 - c)[None, None, :] * _const(KK, s)[:, :, None]
+        eye[:, :, None]
+        + s[None, None, :] * K[:, :, None]
+        + (1.0 - c)[None, None, :] * KK[:, :, None]
     )
 
 

@@ -29,6 +29,11 @@ goes through the hand-written substep kernel
 version.  A step over a heightfield runs ``step_reference`` on whatever
 device its tensors are on: the kernel covers the plane only, as the JAX
 package's substep kernel does (its ``engine.step`` sends terrain to XLA).
+
+The model's constants (frame rotations, offsets, axes, inertias, gravity,
+armature, damping, frictionloss) are uploaded once per model and device
+(``constants``): after a model's first call on a device, no function here
+makes a tensor from host data, so a CUDA graph can capture the eager path.
 """
 
 from typing import NamedTuple, Optional
@@ -124,10 +129,62 @@ def dof_structure(model: PhysicsModel):
     return lam, dof_body
 
 
+class _Constants:
+    """A model's constants as float32 tensors on one device, each made as
+    the eager path used to make it at every call (the same values, so the
+    same results), and the dof tree's structure."""
+
+    def __init__(self, model: PhysicsModel, device):
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        self.lam, self.dof_body = dof_structure(model)
+        # each body's frame rotation, None where it is the identity
+        self.frame_rot = [None if np.allclose(C, np.eye(3)) else f32(C)
+                          for C in (quat_to_mat_np(q) for q in model.body_quat)]
+        self.body_pos = [f32(x) for x in model.body_pos]
+        self.jnt_pos = [f32(x) for x in model.jnt_pos]
+        self.jnt_axis = [f32(x) for x in model.jnt_axis]
+        self.rodrigues = {i: tuple(f32(x) for x in bl.rodrigues_matrices(model.jnt_axis[i]))
+                          for i in range(model.nbody) if int(model.jnt_type[i]) == HINGE}
+        self.icom_rot = [f32(quat_to_mat_np(q)) for q in model.body_iquat]
+        self.body_inertia = [f32(x) for x in model.body_inertia]
+        self.body_ipos = [f32(x) for x in model.body_ipos]
+        self.con_pos = [f32(x) for x in model.con_pos]
+        self.neg_gravity = f32(-np.asarray(model.gravity, np.float32))
+        self.armature = f32(np.diag(model.dof_armature).astype(np.float32))[:, :, None]
+        self.damping = f32(model.dof_damping)[:, None]
+        self.frictionloss = f32(model.dof_frictionloss)[:, None]
+
+
+class PerModelCache:
+    """``make(model, device, *params)``, made once per model, device and
+    ``params`` and kept for the process: keyed on ``id(model)``, with the
+    model kept to guard the id (a model changed by ``_replace``, e.g. another
+    timestep, is a new object with its own entry)."""
+
+    def __init__(self, make):
+        self.make = make
+        self.entries = {}
+
+    def __call__(self, model: PhysicsModel, device, *params):
+        key = (id(model), str(device), *params)
+        entry = self.entries.get(key)
+        if entry is None or entry[0] is not model:
+            entry = self.entries[key] = (model, self.make(model, device, *params))
+        return entry[1]
+
+
+# the model's constant tensors on a device, uploaded on the first call for
+# that model and device
+constants = PerModelCache(_Constants)
+
+
 def _kinematics_T(model: PhysicsModel, qposT):
     """FK: qposT [nq, B] -> (Rs, ps) lists of ([3, 3, B], [3, B]) per body."""
     B = qposT.shape[-1]
     dev = qposT.device
+    k = constants(model, dev)
     Rs, ps = [], []
     eye = torch.eye(3, device=dev)[:, :, None].expand(3, 3, B)
     zero3 = torch.zeros((3, B), device=dev)
@@ -140,9 +197,9 @@ def _kinematics_T(model: PhysicsModel, qposT):
     for i in range(model.nbody):
         par = int(model.parent[i])
         Rp, pp = (Rs[par], ps[par]) if par != -1 else (eye, zero3)
-        C = quat_to_mat_np(model.body_quat[i])
-        R_frame = Rp if np.allclose(C, np.eye(3)) else bl.matmul_const(Rp, C)
-        p_frame = pp + bl.matvec_const(Rp, model.body_pos[i])
+        C = k.frame_rot[i]
+        R_frame = Rp if C is None else bl.matmul_const(Rp, C)
+        p_frame = pp + bl.matvec_const(Rp, k.body_pos[i])
         jt = int(model.jnt_type[i])
         if jt == FREE:
             qa = int(model.qpos_adr[i])
@@ -150,9 +207,9 @@ def _kinematics_T(model: PhysicsModel, qposT):
             R = bl.quat_to_rot(qposT[qa + 3: qa + 7])
         elif jt == HINGE:
             s, c = trig[i]
-            R_axis = bl.rodrigues_sc(model.jnt_axis[i], s, c)
+            R_axis = bl.rodrigues_sc(k.rodrigues[i], s, c)
             R = bl.matmul(R_frame, R_axis)
-            p = p_frame + bl.matvec_const(R_frame - R, model.jnt_pos[i])
+            p = p_frame + bl.matvec_const(R_frame - R, k.jnt_pos[i])
         else:
             R, p = R_frame, p_frame
         Rs.append(R)
@@ -164,36 +221,36 @@ def _jacobian_columns_T(model: PhysicsModel, Rs, ps):
     """[nv, 6, B] world-origin Plücker columns."""
     B = ps[0].shape[-1]
     dev = ps[0].device
+    k = constants(model, dev)
     cols = [None] * model.nv
     zeros = torch.zeros((3, B), device=dev)
     for i in range(model.nbody):
         jt = int(model.jnt_type[i])
         d = int(model.dof_adr[i])
         if jt == FREE:
-            for k in range(3):  # linear dofs, world axes
+            for j in range(3):  # linear dofs, world axes
                 e = zeros.clone()
-                e[k] = 1.0
-                cols[d + k] = torch.cat([zeros, e])
-            for k in range(3):  # angular dofs, body-local axes
-                a = Rs[i][:, k]
-                cols[d + 3 + k] = torch.cat([a, bl.cross(ps[i], a)])
+                e[j].fill_(1.0)
+                cols[d + j] = torch.cat([zeros, e])
+            for j in range(3):  # angular dofs, body-local axes
+                a = Rs[i][:, j]
+                cols[d + 3 + j] = torch.cat([a, bl.cross(ps[i], a)])
         elif jt == HINGE:
-            a = bl.matvec_const(Rs[i], model.jnt_axis[i])
-            anchor = ps[i] + bl.matvec_const(Rs[i], model.jnt_pos[i])
+            a = bl.matvec_const(Rs[i], k.jnt_axis[i])
+            anchor = ps[i] + bl.matvec_const(Rs[i], k.jnt_pos[i])
             cols[d] = torch.cat([a, bl.cross(anchor, a)])
     if model.nv == 0:
         return torch.zeros((0, 6, B), device=dev)
     return torch.stack(cols)
 
 
-def _spatial_inertia_T(model: PhysicsModel, i, R, p):
-    """[6, 6, B] world-origin spatial inertia of body i."""
-    C = quat_to_mat_np(model.body_iquat[i])
-    R_icom = bl.matmul_const(R, C)
-    I_diag = torch.as_tensor(np.asarray(model.body_inertia[i], np.float32), device=R.device)
-    scaled = R_icom * I_diag[None, :, None]
+def _spatial_inertia_T(model: PhysicsModel, k: _Constants, i, R, p):
+    """[6, 6, B] world-origin spatial inertia of body i (``k``: the model's
+    constants on R's device)."""
+    R_icom = bl.matmul_const(R, k.icom_rot[i])
+    scaled = R_icom * k.body_inertia[i][None, :, None]
     I_c = bl.matmul(scaled, bl.transpose(R_icom))
-    com = p + bl.matvec_const(R, model.body_ipos[i])
+    com = p + bl.matvec_const(R, k.body_ipos[i])
     c = bl.skew(com)
     m = float(model.body_mass[i])
     top_left = I_c + m * bl.matmul(c, bl.transpose(c))
@@ -248,15 +305,15 @@ def _dynamics_T(model: PhysicsModel, qposT, qvelT, dr: Optional[DomainParams] = 
     wrenches, Rs, ps, v list, cols)."""
     B = qposT.shape[-1]
     dev = qposT.device
-    lam, dof_body = dof_structure(model)
+    k = constants(model, dev)
+    lam, dof_body = k.lam, k.dof_body
     Rs, ps = _kinematics_T(model, qposT)
     cols = _jacobian_columns_T(model, Rs, ps)  # [nv, 6, B]
 
     if dr is not None and dr.gravity is not None:
         zeta0 = torch.cat([torch.zeros((3, B), device=dev), -dr.gravity])
     else:
-        g = torch.as_tensor(-np.asarray(model.gravity, np.float32), device=dev)
-        zeta0 = torch.cat([torch.zeros((3, B), device=dev), g[:, None].expand(3, B)])
+        zeta0 = torch.cat([torch.zeros((3, B), device=dev), k.neg_gravity[:, None].expand(3, B)])
 
     v_list = [None] * model.nbody
     zeta_list = [None] * model.nbody
@@ -283,7 +340,7 @@ def _dynamics_T(model: PhysicsModel, qposT, qvelT, dr: Optional[DomainParams] = 
         v_list[i] = v_i
         zeta_list[i] = zeta_i
 
-        I_w = _spatial_inertia_T(model, i, Rs[i], ps[i])  # [6, 6, B]
+        I_w = _spatial_inertia_T(model, k, i, Rs[i], ps[i])  # [6, 6, B]
         if dr is not None and dr.mass_scale is not None:
             I_w = I_w * dr.mass_scale[i]
         I_list[i] = I_w
@@ -292,9 +349,7 @@ def _dynamics_T(model: PhysicsModel, qposT, qvelT, dr: Optional[DomainParams] = 
         f_bias[i] = bl.matvec(I_w, zeta_i) + bl.cross_force(v_i, Iv)
 
     M = _crba_M_T(model, cols, I_list, lam, dof_body)
-    armature = torch.as_tensor(
-        np.diag(model.dof_armature).astype(np.float32), device=dev
-    )[:, :, None]
+    armature = k.armature
     if dr is not None and dr.armature_scale is not None:
         armature = armature * dr.armature_scale
     M = M + armature
@@ -314,10 +369,11 @@ def contact_points_T(model, qposT):
     if len(model.con_body) == 0:
         return torch.zeros((0, 2, qposT.shape[-1]), device=qposT.device)
     Rs, ps = _kinematics_T(model, qposT)
+    k = constants(model, qposT.device)
     points = []
     for c in range(len(model.con_body)):
         b = int(model.con_body[c])
-        x = ps[b] + bl.matvec_const(Rs[b], model.con_pos[c])
+        x = ps[b] + bl.matvec_const(Rs[b], k.con_pos[c])
         points.append(x[:2])
     return torch.stack(points)
 
@@ -336,6 +392,7 @@ def _contact_wrenches_T(model, Rs, ps, v_list, contact_timeconst, contact_dampra
     spring to where it first touched while inside the friction cone; beyond
     the cone the anchor slides to the cone boundary."""
     wrenches = [None] * model.nbody
+    k = constants(model, ps[0].device)
     omega_c = 1.0 / contact_timeconst
     if dr is not None and dr.contact_stiffness_scale is not None:
         omega_c = omega_c * dr.contact_stiffness_scale
@@ -349,7 +406,7 @@ def _contact_wrenches_T(model, Rs, ps, v_list, contact_timeconst, contact_dampra
         # contact's apparent mass
         stiffness = _minimum(m_eff * omega_c ** 2, 2.0 * m_app / dt ** 2)
         damping = _minimum(2.0 * contact_dampratio * m_eff * omega_c, 0.7 * m_app / dt)
-        x = ps[b] + bl.matvec_const(Rs[b], model.con_pos[c])  # [3, B]
+        x = ps[b] + bl.matvec_const(Rs[b], k.con_pos[c])  # [3, B]
         ground = terrain_height_T(terrain, x[0], x[1]) if terrain is not None else 0.0
         depth = float(model.con_radius[c]) - (x[2] - ground)
         in_contact = depth > 0.0
@@ -434,7 +491,8 @@ def limit_damping(model, limit_stiffness, d):
 def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_dampratio,
                         limit_stiffness, dr=None, anchorsT=None, terrain=None, include_contacts=True):
     M, f_net, Rs, ps, v_list, cols = _dynamics_T(model, qposT, qvelT, dr)
-    lam, dof_body = dof_structure(model)
+    k = constants(model, qposT.device)
+    lam, dof_body = k.lam, k.dof_body
 
     if include_contacts and len(model.con_body) > 0:
         if anchorsT is None:
@@ -452,11 +510,7 @@ def _forward_dynamics_T(model, qposT, qvelT, ctrlT, contact_timeconst, contact_d
         gear = float(model.act_gear[a])
         tau[d] = tau[d] + act_force[a] * (gear if bool(model.act_is_position[a]) else 1.0)
 
-    dev = qposT.device
-    damping = torch.as_tensor(np.asarray(model.dof_damping, np.float32), device=dev)[:, None]
-    frictionloss = torch.as_tensor(
-        np.asarray(model.dof_frictionloss, np.float32), device=dev
-    )[:, None]
+    damping, frictionloss = k.damping, k.frictionloss
     if dr is not None and dr.damping_scale is not None:
         damping = damping * dr.damping_scale
     if dr is not None and dr.frictionloss_scale is not None:

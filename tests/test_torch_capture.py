@@ -3,13 +3,16 @@
 - (a) no host read: for every registration that captures (PPO on the Ant,
   discrete PPO on CartPole, ESPO, PPO-DTRL, PPO over an observation window
   and PPO with memory actions; PPO-LSTM, -GRU, -Mamba-2 and -transformer on
-  the masked Pendulum, REPPO on the Ant and on Pendulum, PQN on CartPole),
-  one learning iteration after a warm-up iteration runs under a dispatch
-  mode that raises on ``aten._local_scalar_dense`` (``.item()``, ``float()``,
-  ``bool()`` of a tensor) and on ``aten.lift_fresh`` (a tensor made from
-  host data, which a graph would freeze at its capture value), with
-  ``torch.Generator`` refusing to make a new generator; the env state's
-  ``map_tensors`` / ``copy_`` and the carry's ``copy_carry_`` round trip
+  the masked Pendulum, REPPO on the Ant and on Pendulum, PQN on CartPole;
+  PPO and REPPO on the robot's plane, PPO-LSTM on its default heightfield
+  and on soccer), one learning iteration after a warm-up iteration runs
+  under ``torch_parity.NoHostRead``, a dispatch mode that raises on
+  ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``bool()`` of a
+  tensor) and on ``aten.lift_fresh`` (a tensor made from host data, which
+  a graph would freeze at its capture value), with ``torch.Generator``
+  refusing to make a new generator (the physics engine's eager path, which
+  these CPU iterations run, keeps its constants on the device); the env
+  state's ``map_tensors`` / ``copy_`` and the carry's ``copy_carry_`` round trip
   (the recurrent policy's carry, PQN's update step) that ends a captured
   iteration;
 - (b) no rebinding: every tensor the model holds (the nets' parameters,
@@ -28,12 +31,13 @@
   JAX's ``PQN.epsilon`` and its restart at every ``train()`` call;
 - (e) the selection rule (``capture_choice``) on stub models on
   ``torch.device("cuda")``, which needs no card: capture for the eleven
-  registrations on the Ant, CartPole and Pendulum (wrapped or not), eager
-  with its reason for a dp or tp mesh, parallel seeds, a host env, the
-  robot, soccer and pixel envs, an algorithm without a captured
-  iteration, and the CPU.
+  registrations on the Ant, CartPole and Pendulum (wrapped or not)
+  and for the robot and soccer envs, wrapped or not; eager with its reason
+  for a dp or tp mesh, parallel seeds or the CPU (on the Ant and on the
+  robot), a host env, the pixel envs, an algorithm without a captured
+  iteration.
 
-The capture itself runs only on the card: ``chip_smoke.py`` phases 48-49.
+The capture itself runs only on the card: ``chip_smoke.py`` phases 48-50.
 """
 
 import types
@@ -42,53 +46,17 @@ import numpy as np
 import pytest
 import torch
 import torch.utils._pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from rlx_tpu_torch import convert
 from rlx_tpu_torch.algorithms.training_program import capture_choice, copy_carry_, model_tensors
 from rlx_tpu_torch.config import create_model, make_config
 from rlx_tpu_torch.environments.env import EnvState
-from torch_parity import close, np_tree
+from torch_parity import NoHostRead, close, np_tree
 from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 NETS = {"algorithm.policy_hidden_sizes": (16, 16), "algorithm.critic_hidden_sizes": (16, 16),
         "algorithm.activation": "elu", "algorithm.layer_norm": True, "algorithm.logging_active": False,
         "algorithm.evaluation_active": False, "runner.device": "cpu"}
-
-
-class NoHostRead(TorchDispatchMode):
-    """Raises on an op that reads a tensor's value on the host or, unless
-    ``host_constants``, makes a tensor from host data; inside it
-    ``torch.Generator(...)`` raises too."""
-
-    def __init__(self, host_constants=False):
-        super().__init__()
-        self.forbidden = {torch.ops.aten._local_scalar_dense.default}
-        if not host_constants:
-            self.forbidden.add(torch.ops.aten.lift_fresh.default)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in self.forbidden:
-            raise AssertionError(f"{func} inside the learning iteration")
-        return func(*args, **(kwargs or {}))
-
-    def __enter__(self):
-        real = torch.Generator
-
-        class Refuse(type):
-            def __instancecheck__(cls, obj):
-                return isinstance(obj, real)
-
-            def __call__(cls, *args, **kwargs):
-                raise AssertionError("a new torch.Generator inside the learning iteration")
-
-        self._real = real
-        torch.Generator = Refuse("Generator", (), {})
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        torch.Generator = self._real
-        return super().__exit__(*exc)
 
 
 PPO_SIZES = {**NETS, "environment.nr_envs": 4, "algorithm.nr_steps": 4, "algorithm.minibatch_size": 8,
@@ -98,6 +66,10 @@ ON_POLICY = {"algorithm.logging_active": False, "algorithm.evaluation_active": F
              "algorithm.nr_epochs": 2, "algorithm.total_timesteps": 64, "environment.horizon": 3}
 RECURRENT = {**ON_POLICY, "environment.mask_velocity": True, "algorithm.obs_encoding_dim": 8,
              "algorithm.rnn_hidden_dim": 4, "algorithm.critic_hidden_sizes": (16, 16)}
+# the robot envs (no horizon or velocity mask: an episode is 20 s)
+ROBOT = {k: v for k, v in ON_POLICY.items() if k != "environment.horizon"}
+ROBOT_RECURRENT = {k: v for k, v in RECURRENT.items() if k not in ("environment.horizon", "environment.mask_velocity")}
+PLANE = {"environment.terrain.type": "plane"}
 REGISTRATIONS = {
     "ppo on the Ant": ("ppo", "locomotion.ant", PPO_SIZES),
     "discrete ppo on CartPole": ("ppo", "classic.cart_pole", PPO_SIZES),
@@ -118,6 +90,14 @@ REGISTRATIONS = {
     "reppo on Pendulum": ("reppo", "classic.pendulum",
                           {**ON_POLICY, "algorithm.policy_hidden_dim": 16, "algorithm.critic_hidden_dim": 16}),
     "pqn on CartPole": ("pqn", "classic.cart_pole", {**ON_POLICY, "algorithm.critic_hidden_sizes": (16, 16)}),
+    "ppo on the robot plane": ("ppo", "locomotion.robot",
+                               {**{k: v for k, v in PPO_SIZES.items() if k != "environment.horizon"},
+                                "algorithm.nr_steps": 2, **PLANE}),
+    "ppo_lstm on the robot heightfield": ("ppo_lstm", "locomotion.robot", {**ROBOT_RECURRENT, "algorithm.nr_steps": 2}),
+    "ppo_lstm on soccer": ("ppo_lstm", "locomotion.soccer", {**ROBOT_RECURRENT, "algorithm.nr_steps": 2}),
+    "reppo on the robot plane": ("reppo", "locomotion.robot",
+                                 {**ROBOT, "algorithm.nr_steps": 2, "algorithm.policy_hidden_dim": 16,
+                                  "algorithm.critic_hidden_dim": 16, **PLANE}),
 }
 
 
@@ -154,9 +134,7 @@ def test_learning_iteration_reads_nothing_back(name):
     static_carry = pytree.tree_map(torch.clone, tuple(carry))
     generators = static.generators()
     assert len(generators) == 1 and generators[0] is state.generator
-    # the Ant's physics runs its plain version here, whose constants are made
-    # from host data at each call; on the card B2 runs in its place
-    with NoHostRead(host_constants=REGISTRATIONS[name][1] == "locomotion.ant"):
+    with NoHostRead():
         new_state, *new_carry, metrics = model.learning_iteration(static, *static_carry)
         copy_carry_(static_carry, tuple(new_carry))       # how a captured iteration ends
         static.copy_(new_state)
@@ -397,9 +375,13 @@ def test_capture_choice_takes_the_slice(algorithm):
 
     cls = _algorithm_class(algorithm)
     pendulum = Pendulum(4, device="cpu")
-    envs = [object.__new__(_env_classes()[name]) for name in ("Ant", "CartPole", "Pendulum")] + [
+    classes = _env_classes()
+    # a wrapped robot: the wrapper passes on the inner env's answer
+    window = object.__new__(ObservationWindowWrapper)
+    window.env = object.__new__(classes["LocomotionEnv"])
+    envs = [object.__new__(classes[name]) for name in ("Ant", "CartPole", "Pendulum", "LocomotionEnv", "SoccerEnv")] + [
         ObservationMaskWrapper(pendulum, [0, 1]), ObservationWindowWrapper(ObservationMaskWrapper(pendulum, [0, 1]), 3),
-        MemoryActionsWrapper(pendulum, 2), DomainRandomizationWrapper(pendulum, 0.1, 0.1)]
+        MemoryActionsWrapper(pendulum, 2), DomainRandomizationWrapper(pendulum, 0.1, 0.1), window]
     for env in envs:
         capture, reason = capture_choice(_stub(cls, env))
         assert capture, (type(env).__name__, reason)
@@ -407,8 +389,6 @@ def test_capture_choice_takes_the_slice(algorithm):
 
 
 def test_capture_choice_runs_everything_else_eagerly():
-    from rlx_tpu_torch.environments.wrappers import ObservationWindowWrapper
-
     envs = _env_classes()
     ppo = _algorithm_class("ppo")
     ant = object.__new__(envs["Ant"])
@@ -420,14 +400,22 @@ def test_capture_choice_runs_everything_else_eagerly():
         "an algorithm without it": (_stub(_algorithm_class("sac"), ant), "SAC has no captured"),
         "an off-policy family": (_stub(_algorithm_class("fasttd3"), ant), "FastTD3 has no captured"),
     }
+    # the robot and soccer envs capture, but not on the CPU, a mesh or with
+    # parallel seeds
+    ppo_lstm = _algorithm_class("ppo_lstm")
+    for name in ("LocomotionEnv", "SoccerEnv"):
+        robot = object.__new__(envs[name])
+        cases[f"the CPU on {name}"] = (_stub(ppo_lstm, robot, device="cpu"), "only a CUDA device")
+        cases[f"a dp mesh on {name}"] = (_stub(ppo_lstm, robot, dp=2), "dp = 2")
+        cases[f"a tp mesh on {name}"] = (_stub(ppo_lstm, robot, tp=2), "tp = 2")
+        cases[f"parallel seeds on {name}"] = (_stub(ppo_lstm, robot, parallel=types.SimpleNamespace(nr_seeds=4)),
+                                              "4 parallel seeds")
+        cases[f"SAC on {name}"] = (_stub(_algorithm_class("sac"), robot), "SAC has no captured")
     for algorithm in CAPTURING:
         cls = _algorithm_class(algorithm)
-        for name in ("HostEnv", "NativeEnvBatch", "LocomotionEnv", "SoccerEnv", "PixelChase", "PixelGrid"):
+        for name in ("HostEnv", "NativeEnvBatch", "PixelChase", "PixelGrid"):
             env = object.__new__(envs[name])
             cases[f"{algorithm} on {name}"] = (_stub(cls, env), f"the env {name} does not declare capture")
-    window = object.__new__(ObservationWindowWrapper)
-    window.env = object.__new__(envs["LocomotionEnv"])
-    cases["a wrapped robot"] = (_stub(ppo, window), "ObservationWindowWrapper does not declare")
     for what, (model, reason) in cases.items():
         capture, why = capture_choice(model)
         assert not capture and reason in why, (what, why)

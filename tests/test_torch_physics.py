@@ -20,6 +20,7 @@ from rlx_tpu_torch.ops.engine_substep_cuda import (
     ltdl_schedule, model_tables, step_cuda, substep_flops,
 )
 from tests.test_physics import ANT_XML, TEST_XML, random_state
+from torch_parity import NoHostRead
 from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
 RTOL = ATOL = 1e-5
@@ -217,6 +218,51 @@ def test_no_contacts_with_contact_state_returns_empty_anchors():
     out = engine.step(model, torch.tensor(qpos), torch.tensor(qvel), torch.tensor(ctrl),
                       contact_state=torch.tensor(cs))
     assert tuple(out[2].shape) == np.asarray(ref[2]).shape == (4, 0, 2)
+
+
+@pytest.mark.parametrize("robot", ["ant", "quadruped", "booster_t1"])
+def test_engine_makes_no_host_tensor_after_its_first_call(robot):
+    """After a warm-up call for a model on a device, the eager engine
+    (``step_reference`` over a heightfield with every DomainParams field and
+    carried contact anchors, ``kinematics``, ``actuator_forces_T`` and
+    ``contact_anchor_init``) makes no tensor from host data and reads
+    nothing back: its constants were uploaded once, so a CUDA graph can
+    capture it.  The results equal the warm-up call's bit for bit."""
+    from rlx_tpu_torch.environments.locomotion.robot.robots.configs import ROBOT_CONFIGS
+
+    model = load_model(ANT_MODEL if robot == "ant" else ROBOT_CONFIGS[robot]["model_path"])
+    B, n, S = 6, 16, 2
+    nu, nv, nbody = len(model.act_dof), model.nv, model.nbody
+    rng = np.random.default_rng(11)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    qpos = np.tile(np.asarray(model.qpos0, np.float32), (B, 1))
+    qpos[:, 7:] += 0.1 * rng.normal(size=(B, model.nq - 7))
+    qpos, qvel = t(qpos), t(0.3 * rng.normal(size=(B, nv)))
+    ctrl_sequence = t(0.2 * rng.normal(size=(S, B, nu)))
+    scale = lambda *shape: t(rng.uniform(0.8, 1.2, size=shape))
+    dr = engine.DomainParams(
+        mass_scale=scale(nbody, B), damping_scale=scale(nv, B), frictionloss_scale=scale(B),
+        armature_scale=scale(B), friction_scale=scale(B), contact_stiffness_scale=scale(B), kp_scale=scale(nu, B),
+        kv_scale=scale(nu, B), forcerange_scale=scale(nu, B), ctrl_offset=t(0.01 * rng.normal(size=(nu, B))),
+        gravity=t(np.tile([[0.1], [0.0], [-9.81]], (1, B))))
+    terrain = engine.Terrain(height=t(0.05 * rng.random((n * n, B))), n=n, half_extent_m=1.0)
+    anchors = engine.contact_anchor_init(model, qpos)
+
+    def calls():
+        return [*engine.step_reference(model, qpos, qvel, ctrl_sequence[0], nr_substeps=S, dr=dr, terrain=terrain,
+                                       ctrl_sequence=ctrl_sequence, contact_state=anchors),
+                *engine.kinematics(model, qpos), engine.actuator_forces_T(model, qpos.T, qvel.T, ctrl_sequence[0].T, dr),
+                engine.contact_anchor_init(model, qpos)]
+
+    warm = calls()
+    with NoHostRead():
+        again = calls()
+    assert len(warm) == len(again) == 7 and all(torch.isfinite(x).all() for x in warm)
+    for a, b in zip(warm, again):
+        assert a is not b and torch.equal(a, b)
 
 
 def test_step_dispatch_and_unsupported_paths():

@@ -20,6 +20,16 @@ from rlx_tpu_torch.render.offscreen import rollout_qpos
 from rlx_tpu_torch.runner.runner import Runner
 from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread a test)
 
+
+@pytest.fixture(autouse=True)
+def software_rendering(monkeypatch):
+    """Both ray tracers, whatever ran before in this process: the dm_control
+    and native host bridges set ``MUJOCO_GL=egl`` when a host-env test
+    imports them, and with it set both renderers probe GL, which aborts a
+    process that has none (a worker then goes down mid-test)."""
+    monkeypatch.delenv("MUJOCO_GL", raising=False)
+
+
 PPO = {"environment.nr_envs": 2, "algorithm.nr_steps": 8, "algorithm.minibatch_size": 8, "algorithm.nr_epochs": 1,
        "algorithm.total_timesteps": 32, "algorithm.policy_hidden_sizes": (16, 16),
        "algorithm.critic_hidden_sizes": (16, 16)}

@@ -1,10 +1,12 @@
 """Helpers shared by the port's parity tests of the SAC family: the JAX and
 the port's model built from the same overrides, numpy copies of JAX trees,
-state-dict comparison and seeded batches."""
+state-dict comparison and seeded batches; and ``NoHostRead``, the dispatch
+mode the capture tests run a learning iteration (or the engine) under."""
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from rlx_tpu_torch.config import create_model, make_config
 
@@ -116,3 +118,39 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on an op that reads a tensor's value on the host
+    (``aten._local_scalar_dense``: ``.item()``, ``float()``, ``bool()`` of a
+    tensor) or makes a tensor from host data (``aten.lift_fresh``, which a
+    CUDA graph would freeze at its capture value, and a card capture
+    refuses as an H2D copy); inside it ``torch.Generator(...)`` raises
+    too."""
+
+    def __init__(self):
+        super().__init__()
+        self.forbidden = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.lift_fresh.default}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.forbidden:
+            raise AssertionError(f"{func} inside the learning iteration")
+        return func(*args, **(kwargs or {}))
+
+    def __enter__(self):
+        real = torch.Generator
+
+        class Refuse(type):
+            def __instancecheck__(cls, obj):
+                return isinstance(obj, real)
+
+            def __call__(cls, *args, **kwargs):
+                raise AssertionError("a new torch.Generator inside the learning iteration")
+
+        self._real = real
+        torch.Generator = Refuse("Generator", (), {})
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        torch.Generator = self._real
+        return super().__exit__(*exc)
