@@ -228,22 +228,20 @@ Phases (each prints one line; any failure exits nonzero):
     at ``[4 x batch, 101]`` and none for the others; every seed's eval
     return finite; env-steps/s summed over seeds against one seed's from a
     one-seed run of the same program just before (its launches alike);
-    seed 1 of a 3-seed f32 FlashSAC and REDQ run on the Ant (64 envs,
-    batch 128, 4 learning steps) against its one-seed run over every
-    parameter and running statistic (mean |err| within 1e-6, at most 1 %
-    of the values beyond 1e-5, max within 1e-3: Adam's steps at weights
-    whose gradient is rounding), seed 2's slice far from it; suspect C3
-    (``c3_checks``): REDQ's seed 1 of 3 in float64 on the Pendulum after 4
-    learning steps within 1e-9 of its one-seed run, FlashSAC's first-update
-    policy and alpha gradients (f32, before any Adam step) within 1e-5 of
+    seed 1 of 3 against its one-seed run (``c3_checks``): REDQ's and
+    FlashSAC's in float64 on the Pendulum (64 envs, batch 128, 4 learning
+    steps; FlashSAC with B3's plain version) within 1e-9 over every
+    parameter and running statistic, seed 2's mean |err| beyond 1e-3;
+    FlashSAC's first-update policy and alpha gradients in f32 on the Ant
+    (B2 and B3 on the folded rows, before any Adam step) within 1e-5 of
     the one-seed run's relative to their largest; B3 at [32768, 101] and
     [2048, 101] and B2 at B = 4096 against their plain versions;
 44. parallel seeds on the robot and soccer envs (``robot_parallel_seeds``):
     PPO-LSTM on the plane quadruped and on soccer (the Booster T1) at
     phases 28 and 31's widths, 4 seeds x 1024 envs x 32 steps, 2 iterations
     each through ``create_model`` / ``train``, B2 exactly 64 and B1 exactly
-    2 launches (one seed's), env-steps/s summed over seeds against one seed
-    at 1024 envs just before; 8 eval-mode steps of the 4-seed env, seed 1's
+    2 launches (one seed's), env-steps/s summed over seeds (the one-seed
+    baselines cut for phase 51); 8 eval-mode steps of the 4-seed env, seed 1's
     rows against the one-seed env within 1e-5; B2 at both robots' 4 x 1024
     shapes with the env's own DomainParams against ``step_reference`` in
     float64, within twice the f32 plain version's own max |err| (the two
@@ -343,7 +341,23 @@ Phases (each prints one line; any failure exits nonzero):
     alone): the captured path logged, B1 3 and B2 0 launches, one graph of
     B1 1 a replay, the capture's seconds, pool MiB and graph nodes, each
     iteration's env-steps/s and the recipe's budget in hours a seed at the
-    replayed and the eager rate.
+    replayed and the eager rate;
+51. (run right after phase 50) the captured learning step of the
+    off-policy core (``capture_offpolicy_phase``): FastTD3 at phase 8's
+    shape, FastSAC at phase 21's and SAC, TD3 and DDPG at
+    ``OFFPOLICY_SHAPE``, 1024 envs on the Ant after each one's prefill: an
+    eager learning step against the first replay from the same state bit
+    for bit (the nets, targets, Adam's state, the normalizer, the replay
+    buffer's storage, write head and fill, the metric sums, the step count,
+    both generators, the env state, every metric), a second replay draws
+    fresh noise, each replay launches B2 1, B3 1 for FastTD3 and FastSAC
+    and B1 0 (counters and the graph's kernel nodes by name); the graph's
+    node count, capture s and pool MiB; 32 learning steps eager and 32
+    replayed through ``_logging_iteration`` as ``train()`` runs them, each
+    after 16 untimed, with the idle share of a logging iteration of each;
+    then one FastTD3
+    ``train()`` through ``create_model``: the captured path logged, B2 and
+    B3 once a learning step.
 
 Each kernel is timed three ways: CUDA events around a run of calls
 (``ms``: the wrapper's host cost shows when it exceeds the kernel's), the
@@ -356,6 +370,7 @@ last line the device record.  Needs a CUDA device; never falls back to the CPU.
 """
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -609,42 +624,62 @@ def first_gradients(model):
 
 
 def c3_checks(device):
-    """Suspect C3 (seed 1 of a 3-seed off-policy run on the card 2.2e-4
-    (FlashSAC) and 2.6e-4 (REDQ) from its one-seed run after 4 Adam steps):
+    """Seed 1 of a 3-seed off-policy run is its one-seed run (suspect C3: in
+    f32 the two part by rounding that Adam amplifies, as far as which rows
+    are drawn makes it):
 
-    - REDQ in float64 on ``classic.pendulum.cuda`` (no kernel on that path;
-      64 envs, batch 128, 10 critic updates a step, 4 learning steps): the
-      max |err| of seed 1's parameters against its one-seed run;
-    - FlashSAC on the Ant in f32 (B3 takes f32 only; phase 43's 64 envs and
+    - REDQ and FlashSAC in float64 on ``classic.pendulum.cuda`` (64 envs,
+      batch 128, 4 learning steps; REDQ 10 critic updates a step; B3 takes
+      f32 only, so FlashSAC projects with its plain version there): the max
+      |err| of seed 1's parameters and running statistics against its
+      one-seed run, and seed 2's mean |err| against the same run;
+    - FlashSAC on the Ant in f32 (B2 and B3 on the folded rows; 64 envs and
       batch 128): seed 1's gradients of the first update against the
       one-seed run's, the policy's and alpha's before any Adam step, the
       critic's after the policy's first step: max |err| over max |grad|
       for each.
 
-    Rounding that Adam amplifies leaves the float64 run at ~1e-12 and the
-    f32 gradients at f32 rounding; a seed path that computed something else
+    Float64 leaves rounding at ~1e-12 on any draw stream and the f32
+    gradients at f32 rounding; a seed path that computed something else
     (another batch, draw or statistic) would part both by far more."""
+    from rlx_tpu_torch.algorithms.flashsac.cuda import flashsac as flashsac_module
     from rlx_tpu_torch.algorithms.training_program import run_training_program
+    from rlx_tpu_torch.models.layers import running_buffers
+    from rlx_tpu_torch.ops.distributional import categorical_projection_reference
+
+    def tensors(model, s=None):
+        """Every parameter and running statistic of the policy, the critic,
+        their targets and alpha (seed s's)."""
+        out = []
+        for state in ("policy", "critic", "alpha"):
+            for attr in ("module", "target"):
+                m = getattr(getattr(model, state), attr)
+                if m is not None:
+                    out += [v if s is None else v[s] for v in list(m.parameters()) + list(running_buffers(m).values())]
+        return out
 
     out = {}
-    default = torch.get_default_dtype()
+    default, projection = torch.get_default_dtype(), flashsac_module.categorical_projection_dense
     torch.set_default_dtype(torch.float64)
+    flashsac_module.categorical_projection_dense = categorical_projection_reference
     try:
-        three, one = seed_one_of_three("redq", "classic.pendulum.cuda", {
-            "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 5,
-            "algorithm.logging_frequency": 64 * 4, "algorithm.batch_size": 128, "algorithm.q_update_steps": 10},
-            device)
-        run_training_program(three)
-        one.train()
-        pairs = [(a[1], b) for state in ("policy", "critic", "alpha")
-                 for m in ("module", "target") if getattr(getattr(one, state), m) is not None
-                 for a, b in zip(getattr(getattr(three, state), m).parameters(), getattr(getattr(one, state), m).parameters())]
-        if not all(b.dtype == torch.float64 for _, b in pairs):
-            fail("C3: REDQ's float64 run holds parameters of another type")
-        out["redq_float64_max_abs_err"] = max((a - b).abs().max().item() for a, b in pairs)
-        out["redq_float64_values"] = sum(b.numel() for _, b in pairs)
+        for name, extra in (("redq", {"algorithm.q_update_steps": 10}), ("flashsac", {})):
+            three, one = seed_one_of_three(name, "classic.pendulum.cuda", {
+                "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 5,
+                "algorithm.logging_frequency": 64 * 4, "algorithm.batch_size": 128, **extra}, device)
+            run_training_program(three)
+            one.train()
+            ref = tensors(one)
+            if not all(b.dtype == torch.float64 and torch.isfinite(b).all() for b in ref):
+                fail(f"C3: {name}'s float64 run holds non-finite values or values of another type")
+            out[f"{name}_float64_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(tensors(three, 1), ref))
+            out[f"{name}_float64_seed2_mean_abs_err"] = (
+                sum((a - b).abs().sum().item() for a, b in zip(tensors(three, 2), ref)) / sum(b.numel() for b in ref))
+            out[f"{name}_float64_values"] = sum(b.numel() for b in ref)
+            del three, one
     finally:
         torch.set_default_dtype(default)
+        flashsac_module.categorical_projection_dense = projection
 
     three, one = seed_one_of_three("flashsac", "locomotion.ant.cuda", {
         "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 2,
@@ -740,8 +775,8 @@ def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_st
     soccer (the Booster T1) at phases 28 and 31's widths, ``seeds`` x
     ``nr_envs`` envs, 2 iterations each through ``create_model`` /
     ``train``: B2 exactly ``2 x nr_steps`` launches and B1 2, one seed's
-    counts; env-steps/s summed over seeds against one seed at ``nr_envs``
-    envs in the same program just before; 8 env steps (eval mode: every
+    counts; env-steps/s summed over seeds (the one-seed baselines, each of
+    which paid a capture, were cut to pay for phase 51); 8 env steps (eval mode: every
     randomization axis drawn) of the 4-seed env against the one-seed env
     at seed 1's seed under the same actions; B2 at both robots' folded
     shapes (the 4-seed env's own DomainParams and delayed targets) against
@@ -784,14 +819,11 @@ def robot_parallel_seeds(kernels, launches_by_path, seeds=4, nr_envs=1024, nr_st
                     fail(f"{path} PPO-LSTM at {nr_seeds} seeds: non-finite parameters")
             return nr_seeds * 2 * nr_envs * nr_steps / elapsed, elapsed, launches
 
-        one_rate, one_s, _ = train(1)
         rate, train_s, launches = train(seeds)
         launches_by_path[f"{path}_lstm_{seeds}_seeds"] = launches
-        rates[path] = {"env_steps_per_s": rate, "one_seed_env_steps_per_s": one_rate, "ratio": rate / one_rate,
-                       "train_s": train_s, "one_seed_train_s": one_s}
+        rates[path] = {"env_steps_per_s": rate, "train_s": train_s}
         print(f"parallel seeds {path} PPO-LSTM: {seeds} seeds x {nr_envs} envs x {nr_steps} steps, 2 iterations in "
-              f"{train_s:.2f} s, {rate:.0f} env-steps/s summed over seeds against {one_rate:.0f} of one seed at "
-              f"{nr_envs} envs ({one_s:.2f} s), x{rate / one_rate:.2f}; launches {launches} (one seed's)")
+              f"{train_s:.2f} s, {rate:.0f} env-steps/s summed over seeds; launches {launches} (one seed's)")
 
         # seed 1's rows of the 4-seed env against its one-seed env, eval mode
         config = make_config("ppo_lstm.cuda", env_name, **{"runner.device": "cuda", **overrides})
@@ -1524,17 +1556,19 @@ def graph_node_count(graph):
 
 
 def replay_against_eager(phase, name, model, carry, expected, workdir, node_names=False):
-    """The checks of one captured learning iteration (phases 49 and 50):
+    """The checks of one captured learning iteration (phases 49-51):
     ``capture_choice`` says capture; after an eager warm-up on the capture
     stream, an eager iteration and the first replay of the captured one from
     the same state are equal bit for bit in every tensor (``held_tensors``:
-    the nets, the optimizers' state, the device step counts, REPPO's
-    normalizer and old-policy snapshot, the env state, the carry, every
-    metric) and in both generators' states; a second replay from the same
-    state draws fresh noise; one replay launches ``expected`` (B2, B1) and
-    no B3.  The graph is a ``DebugGraph``: its nodes are counted, and with
-    ``node_names`` its B2 and B1 kernel nodes by name, which must be
-    ``expected``.  -> (the ``CapturedIteration``, its row)."""
+    the nets, their targets, the optimizers' state, the device step counts,
+    the normalizers, REPPO's old-policy snapshot, the off-policy replay
+    buffer's storage, head and fill and metric sums, the env state, the
+    carry, every metric) and in both generators' states; a second replay
+    from the same state draws fresh noise; one replay launches ``expected``
+    (B2, B1) or (B2, B1, B3), B3 none unless given.  The graph is a
+    ``DebugGraph``: its nodes are counted, and with ``node_names`` its
+    kernel nodes of the three by name, which must be ``expected``.  -> (the
+    ``CapturedIteration``, its row)."""
     from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice, copy_carry_
 
     capture, reason = capture_choice(model)
@@ -1586,15 +1620,13 @@ def replay_against_eager(phase, name, model, carry, expected, workdir, node_name
     if equal != total:
         fail(f"phase {phase} {name}: the replay differs from the eager iteration in {total - equal} of {total} "
              f"tensors, max |diff| {worst:.3g} at {where}")
-    b2, b1 = expected
-    counted = {"engine_substep": after["engine_substep"] - before["engine_substep"],
-               "gae": after["gae"] - before["gae"]}
-    expected = {"engine_substep": b2, "gae": b1}
-    recorded = dict(zip(("engine_substep", "gae"), graph.launches))
-    if counted != expected or recorded != expected or graph.launches[2] or after["categorical_projection"] != \
-            before["categorical_projection"]:
+    kernels = ("engine_substep", "gae", "categorical_projection")
+    counted = {k: after[k] - before[k] for k in kernels}
+    expected = dict(zip(kernels, (*expected, 0)[:3]))
+    recorded = dict(zip(kernels, graph.launches))
+    if counted != expected or recorded != expected:
         fail(f"phase {phase} {name}: a replay launched {counted} (the capture recorded {graph.launches}), "
-             f"expected {expected} and no B3")
+             f"expected {expected}")
     # the same nets, env state and carry again, the generators as the
     # replay left them: fresh noise gives another rollout
     offsets = [gen.get_offset() for gen in generators]
@@ -1614,7 +1646,8 @@ def replay_against_eager(phase, name, model, carry, expected, workdir, node_name
            "graph_nodes": graph_node_count(graph.graph), "env_tensors_changed_by_fresh_noise": fresh,
            "launches_per_replay": counted, "eager_reference_s": eager_s}
     if node_names:
-        names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel"}
+        names = {"engine_substep": "engine_substep_kernel", "gae": "gae_kernel",
+                 "categorical_projection": "projection_kernel"}
         nodes, kernel_nodes = graph_nodes(graph.graph, os.path.join(workdir, "graph.dot"), names)
         if nodes != expected:
             fail(f"phase {phase} {name}: the graph holds {nodes} kernel nodes, expected {expected}")
@@ -1690,7 +1723,7 @@ def capture_families_phase(launches_by_path, workdir):
         elif name == "pqn":
             carry = (torch.zeros((), dtype=torch.int64, device="cuda"),)
         graph, row = replay_against_eager(49, name, model, carry, expected, workdir, node_names=name == "ppo_lstm")
-        launches_by_path[f"{name}_captured_replay"] = dict(row["launches_per_replay"], categorical_projection=0)
+        launches_by_path[f"{name}_captured_replay"] = row["launches_per_replay"]
         if timed:
             timed_iterations(model, graph, row, 3, 3, "reppo/" if name == "reppo" else "recurrent_ppo/")
         graph.close()
@@ -1740,7 +1773,7 @@ def capture_robot_phase(launches_by_path, workdir):
                                          **{"algorithm.total_timesteps": 4 * 4096 * overrides["algorithm.nr_steps"]}))
         carry = (model.policy.initialize_carry(model.nr_envs),) if hasattr(model, "policy_carry") else ()
         graph, row = replay_against_eager(50, name, model, carry, expected, workdir)
-        launches_by_path[f"{name}_captured_replay"] = dict(row["launches_per_replay"], categorical_projection=0)
+        launches_by_path[f"{name}_captured_replay"] = row["launches_per_replay"]
         row["eager_env_steps_per_s"] = model.nr_envs * model.nr_steps / row["eager_reference_s"]
         timed_iterations(model, graph, row, 0, 3, ("recurrent_ppo/" if carry else "ppo/") if idle else None)
         if name == "robot_lstm_heightfield":
@@ -1769,6 +1802,17 @@ def capture_robot_phase(launches_by_path, workdir):
     return rows
 
 
+class LogLines(logging.Handler):
+    """The messages of the records it is handed, from INFO up."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
 def heightfield_recipes(launches_by_path, names=("locomotion_lstm", "locomotion_ppo", "locomotion_ppo_bf16"),
                         iterations=3):
     """The heightfield recipes ``names`` of ``benchmarks/curves.py`` at their
@@ -1779,20 +1823,10 @@ def heightfield_recipes(launches_by_path, names=("locomotion_lstm", "locomotion_
     its capture's seconds, pool MiB and graph nodes are read as ``train()``
     closes the graph, and the rate of its last (replayed) and first (eager)
     iteration gives the recipe's budget in hours a seed.  -> the rows."""
-    import logging
-
     from rlx_tpu_torch.algorithms.training_program import CapturedIteration, capture_choice
     from rlx_tpu_torch.benchmarks.curves import RUNS
     from rlx_tpu_torch.config import create_model, make_config
     from rlx_tpu_torch.utils.logging import rlx_logger
-
-    class Lines(logging.Handler):
-        def __init__(self):
-            super().__init__(logging.INFO)
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append(record.getMessage())
 
     closed = []
     close = CapturedIteration.close
@@ -1816,7 +1850,7 @@ def heightfield_recipes(launches_by_path, names=("locomotion_lstm", "locomotion_
         capture, reason = capture_choice(model)
         if not capture:
             fail(f"{name}: capture_choice says eager ({reason})")
-        lines, closed[:], level = Lines(), [], rlx_logger.level
+        lines, closed[:], level = LogLines(), [], rlx_logger.level
         rlx_logger.addHandler(lines)
         rlx_logger.setLevel(logging.INFO)   # as the runner sets it
         CapturedIteration.close = recording_close
@@ -1854,6 +1888,115 @@ def heightfield_recipes(launches_by_path, names=("locomotion_lstm", "locomotion_
               f"iteration's ({sps[0]}); evaluation and saving not included")
         del model
         torch.cuda.empty_cache()
+    return rows
+
+
+def capture_offpolicy_phase(launches_by_path, workdir):
+    """Phase 51: the captured learning step of the off-policy core against
+    the eager step: FastTD3 at phase 8's shape (1024 envs, batch 8192,
+    n_step 3, 101 atoms), FastSAC at phase 21's (1024 envs, batch 8192) and
+    SAC, TD3 and DDPG at ``OFFPOLICY_SHAPE`` (1024 envs), each on the Ant
+    after its prefill.  Each: ``replay_against_eager`` (the replay equal to
+    the eager step bit for bit, the replay buffer's storage, head and fill
+    and both generators included; fresh noise a second replay; B2 1, B3 1
+    for FastTD3 and FastSAC, B1 0 a replay, the graph's kernel nodes by
+    name), then 32 learning steps each way through ``_logging_iteration``
+    as ``train()`` runs them (2 logging iterations of 16 after one untimed,
+    the eager from the replay's static state), and the idle share of one
+    logging iteration of each from the device's events.  Then one FastTD3
+    ``train()`` through ``create_model``: the captured path logged, 48
+    learning steps, B2 and B3 once a step.  -> the rows."""
+    from rlx_tpu_torch.algorithms.training_program import copy_carry_
+    from rlx_tpu_torch.config import create_model, make_config
+    from rlx_tpu_torch.utils.logging import rlx_logger
+
+    nr_envs, log_steps = 1024, 16
+    logged = {"runner.device": "cuda", "environment.nr_envs": nr_envs, "algorithm.evaluation_active": False,
+              "algorithm.logging_active": True, "algorithm.logging_frequency": log_steps * nr_envs}
+    fasttd3 = {**logged, "algorithm.batch_size": 8192, "algorithm.n_step": 3, "algorithm.nr_atoms": 101,
+               "algorithm.v_min": -10.0, "algorithm.v_max": 10.0, "algorithm.learning_starts": 5000}
+    cases = {   # name: (algorithm, overrides, launches a replay (B2, B1, B3))
+        "fasttd3": ("fasttd3.cuda", fasttd3, (1, 0, 1)),
+        "fastsac": ("fastsac.cuda", {**logged, "algorithm.batch_size": 8192, "algorithm.learning_starts": nr_envs},
+                    (1, 0, 1)),
+        **{name: (f"{name}.cuda", {**logged, **OFFPOLICY_SHAPE}, (1, 0, 0)) for name in ("sac", "td3", "ddpg")},
+    }
+    rows = {}
+    for name, (algorithm, overrides, expected) in cases.items():
+        t0 = time.perf_counter()
+        model = create_model(make_config(algorithm, "locomotion.ant.cuda", **overrides, **{
+            "algorithm.total_timesteps": overrides["algorithm.learning_starts"] + 64 * nr_envs}))
+        model._init_train_carry()   # the buffer and the prefill, eager
+        # from step 1: the compared step, 2, is one where FastTD3's and TD3's
+        # delayed policy steps too
+        graph, row = replay_against_eager(51, name, model, (model.initial_step(1),), expected, workdir,
+                                          node_names=True)
+        launches_by_path[f"{name}_captured_replay"] = row["launches_per_replay"]
+
+        def logging_iterations(n):
+            state, step = graph.state, graph.carry[0]
+            for _ in range(n):
+                state, step = model._logging_iteration(state, step, 0)
+            return state, step
+
+        # eager from the replay's static state, then replayed from where it
+        # left off, 2 logging iterations each, as train() runs them, each
+        # after one untimed logging iteration (the eager loop's first steps
+        # after a capture grow the allocator's cache)
+        model._last_log_time = time.time()
+        for way in ("eager", "replay"):
+            model.captured_iteration = graph if way == "replay" else None
+            logging_iterations(1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, step = logging_iterations(2)
+            torch.cuda.synchronize()
+            row[f"{way}_env_steps_per_s"] = 2 * log_steps * nr_envs / (time.perf_counter() - t1)
+            if way == "eager":
+                graph.state.copy_(state)
+                copy_carry_(graph.carry, (step,))
+            row[f"{way}_profile"] = device_idle(lambda: logging_iterations(1), f"{model.name}/")
+        model.captured_iteration = None
+        row["replay_speedup"] = row["replay_env_steps_per_s"] / row["eager_env_steps_per_s"]
+        check_logged(name, model.metrics_history)
+        graph.close()
+        row["phase_s"] = time.perf_counter() - t0
+        rows[name] = row
+        print(f"captured {name}: " + json.dumps(row))
+        del model, graph
+        torch.cuda.empty_cache()
+
+    learning_steps = 3 * log_steps
+    model = create_model(make_config("fasttd3.cuda", "locomotion.ant.cuda", **fasttd3, **{
+        "algorithm.total_timesteps": fasttd3["algorithm.learning_starts"] + learning_steps * nr_envs}))
+    lines, level = LogLines(), rlx_logger.level
+    rlx_logger.addHandler(lines)
+    rlx_logger.setLevel(logging.INFO)   # as the runner sets it
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        rlx_logger.removeHandler(lines)
+        rlx_logger.setLevel(level)
+    launches = counts()
+    expected = {"engine_substep": model.prefill_iterations + learning_steps, "gae": 0,
+                "categorical_projection": learning_steps}
+    if launches != expected:
+        fail(f"phase 51 fasttd3 train(): launch counts {launches} != {expected}")
+    if not any(line.startswith("Learning iterations: one captured CUDA graph, replayed") for line in lines.lines):
+        fail(f"phase 51 fasttd3 train() did not log the captured path: {lines.lines}")
+    check_logged("phase 51 fasttd3 train()", model.metrics_history, [log_steps, 2 * log_steps, learning_steps])
+    launches_by_path["fasttd3_captured_train"] = launches
+    row = {"train_s": train_s, "env_steps_per_s_a_log_line": [m["time/sps"] for m in model.metrics_history],
+           "launches": launches, "prefill": model.prefill_iterations}
+    rows["fasttd3_train"] = row
+    print("captured fasttd3 through train(): " + json.dumps(row)
+          + " (the first log line holds the prefill, the eager warm-up step and the capture)")
+    del model
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2111,6 +2254,12 @@ def main():
     capture_robot_phase(launches_by_path, workdir.name)
     print(f"phase 50 took {time.perf_counter() - phase_t0:.1f} s")
 
+    # 51. the captured learning step of FastTD3, FastSAC, SAC, TD3 and DDPG
+    # against eager: B2 and B3 inside the graph
+    phase_t0 = time.perf_counter()
+    capture_offpolicy_phase(launches_by_path, workdir.name)
+    print(f"phase 51 took {time.perf_counter() - phase_t0:.1f} s")
+
     # 7. B3: C51 projection
     from rlx_tpu_torch.ops.distributional import categorical_projection_reference
     from rlx_tpu_torch.ops.projection_cuda import (
@@ -2240,7 +2389,7 @@ def main():
 
     # 9. where the time goes: 16 more learning steps under the profiler
     def one_logging_iteration():
-        td3.env_state = td3._logging_iteration(td3.buffer, td3.env_state, learning_steps)
+        td3.env_state, _ = td3._logging_iteration(td3.env_state, td3.initial_step(learning_steps), learning_steps)
 
     print("profile fasttd3: " + json.dumps(profile_spans(one_logging_iteration, "fasttd3/")))
 
@@ -2408,7 +2557,7 @@ def main():
     sac, launches_by_path["sac"] = offpolicy_path("sac.cuda", 64)
 
     def sac_logging_iteration():
-        sac.env_state = sac._logging_iteration(sac.buffer, sac.env_state, 64)
+        sac.env_state, _ = sac._logging_iteration(sac.env_state, sac.initial_step(64), 64)
 
     print("profile sac: " + json.dumps(profile_spans(sac_logging_iteration, "sac/")))
     _, launches_by_path["td3"] = offpolicy_path("td3.cuda", 32)
@@ -2825,7 +2974,7 @@ def main():
           f"streams moved")
 
     def flash_logging_iteration():
-        flash.env_state = flash._logging_iteration(flash.buffer, flash.env_state, 32)
+        flash.env_state, _ = flash._logging_iteration(flash.env_state, flash.initial_step(32), 32)
 
     print("profile flashsac: " + json.dumps(profile_spans(flash_logging_iteration, "flashsac/")))
     del flash
@@ -2859,7 +3008,7 @@ def main():
         launches_by_path[name] = path_launches
         if name == "redq":
             def redq_logging_iteration():
-                model.env_state = model._logging_iteration(model.buffer, model.env_state, 16)
+                model.env_state, _ = model._logging_iteration(model.env_state, model.initial_step(16), 16)
 
             print("profile redq: " + json.dumps(profile_spans(redq_logging_iteration, "redq/")))
         del model
@@ -2934,7 +3083,7 @@ def main():
         fail(f"BRO resets {[m['bro/reset'] for m in bro.metrics_history]}: expected one, at learning step 14")
 
     def bro_logging_iteration():
-        bro.env_state = bro._logging_iteration(bro.buffer, bro.env_state, 16)
+        bro.env_state, _ = bro._logging_iteration(bro.env_state, bro.initial_step(16), 16)
 
     print("profile bro: " + json.dumps(profile_spans(bro_logging_iteration, "bro/")))
     del bro
@@ -3399,7 +3548,7 @@ def main():
                   "dqn_pixel_updates_per_s": conv_steps / elapsed}
 
     def dqn_logging_iteration():
-        dqn.env_state = dqn._logging_iteration(dqn.buffer, dqn.env_state, conv_steps)
+        dqn.env_state, _ = dqn._logging_iteration(dqn.env_state, dqn.initial_step(conv_steps), conv_steps)
 
     dqn_profile = profile_spans(dqn_logging_iteration, "dqn/")
     print(f"train: DQN on pixel_chase at bench_conv's shape ({conv_envs} envs, batch 256, NatureCNN, one update a "
@@ -3979,11 +4128,11 @@ def main():
     # (FastMPO: 10) + 8 learning steps and one evaluation through
     # create_model / train(); B2 once an env step, B3 once an update for
     # FastSAC and FlashSAC at [4 x batch, 101]; seed 1 of 3 against its
-    # one-seed run for FlashSAC and REDQ; B3 and B2 at the folded shapes
+    # one-seed run for REDQ and FlashSAC (c3_checks); B3 and B2 at the
+    # folded shapes
     phase_t0 = time.perf_counter()
     from rlx_tpu_torch.algorithms.fastsac.cuda import fastsac as fastsac_module
     from rlx_tpu_torch.algorithms.flashsac.cuda import flashsac as flashsac_module
-    from rlx_tpu_torch.models.layers import running_buffers
 
     eval_horizon = 32   # the Ant's episode cut from 1000 for the one evaluation; widths and batches stay
     steps43 = 8         # learning steps a run
@@ -4067,75 +4216,36 @@ def main():
         m.categorical_projection_dense = projection
     print("parallel seeds, twelve families: " + json.dumps(rows43))
 
-    # seed 1 of a 3-seed f32 run is its one-seed run: FlashSAC (BatchNorm
-    # statistics, B3 on the folded rows) and REDQ (per-seed subsets).  f32
-    # with TF32 off: the 3-seed products are batched, the one-seed ones not,
-    # so they round apart, and where a gradient is ~0 but for rounding Adam
-    # turns that into a step of up to the learning rate (3e-4) in either
-    # run: a few isolated weights part by up to 2 x steps x rate.  So the
-    # check holds the mean |err| and the share of elements beyond 1e-5
-    # tight, the max to that bound, and seed 2's slice against the same
-    # one-seed run (another seed's run) must fail the mean by far
-    seed_mean_tol, seed_share_tol, seed_max_tol = 1e-6, 1e-2, 1e-3
-    for name, overrides in (("flashsac", {"algorithm.batch_size": 128}),
-                            ("redq", {"algorithm.batch_size": 128, "algorithm.q_update_steps": 10})):
-        three, one = seed_one_of_three(name, "locomotion.ant.cuda", {
-            "environment.nr_envs": 64, "algorithm.learning_starts": 64, "algorithm.total_timesteps": 64 * 5,
-            "algorithm.logging_frequency": 64 * 4, "environment.initial_state_noise": 0.1, **overrides}, "cuda")
-        run_training_program(three)
-        one.train()
-        torch.cuda.synchronize()
-
-        def flat(model, s=None):
-            """Every parameter and running statistic of the policy, the
-            critic, its target and alpha, as one f32 vector (seed s's)."""
-            parts = []
-            for state_name in ("policy", "critic", "alpha"):
-                for attr in ("module", "target"):
-                    m = getattr(getattr(model, state_name), attr)
-                    if m is not None:
-                        parts += [(v if s is None else v[s]).detach().float().reshape(-1)
-                                  for v in list(m.parameters()) + list(running_buffers(m).values())]
-            return torch.cat(parts)
-
-        ref = flat(one)
-        diff, control = (flat(three, 1) - ref).abs(), (flat(three, 2) - ref).abs()
-        got = {"max": diff.max().item(), "mean": diff.mean().item(),
-               "share_beyond_1e-5": (diff > 1e-5).float().mean().item()}
-        if not (torch.isfinite(ref).all() and got["max"] <= seed_max_tol and got["mean"] <= seed_mean_tol
-                and got["share_beyond_1e-5"] <= seed_share_tol):
-            fail(f"{name}: seed 1 of 3 against its one-seed run {got} beyond max {seed_max_tol}, mean "
-                 f"{seed_mean_tol}, share {seed_share_tol}")
-        if control.mean().item() < 1e3 * seed_mean_tol:
-            fail(f"{name}: seed 2 stands within {control.mean().item():.3g} of seed 1's one-seed run")
-        nr_stats = sum(len(running_buffers(m)) for m in (one.policy.module, one.critic.module, one.critic.target))
-        print(f"parallel seeds {name}: seed 1 of 3 after 4 learning steps (64 envs, batch 128, f32) against its "
-              f"one-seed run at seed_for(3, 1), {ref.numel()} values ({nr_stats} running-statistics tensors): max|err| "
-              f"{got['max']:.3g} (limit {seed_max_tol}), mean {got['mean']:.3g} (limit {seed_mean_tol}), share beyond "
-              f"1e-5 {got['share_beyond_1e-5']:.3g} (limit {seed_share_tol}); seed 2 against the same run: mean "
-              f"{control.mean().item():.3g}")
-        del three, one
-
-    # suspect C3: REDQ's seed 1 of 3 in float64 on the Pendulum, FlashSAC's
-    # first gradients in f32 (B3 takes f32 only); rounding amplified by
-    # Adam leaves the first at ~1e-12 and the second at f32 rounding
+    # seed 1 of a 3-seed run is its one-seed run (``c3_checks``): REDQ
+    # (per-seed subsets) and FlashSAC (BatchNorm statistics) in float64 on
+    # the Pendulum, where rounding leaves ~1e-12 on any draw stream; and
+    # FlashSAC's first gradients in f32 on the Ant, B2 and B3 on the folded
+    # rows, before Adam amplifies their rounding
     t0 = time.perf_counter()
     c3 = c3_checks("cuda")
-    if not c3["redq_float64_max_abs_err"] <= 1e-9:
-        fail(f"C3: REDQ's seed 1 of 3 in float64 is {c3['redq_float64_max_abs_err']:.3g} from its one-seed run")
+    for name in ("redq", "flashsac"):
+        if not c3[f"{name}_float64_max_abs_err"] <= 1e-9:
+            fail(f"C3: {name}'s seed 1 of 3 in float64 is {c3[f'{name}_float64_max_abs_err']:.3g} from its one-seed run")
+        if not c3[f"{name}_float64_seed2_mean_abs_err"] >= 1e-3:
+            fail(f"C3: {name}'s seed 2 stands within {c3[f'{name}_float64_seed2_mean_abs_err']:.3g} (mean) of seed 1's "
+                 f"one-seed run")
     for name in ("policy", "alpha"):
         if not c3[f"flashsac_first_{name}_grad_rel_err"] <= 1e-5:
             fail(f"C3: FlashSAC's first {name} gradients of seed 1 of 3 are "
                  f"{c3[f'flashsac_first_{name}_grad_rel_err']:.3g} (relative) from its one-seed run's")
         if not c3[f"flashsac_first_{name}_grad_seed2_rel_err"] >= 1e-3:
             fail(f"C3: FlashSAC's first {name} gradients of seed 2 stand near seed 1's one-seed run's")
-    print(f"C3: REDQ seed 1 of 3 in float64 on the Pendulum after 4 learning steps (10 critic updates each) against "
-          f"its one-seed run: max|err| {c3['redq_float64_max_abs_err']:.3g} over {c3['redq_float64_values']} values "
-          f"(limit 1e-9); FlashSAC seed 1 of 3 on the Ant (f32), the first update's gradients against the one-seed "
-          f"run's, max|err| / max|grad|: policy {c3['flashsac_first_policy_grad_rel_err']:.3g}, alpha "
-          f"{c3['flashsac_first_alpha_grad_rel_err']:.3g} (before any Adam step; limit 1e-5), critic "
-          f"{c3['flashsac_first_critic_grad_rel_err']:.3g} (after the policy's first step); seed 2 against the same "
-          f"run: policy {c3['flashsac_first_policy_grad_seed2_rel_err']:.3g}; {time.perf_counter() - t0:.1f} s")
+    print(f"C3: seed 1 of 3 in float64 on the Pendulum after 4 learning steps (64 envs, batch 128) against its "
+          f"one-seed run, max|err| over every parameter and running statistic: REDQ (10 critic updates a step) "
+          f"{c3['redq_float64_max_abs_err']:.3g} over {c3['redq_float64_values']} values, FlashSAC (B3's plain "
+          f"version: B3 takes f32 only) {c3['flashsac_float64_max_abs_err']:.3g} over {c3['flashsac_float64_values']} "
+          f"values (limit 1e-9); seed 2 against the same runs: mean |err| {c3['redq_float64_seed2_mean_abs_err']:.3g} "
+          f"and {c3['flashsac_float64_seed2_mean_abs_err']:.3g}; FlashSAC seed 1 of 3 on the Ant (f32), the first "
+          f"update's gradients against the one-seed run's, max|err| / max|grad|: policy "
+          f"{c3['flashsac_first_policy_grad_rel_err']:.3g}, alpha {c3['flashsac_first_alpha_grad_rel_err']:.3g} (before "
+          f"any Adam step; limit 1e-5), critic {c3['flashsac_first_critic_grad_rel_err']:.3g} (after the policy's "
+          f"first step); seed 2 against the same run: policy {c3['flashsac_first_policy_grad_seed2_rel_err']:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # B3 at FastSAC's and FlashSAC's 4-seed shapes, B2 at the 4 x 1024 envs
     for label, (n, v_lo, v_hi, gamma) in {

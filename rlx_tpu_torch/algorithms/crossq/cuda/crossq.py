@@ -42,6 +42,7 @@ class CrossQVectorCritic(nn.Module):
 
 class CrossQ(SAC):
     parallel_seeds = True
+    capturable = False   # SAC's captured learning step is not yet this family's
 
     def _build_critic(self, a):
         critic = CrossQVectorCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,

@@ -10,6 +10,9 @@ The same algorithm as the JAX package's ``ddpg.tpu``:
   ``anneal_learning_rate`` key is accepted and, as there, not read).  Every
   update steps the critic, then the policy on ``-q.mean()`` of the UPDATED
   critic, then moves both targets by Polyak averaging.
+
+A learning step reads nothing back, so on one CUDA device a CUDA graph
+captures it (``capturable``; ``offpolicy.py``).
 """
 
 import torch
@@ -24,6 +27,7 @@ class DDPG(OffPolicyAlgorithm):
     # the checkpoint tree holds policy, policy_target, critic, critic_target
     state_names = ("policy", "critic")
     parallel_seeds = True
+    capturable = True
 
     def setup_states(self):
         a = self.config.algorithm

@@ -14,6 +14,10 @@ observation normalizer.  Per update:
   moves by Polyak averaging;
 - the policy and ``log_alpha`` step on the UPDATED critic's smaller
   expectation.
+
+As SAC's, a learning step reads nothing back (the rate from Adam's device
+count, the normalizer updated in place), so on one CUDA device a CUDA graph
+captures it, B3 inside (``capturable``).
 """
 
 import torch
@@ -32,6 +36,7 @@ class FastSAC(SAC):
     # critic, critic_target, alpha and obs_normalizer
     state_names = ("policy", "critic", "alpha", "obs_normalizer")
     parallel_seeds = True
+    capturable = True
 
     def _build_critic(self, a):
         return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,
@@ -52,7 +57,7 @@ class FastSAC(SAC):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = self.updated_obs_normalizer(observation)
+            self.update_obs_normalizer_(observation)
 
     @torch.no_grad()
     def act(self, observation, step=0, noise=None):
@@ -84,7 +89,7 @@ class FastSAC(SAC):
         """The update through ``call`` (``plain_call`` or ``seed_map``,
         whose ``[S]`` losses are summed), the projection between the mapped
         target and loss; ``norm`` gives the grad norms."""
-        learning_rate = self.learning_rate_at(self.policy.step_count())
+        learning_rate = self.learning_rate_tensor()
         with torch.no_grad():
             target_z, chosen_probs = call(self._target_inputs, batch, target_noise)
             projection = lambda z, p: categorical_projection_dense(z, p, self.v_min, self.v_max, self.nr_atoms)
@@ -109,7 +114,7 @@ class FastSAC(SAC):
                 "entropy/entropy": entropy,
                 "entropy/alpha": alpha,
                 "q_value/q_value": q_value,
-                "lr/learning_rate": torch.tensor(learning_rate),
+                "lr/learning_rate": learning_rate.float(),
                 "gradients/policy_grad_norm": norm(policy_grads),
                 "gradients/critic_grad_norm": norm(critic_grads),
             }

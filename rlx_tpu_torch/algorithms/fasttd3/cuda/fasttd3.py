@@ -17,7 +17,13 @@ The same algorithm as the JAX package's ``fasttd3.tpu``:
   on the UPDATED critic, and both targets move by Polyak averaging.  On the
   other updates the policy loss is still computed for the metrics, but the
   policy's optimizer (and so its Adam moments and step count) and both
-  targets stay as they were.
+  targets stay as they were.  Where ``train()`` captures the learning step
+  (``capturable``; ``offpolicy.py``) the count is on the device and the
+  delay is a select, as the JAX package's ``jnp.where(step % delay == 0,
+  new, old)``: the policy's Adam step and both Polyak updates run every
+  update under the device flag ``step % delay == 0``, so the step reads
+  nothing back and a CUDA graph captures it, B3 inside.  The eager loop
+  counts on the host and branches, with the same result bit for bit.
 
 With parallel seeds each seed has its own nets, its own running
 normalizer (fed with its own envs' observations) and its own n-step
@@ -41,6 +47,7 @@ class FastTD3(OffPolicyAlgorithm):
     # policy_target, critic, critic_target and obs_normalizer
     state_names = ("policy", "critic", "obs_normalizer")
     parallel_seeds = True
+    capturable = True
 
     def setup_states(self):
         a = self.config.algorithm
@@ -81,7 +88,7 @@ class FastTD3(OffPolicyAlgorithm):
 
     def observe_transition(self, observation, env_state):
         if self.normalize_obs:
-            self.obs_normalizer = self.updated_obs_normalizer(observation)
+            self.update_obs_normalizer_(observation)
 
     def act_draws(self, generator):
         return {"noise": torch.randn((self.nr_envs, self.action_dim), generator=generator, device=self.device)}
@@ -105,8 +112,9 @@ class FastTD3(OffPolicyAlgorithm):
         return (torch.softmax(logits, dim=-1) * self.atoms).sum(-1)
 
     def update(self, batch, step, smoothing_noise=None):
-        """One critic step and, on ``step % policy_delay == 0``, one policy
-        step and both Polyak updates.  ``smoothing_noise`` (standard normal,
+        """One critic step and, where ``step % policy_delay == 0`` (``step`` a
+        host int or a 0-dim device tensor), one policy step and both Polyak
+        updates.  ``smoothing_noise`` (standard normal,
         ``[batch, action_dim]``) is drawn from the generator unless given.
         Returns the metrics as device scalars."""
         with torch.no_grad():
@@ -172,7 +180,7 @@ class FastTD3(OffPolicyAlgorithm):
 
     def _step(self, batch, step, target_dist, call, norm):
         """The critic step, then the policy loss on the updated critic and,
-        on ``step % policy_delay == 0``, the policy step and both Polyak
+        where ``step % policy_delay == 0``, the policy step and both Polyak
         updates; ``call(fn, *xs)`` runs a loss (``seed_map`` with parallel
         seeds, whose ``[S]`` losses are summed)."""
         critic_params = list(self.critic.module.parameters())
@@ -184,10 +192,12 @@ class FastTD3(OffPolicyAlgorithm):
         policy_params = list(self.policy.module.parameters())
         policy_loss = call(self._policy_loss, batch)
         policy_grads = torch.autograd.grad(policy_loss.sum(), policy_params)
-        if step % self.policy_delay == 0:
-            self.policy.apply_gradients(policy_grads)
-            self.policy.polyak_update(self.tau)
-            self.critic.polyak_update(self.tau)
+        # a host bool from the eager loop's count (a branch), a device flag
+        # from a captured step's (a select)
+        active = step % self.policy_delay == 0
+        self.policy.apply_gradients(policy_grads, active=active)
+        self.policy.polyak_update(self.tau, active)
+        self.critic.polyak_update(self.tau, active)
 
         with torch.no_grad():
             return {

@@ -69,6 +69,7 @@ def sample_and_log_prob(mean, std, noise):
 
 class FlashSAC(SAC):
     parallel_seeds = True
+    capturable = False   # SAC's captured learning step is not yet this family's
 
     def setup_states(self):
         a = self.config.algorithm

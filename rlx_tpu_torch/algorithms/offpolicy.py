@@ -31,6 +31,18 @@ package's.  Each algorithm implements:
                                                   high-UTD ensembles draw
                                                   their own batches)
 
+The learning step's count (``step``, the learning steps this ``train()``
+call has taken) is a 0-dim int64 tensor on the device where ``train()``
+captures the learning step (a family that declares ``capturable``:
+FastTD3, FastSAC, SAC, TD3, DDPG), a host int in the eager loop; the replay buffer's write head and fill are device tensors and
+its samplers draw below the device fill (``ops/replay_buffer.py``); the
+buffer is held by the model (``buffer``), and a logging iteration's
+metrics are summed on the device in place (``metric_sums``), read once at
+its end.  So for those five a learning step reads nothing back, and on
+one CUDA device ``train()`` replays it as one captured CUDA graph
+(``learning_iteration``, ``training_program.CapturedIteration``); the
+prefill, evaluation, saving and logging stay eager on the host.
+
 The phases of a learning step run under ``torch.profiler.record_function``
 spans ``<algorithm>/act``, ``/env_step``, ``/store``, ``/sample`` and
 ``/update``; they cost nothing measurable without an active profiler.
@@ -100,7 +112,7 @@ from rlx_tpu_torch.algorithms.parallel_seeds import (
 )
 from rlx_tpu_torch.algorithms.train_state import TrainState
 from rlx_tpu_torch.algorithms.training_program import (
-    eval_means, eval_reset_seed, run_training_program, train_reset_seed,
+    capture_choice, eval_means, eval_reset_seed, run_training_program, train_reset_seed,
 )
 from rlx_tpu_torch.environments.types import ActionSpaceType
 from rlx_tpu_torch.models import layers
@@ -230,6 +242,9 @@ class OffPolicyAlgorithm:
         else:
             self._setup_seed_states(ParallelSeeds(self.seed, nr_seeds, self.device))
         self.nr_train_resets = 0
+        self.buffer = None           # this train() call's replay buffer
+        self.captured_iteration = None   # a train() call's CapturedIteration
+        self.metric_sums = {}        # name -> a logging iteration's device sum of a metric
         self.nr_updates = 0          # learning steps taken, over every train() call
         self.metrics_history = []   # per-logging-iteration float metrics
         self.eval_history = None
@@ -237,6 +252,10 @@ class OffPolicyAlgorithm:
     # --- algorithm hooks ---------------------------------------------------
     state_names = ()
     parallel_seeds = False   # declared True by a family's own class body
+    # whether a learning step reads nothing back (``learning_iteration``):
+    # a family that captures declares it, and a subclass that does not
+    # capture declares False
+    capturable = False
 
     def setup_states(self):
         raise NotImplementedError
@@ -375,6 +394,12 @@ class OffPolicyAlgorithm:
         return self.parallel.map(normalizers.obs_normalizer_update, {}, self.obs_normalizer,
                                  self.parallel.split(observation))
 
+    def update_obs_normalizer_(self, observation):
+        """``obs_normalizer`` after the rows ``observation``, written into its
+        own tensors (a captured learning step keeps one set of tensors)."""
+        for key, value in self.updated_obs_normalizer(observation).items():
+            self.obs_normalizer[key].copy_(value)
+
     def updated_reward_normalizer(self, env_state):
         """``reward_normalizer`` after an env step's rewards and done flags
         (per seed, as ``updated_obs_normalizer``)."""
@@ -413,12 +438,9 @@ class OffPolicyAlgorithm:
         it; one gather for all seeds -> ``[S, batch_size, ...]``."""
         P = self.parallel
         batch_size = self.batch_size if batch_size is None else batch_size
-        if self.n_step > 1:
-            high = max(buffer.size - self.n_step + 1, 1)
-        else:
-            high = buffer.size
-        idx = P.draw(lambda g: torch.stack([rb._randint(g, high, batch_size, self.device),
-                                            rb._randint(g, self.nr_envs, batch_size, self.device)]))
+        high = rb.start_rows(buffer, self.n_step)
+        idx = P.draw(lambda g: torch.stack([rb.draw_indices(g, high, batch_size, self.device),
+                                            rb.draw_indices(g, self.nr_envs, batch_size, self.device)]))
         t_idx = idx[:, 0].reshape(-1)
         e_idx = P.rows(idx[:, 1], self.nr_envs)
         total = P.nr_seeds * batch_size
@@ -471,20 +493,19 @@ class OffPolicyAlgorithm:
         return rb.sample(buffer, self.generator, batch_size, t_idx=t_idx, e_idx=e_idx)
 
     def _sample_dp(self, buffer, batch_size, t_idx, e_idx):
-        high = max(buffer.size - self.n_step + 1, 1) if self.n_step > 1 else buffer.size
         if t_idx is None:
-            t_idx = rb._randint(self.generator, high, batch_size, self.device)
+            t_idx = rb.draw_indices(self.generator, rb.start_rows(buffer, self.n_step), batch_size, self.device)
         first, last = self.mesh.rows_of_rank(self.nr_envs)
         per_rank = last - first
         if self.shard_local_sampling:
             # row i reads env shard i % dp: this rank's rows are all its own
             if e_idx is None:
-                local = rb._randint(self.generator, per_rank, batch_size, self.device)
+                local = rb.draw_indices(self.generator, per_rank, batch_size, self.device)
                 e_idx = (torch.arange(batch_size, device=self.device) % self.dp) * per_rank + local
             t_idx, e_idx = self.batch_rows(t_idx), self.batch_rows(e_idx) - first
             return self._read(buffer, t_idx, e_idx)
         if e_idx is None:
-            e_idx = rb._randint(self.generator, self.nr_envs, batch_size, self.device)
+            e_idx = rb.draw_indices(self.generator, self.nr_envs, batch_size, self.device)
         own = (e_idx >= first) & (e_idx < last)
         rows = self._read(buffer, t_idx, torch.where(own, e_idx - first, 0))
         whole = {k: self.mesh.all_reduce_sum(torch.where(own.reshape((-1,) + (1,) * (v.ndim - 1)), v,
@@ -546,19 +567,53 @@ class OffPolicyAlgorithm:
                 self._store_step(buffer, observation, action, env_state)
         return env_state
 
-    def _logging_iteration(self, buffer, env_state, step_base):
-        sums = {}
-        for k in range(self.nr_updates_per_logging_iteration):
-            env_state, metrics = self._learning_step(buffer, env_state, step_base + k)
+    def initial_step(self, count=0):
+        """The learning-step count ``count`` as the learning step takes it: a
+        0-dim int64 device tensor where ``train()`` replays a captured
+        learning step (``capture_choice``), so that the step reads nothing
+        back; a host int in the eager loop (the CPU, parallel seeds, a mesh,
+        the families that do not capture), where a hook may branch on it."""
+        if capture_choice(self)[0]:
+            return torch.full((), count, dtype=torch.int64, device=self.device)
+        return count
+
+    def learning_iteration(self, env_state, step):
+        """One learning step (``_learning_step``) on the model's buffer at the
+        learning-step count ``step`` (``initial_step``), its metrics added
+        into ``metric_sums`` when logging is active -> (env state, ``step +
+        1``, the step's metrics).
+
+        The unit a CUDA graph captures is this one step, not a logging
+        iteration: a logging iteration's step count is a config value
+        (``logging_frequency // nr_envs``, from 1 to thousands of steps), and
+        a graph of one step keeps the capture, its memory pool and its node
+        count one step's size, while a replay costs the host one graph
+        launch; ``_logging_iteration`` replays it
+        ``nr_updates_per_logging_iteration`` times."""
+        env_state, metrics = self._learning_step(self.buffer, env_state, step)
+        if self.logging_active:
+            means = self.mesh.mean_metrics({key: v.float().mean() for key, v in env_state.info.items()})
+            means.update(metrics)
+            for key, v in means.items():
+                if key not in self.metric_sums:
+                    self.metric_sums[key] = torch.zeros_like(v.detach())
+                self.metric_sums[key].add_(v.detach())
+        return env_state, step + 1, metrics
+
+    def _logging_iteration(self, env_state, step, step_base):
+        """``nr_updates_per_logging_iteration`` learning steps from the count
+        ``step`` (``step_base`` on the host), replayed where a graph was
+        captured; then the log line of their mean metrics.  -> (env state,
+        the count after them)."""
+        iterate = self.captured_iteration or self.learning_iteration
+        if self.metric_sums:
+            torch._foreach_zero_(list(self.metric_sums.values()))
+        for _ in range(self.nr_updates_per_logging_iteration):
+            env_state, step, _ = iterate(env_state, step)
             self.nr_updates += 1
-            if self.logging_active:
-                means = self.mesh.mean_metrics({key: v.float().mean() for key, v in env_state.info.items()})
-                means.update(metrics)
-                for key, v in means.items():
-                    sums[key] = sums[key] + v.detach() if key in sums else v.detach()
         nr_updates = step_base + self.nr_updates_per_logging_iteration
         if self.logging_active:
-            values = {key: float(v) / self.nr_updates_per_logging_iteration for key, v in sums.items()}
+            values = {key: float(v) / self.nr_updates_per_logging_iteration for key, v in self.metric_sums.items()}
             now = time.time()
             values["time/sps"] = int(
                 self.nr_envs * self.nr_updates_per_logging_iteration / max(now - self._last_log_time, 1e-9)
@@ -568,7 +623,7 @@ class OffPolicyAlgorithm:
             values["steps/nr_updates"] = nr_updates
             self.metrics_history.append(values)
             self.logger.log_dict(values, nr_updates * self.nr_envs)
-        return env_state
+        return env_state, step
 
     @torch.no_grad()
     def _eval_iteration(self, eval_save_iteration):
@@ -584,18 +639,20 @@ class OffPolicyAlgorithm:
         return eval_metrics
 
     def _init_train_carry(self):
-        """(buffer, env state after the prefill, best eval return), from a
-        new buffer and the reset that starts this ``train()`` call."""
-        buffer = self._make_buffer()
-        env_state = self._prefill(buffer, self.train_env.reset(train_reset_seed(self)))
-        return buffer, env_state, -math.inf
+        """(env state after the prefill, the learning-step count at 0, best
+        eval return), from a new buffer (``self.buffer``) and the reset that
+        starts this ``train()`` call; the metric sums start anew."""
+        self.buffer = self._make_buffer()
+        self.metric_sums = {}
+        env_state = self._prefill(self.buffer, self.train_env.reset(train_reset_seed(self)))
+        return env_state, self.initial_step(), -math.inf
 
     def _eval_save_iteration(self, carry, eval_save_iteration):
-        buffer, env_state, best_return = carry
+        env_state, step, best_return = carry
         for j in range(self.nr_loggings_per_eval_save_iteration):
             logging_iteration = eval_save_iteration * self.nr_loggings_per_eval_save_iteration + j
             step_base = logging_iteration * self.nr_updates_per_logging_iteration
-            env_state = self._logging_iteration(buffer, env_state, step_base)
+            env_state, step = self._logging_iteration(env_state, step, step_base)
         eval_metrics, is_best = None, False
         if self.evaluation_active:
             eval_metrics = self._eval_iteration(eval_save_iteration)
@@ -606,11 +663,11 @@ class OffPolicyAlgorithm:
             self.save()
             if is_best:
                 self.save(file_name="best.model")
-        return (buffer, env_state, best_return), eval_metrics
+        return (env_state, step, best_return), eval_metrics
 
     def train(self):
         start = self._last_log_time = time.time()
-        (self.buffer, self.env_state, _), eval_history = run_training_program(self)
+        (self.env_state, _, _), eval_history = run_training_program(self)
         if self.parallel is not None:
             self._keep_first_seed()
         self.eval_history = None

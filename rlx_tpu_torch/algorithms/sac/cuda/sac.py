@@ -10,7 +10,11 @@ The same algorithm as the JAX package's ``sac.tpu``:
   (``"auto"``: ``-action_dim``);
 - Adam (eps 1e-8) on the policy, the critic and ``log_alpha``; with
   ``anneal_learning_rate`` the rate falls linearly with the optimizers'
-  step count (``learning_rate_at``).
+  step count (``learning_rate_at``), computed on the device from Adam's
+  own count (``learning_rate_tensor``), so a learning step reads nothing
+  back and on one CUDA device a CUDA graph captures it (``capturable``;
+  ``offpolicy.py``).  A subclass that does not capture declares
+  ``capturable = False``.
 
 The JAX package takes one gradient of ``q_loss + policy_loss + alpha_loss``
 with ``stop_gradient`` on the other parameter sets, so each set gets the
@@ -40,6 +44,7 @@ class SAC(OffPolicyAlgorithm):
     # critic, critic_target and alpha
     state_names = ("policy", "critic", "alpha")
     parallel_seeds = True
+    capturable = True
 
     def _build_policy(self, a):
         """The policy network; the SAC variants with other trunks override it."""
@@ -79,6 +84,16 @@ class SAC(OffPolicyAlgorithm):
         if not self.anneal_learning_rate:
             return self.learning_rate
         step = count * self.nr_envs - self.learning_starts
+        return self.learning_rate * (1.0 - step / max(self.total_training_timesteps, 1))
+
+    def learning_rate_tensor(self):
+        """``learning_rate_at`` of the policy's Adam count (the three
+        optimizers step together) as a float64 0-dim tensor on the device,
+        with the host's float64 arithmetic; nothing is read back."""
+        count = self.policy.step_tensor()
+        if not self.anneal_learning_rate:
+            return torch.full((), self.learning_rate, dtype=torch.float64, device=count.device)
+        step = count.double() * self.nr_envs - self.learning_starts
         return self.learning_rate * (1.0 - step / max(self.total_training_timesteps, 1))
 
     @torch.no_grad()
@@ -166,7 +181,7 @@ class SAC(OffPolicyAlgorithm):
         alpha_grads = torch.autograd.grad(alpha_loss.sum(), list(self.alpha.module.parameters()))
 
         # the three optimizers step together, so their counts are equal
-        learning_rate = self.learning_rate_at(self.policy.step_count())
+        learning_rate = self.learning_rate_tensor()
         for state, grads in ((self.policy, policy_grads), (self.critic, critic_grads),
                              (self.alpha, alpha_grads)):
             state.apply_gradients(grads, learning_rate)
@@ -178,7 +193,7 @@ class SAC(OffPolicyAlgorithm):
                 "loss/policy_loss": policy_loss.detach(),
                 "loss/entropy_loss": alpha_loss.detach(),
                 **metrics,
-                "lr/learning_rate": torch.tensor(learning_rate),
+                "lr/learning_rate": learning_rate.float(),
                 "gradients/policy_grad_norm": norm(policy_grads),
                 "gradients/critic_grad_norm": norm(critic_grads),
                 "gradients/entropy_grad_norm": norm(alpha_grads),

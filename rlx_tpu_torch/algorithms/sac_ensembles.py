@@ -29,6 +29,7 @@ from rlx_tpu_torch.models import distributions as D
 
 
 class EnsembleSAC(SAC):
+    capturable = False   # SAC's captured learning step is not yet the ensembles'
     # the config key of the critic updates per env step (BRO: updates_per_step)
     q_update_steps_key = "q_update_steps"
 

@@ -44,6 +44,7 @@ class SimbaVectorCritic(nn.Module):
 
 class SimBa(SAC):
     parallel_seeds = True
+    capturable = False   # SAC's captured learning step is not yet this family's
 
     def _build_policy(self, a):
         return SimbaPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks,

@@ -13,7 +13,10 @@ The same algorithm as the JAX package's ``td3.tpu``:
   steps on ``-q[0].mean()`` (the first critic only) of the UPDATED critic,
   and both targets move by Polyak averaging.  On the other updates the
   policy loss is still computed for the metrics, but the policy's optimizer
-  (its Adam moments and step count) and both targets stay as they were.
+  (its Adam moments and step count) and both targets stay as they were.  As
+  FastTD3's, the delay is a select on the device flag ``step % policy_delay
+  == 0`` where the learning step is captured (``capturable``), a branch on
+  the host count in the eager loop.
 
 With parallel seeds the two losses are mapped over the seeds
 (``update_seeds``); each seed's smoothing noise comes from its generator.
@@ -31,6 +34,7 @@ class TD3(OffPolicyAlgorithm):
     # the checkpoint tree holds policy, policy_target, critic, critic_target
     state_names = ("policy", "critic")
     parallel_seeds = True
+    capturable = True
 
     def setup_states(self):
         a = self.config.algorithm
@@ -70,8 +74,9 @@ class TD3(OffPolicyAlgorithm):
         return self.policy.module(observation)
 
     def update(self, batch, step, smoothing_noise=None):
-        """One critic step and, on ``step % policy_delay == 0``, one policy
-        step and both Polyak updates.  ``smoothing_noise`` (standard normal,
+        """One critic step and, where ``step % policy_delay == 0`` (``step`` a
+        host int or a 0-dim device tensor), one policy step and both Polyak
+        updates.  ``smoothing_noise`` (standard normal,
         ``[batch, action_dim]``) is drawn from the generator unless given.
         Returns the metrics as device scalars."""
         return self._step(batch, step, smoothing_noise, lambda fn, *xs: fn(*xs), global_norm)
@@ -117,10 +122,12 @@ class TD3(OffPolicyAlgorithm):
         # the policy loss on the updated critic; gradients to the policy only
         policy_loss = call(self._policy_loss, batch)
         policy_grads = torch.autograd.grad(policy_loss.sum(), list(self.policy.module.parameters()))
-        if step % self.policy_delay == 0:
-            self.policy.apply_gradients(policy_grads)
-            self.policy.polyak_update(self.tau)
-            self.critic.polyak_update(self.tau)
+        # a host bool from the eager loop's count (a branch), a device flag
+        # from a captured step's (a select)
+        active = step % self.policy_delay == 0
+        self.policy.apply_gradients(policy_grads, active=active)
+        self.policy.polyak_update(self.tau, active)
+        self.critic.polyak_update(self.tau, active)
 
         with torch.no_grad():
             return {

@@ -29,6 +29,7 @@ def quantile_huber_loss(pred, target, taus, kappa=1.0):
 
 class TQC(SAC):
     parallel_seeds = True
+    capturable = False   # SAC's captured learning step is not yet this family's
 
     def _build_critic(self, a):
         return VectorQCritic(self.critic_obs_dim, self.action_dim, tuple(a.critic_hidden_sizes), a.nr_critics,

@@ -42,27 +42,37 @@ def clip_by_global_norm_(grads, max_norm, per_seed=False):
 
 @torch.no_grad()
 def adam_step_(optimizer, learning_rate, active=None):
-    """One Adam step of every parameter of a ``torch.optim.Adam`` (its one
-    parameter group) by its gradient, in the optimizer's own state, so its
-    ``state_dict()`` stays the checkpoint's format.  Written in tensor ops
-    with no host read, so a CUDA graph can capture it, and run alike
-    eagerly on either device:
+    """One Adam step of every parameter of a ``torch.optim.Adam`` or
+    ``AdamW`` (its one parameter group) by its gradient, in the optimizer's
+    own state, so its ``state_dict()`` stays the checkpoint's format.
+    Written in tensor ops with no host read, so a CUDA graph can capture it,
+    and run alike eagerly on either device:
 
     - ``learning_rate`` is a 0-dim tensor on the parameters' device (the
-      schedule's rate at the device step count);
+      schedule's rate at the device step count), float64 where it must
+      equal a host rate;
     - ``state["step"]`` is a 0-dim float32 tensor on the parameter's device
       (one made on the CPU, by a checkpoint or torch's own step, is moved
       there at the next eager step);
-    - torch's arithmetic: ``exp_avg.lerp_(g, 1 - b1)``, ``exp_avg_sq * b2 +
-      (1 - b2) g^2``, ``p -= lr / (1 - b1^t) * exp_avg / (sqrt(exp_avg_sq)
-      / sqrt(1 - b2^t) + eps)``, the bias corrections taken in float64;
+    - torch's arithmetic, in its order, so that on the CPU it is torch's
+      ``Adam`` / ``AdamW`` step bit for bit: the group's weight decay first
+      (``AdamW``: ``p *= 1 - lr * wd``; ``Adam``: ``g += wd * p``), then
+      ``exp_avg.lerp_(g, 1 - b1)``, ``exp_avg_sq * b2 + (1 - b2) g^2``, ``p
+      -= lr / (1 - b1^t) * exp_avg / (sqrt(exp_avg_sq) / sqrt(1 - b2^t) +
+      eps)``, the product before the division, the bias corrections and
+      ``1 - lr * wd`` taken in float64;
     - with ``active`` (a 0-dim bool tensor) the parameters, moments and step
       counts change only where it is true, as the JAX package's select of
-      the whole train state (ESPO's early stop).
+      the whole train state (ESPO's early stop, the TD3 family's policy
+      delay).
     """
     (group,) = optimizer.param_groups
+    if group.get("amsgrad") or group.get("maximize"):
+        raise NotImplementedError("adam_step_ takes neither amsgrad nor maximize")
     beta1, beta2 = group["betas"]
     eps = group["eps"]
+    weight_decay = group.get("weight_decay", 0.0)
+    decoupled = group.get("decoupled_weight_decay", isinstance(optimizer, torch.optim.AdamW))
     params = [p for p in group["params"] if p.grad is not None]
     states = [optimizer.state[p] for p in params]
     for p, state in zip(params, states):
@@ -76,6 +86,16 @@ def adam_step_(optimizer, learning_rate, active=None):
     exp_avgs = [s["exp_avg"] for s in states]
     exp_avg_sqs = [s["exp_avg_sq"] for s in states]
     grads = [p.grad for p in params]
+    dtype = params[0].dtype
+    decayed = params
+    if weight_decay and decoupled:
+        factor = (1.0 - learning_rate.double() * weight_decay).to(dtype)
+        if active is None:
+            torch._foreach_mul_(params, factor)
+        else:
+            decayed = torch._foreach_mul(params, factor)
+    elif weight_decay:
+        grads = torch._foreach_add(grads, params, alpha=weight_decay)
     # the nets step together: one count serves every parameter
     count = steps[0].double() + 1.0
     step_size = learning_rate.double() / (1.0 - beta1 ** count)
@@ -89,17 +109,16 @@ def adam_step_(optimizer, learning_rate, active=None):
         new_avgs = torch._foreach_lerp(exp_avgs, grads, 1.0 - beta1)
         new_avg_sqs = torch._foreach_mul(exp_avg_sqs, beta2)
         torch._foreach_addcmul_(new_avg_sqs, grads, grads, value=1.0 - beta2)
-    dtype = params[0].dtype
     denominators = torch._foreach_sqrt(new_avg_sqs)
     torch._foreach_div_(denominators, bias_correction2_sqrt.to(dtype))
     torch._foreach_add_(denominators, eps)
-    updates = torch._foreach_div(new_avgs, denominators)
-    torch._foreach_mul_(updates, step_size.to(dtype))
+    updates = torch._foreach_mul(new_avgs, step_size.to(dtype))
+    torch._foreach_div_(updates, denominators)
     if active is None:
         torch._foreach_sub_(params, updates)
         torch._foreach_add_(steps, 1.0)
         return
-    new_params = torch._foreach_sub(params, updates)
+    new_params = torch._foreach_sub(decayed, updates)
     for olds, news in ((params, new_params), (exp_avgs, new_avgs), (exp_avg_sqs, new_avg_sqs),
                        (steps, [s + 1.0 for s in steps])):
         for old, new in zip(olds, news):
@@ -190,32 +209,68 @@ class TrainState:
     # off-policy core sets it)
     mesh = None
 
-    def apply_gradients(self, grads, learning_rate=None, reduced=False):
+    def apply_gradients(self, grads, learning_rate=None, reduced=False, active=None):
         """One optimizer step on ``grads`` (one per parameter, in
-        ``module.parameters()`` order), at ``learning_rate`` when given
-        (flax's ``TrainState.apply_gradients``).  On a dp mesh the
-        gradients are first averaged over dp, in place, unless ``reduced``
-        says the caller did (before a clip)."""
+        ``module.parameters()`` order) by ``adam_step_`` (flax's
+        ``TrainState.apply_gradients``), at ``learning_rate``: a 0-dim
+        device tensor (float64) that nothing reads back, a host float
+        (written into the optimizer's group as well), or none for the
+        group's own rate.  With ``active`` a 0-dim bool tensor the
+        parameters and Adam's state change only where it is true; with a
+        host bool the step is taken or not.  On a dp mesh the gradients are
+        first averaged over dp, in place, unless ``reduced`` says the caller
+        did (before a clip)."""
+        if active is False:
+            return
+        if active is True:
+            active = None
         if self.mesh is not None and not reduced:
             self.mesh.all_reduce_mean_(list(grads))
-        for p, g in zip(self.module.parameters(), grads):
+        params = list(self.module.parameters())
+        for p, g in zip(params, grads):
             p.grad = g
-        if learning_rate is not None:
-            self.optimizer.param_groups[0]["lr"] = learning_rate
-        self.optimizer.step()
+        group = self.optimizer.param_groups[0]
+        if learning_rate is None:
+            learning_rate = group["lr"]
+        if not isinstance(learning_rate, torch.Tensor):
+            group["lr"] = learning_rate
+            learning_rate = torch.full((), learning_rate, dtype=torch.float64, device=params[0].device)
+        adam_step_(self.optimizer, learning_rate, active)
 
     def step_count(self):
-        """Optimizer steps taken (optax's ``count``): 0 before the first."""
+        """Optimizer steps taken (optax's ``count``): 0 before the first.
+        Reads the count back to the host."""
         state = self.optimizer.state.get(next(self.module.parameters()))
         return int(state["step"]) if state else 0
 
+    def step_tensor(self):
+        """``step_count`` as a 0-dim float32 tensor on the parameters' device,
+        read nowhere: Adam's own count once it has stepped."""
+        param = next(self.module.parameters())
+        state = self.optimizer.state.get(param)
+        if not state:
+            return torch.zeros((), dtype=torch.float32, device=param.device)
+        return state["step"].to(param.device)
+
     @torch.no_grad()
-    def polyak_update(self, tau):
+    def polyak_update(self, tau, active=None):
         """``target = tau * params + (1 - tau) * target``
-        (``optax.incremental_update``)."""
+        (``optax.incremental_update``); with ``active`` only where it is
+        true (a 0-dim bool tensor) or when it is (a host bool)."""
+        if active is False:
+            return
+        if active is True:
+            active = None
         targets = list(self.target.parameters())
-        torch._foreach_mul_(targets, 1.0 - tau)
-        torch._foreach_add_(targets, torch._foreach_mul(list(self.module.parameters()), tau))
+        moved = torch._foreach_mul(list(self.module.parameters()), tau)
+        if active is None:
+            torch._foreach_mul_(targets, 1.0 - tau)
+            torch._foreach_add_(targets, moved)
+            return
+        new = torch._foreach_mul(targets, 1.0 - tau)
+        torch._foreach_add_(new, moved)
+        for target, value in zip(targets, new):
+            target.copy_(torch.where(active, value, target))
 
     @torch.no_grad()
     def hard_update(self):

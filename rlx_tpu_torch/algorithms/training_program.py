@@ -15,10 +15,16 @@ On the card, torch's counterpart of a jitted learning iteration is a
 captured CUDA graph (``CapturedIteration``): the rollout with its B2
 launches, the value passes, B1 or the family's own targets and the
 minibatch updates recorded once and replayed once per learning iteration,
-with no host work between the kernels.  ``capture_choice`` says when: a
+with no host work between the kernels.  For the off-policy families that
+capture (FastTD3, FastSAC, SAC, TD3 and DDPG) the unit is one learning
+step (act, env step with its B2 launch, store, sample, update with its B3
+launch for FastTD3 and FastSAC; ``offpolicy.py::learning_iteration``),
+replayed ``nr_updates_per_logging_iteration`` times a logging iteration.
+``capture_choice`` says when: a
 model on a CUDA device, at dp = tp = 1, with one seed, whose class and env
-both declare ``capturable`` (the PPO family, the recurrent PPOs, REPPO and
-PQN on the Ant, CartPole and Pendulum, and the continuous ones on the robot
+both declare ``capturable`` (the PPO family, the recurrent PPOs, REPPO, PQN
+and those five off-policy families on the Ant, CartPole and Pendulum, and
+the continuous ones on the robot
 envs, ``locomotion.robot`` on the plane or a heightfield and
 ``locomotion.soccer``, through any wrapper).  On the plane the graph holds
 the substep kernel's launches; over a heightfield the engine's eager path,
@@ -78,7 +84,8 @@ def capture_choice(model):
 
     Reads only the model's attributes: ``device``, ``parallel`` (parallel
     seeds), ``mesh`` (its ``dp`` and ``tp``), ``train_env`` and the class's
-    ``capturable``; an env (a wrapper passes on its inner env's answer)
+    ``capturable`` (a subclass of a family that captures declares False
+    when it does not); an env (a wrapper passes on its inner env's answer)
     declares ``capturable`` too."""
     name = type(model).__name__
     device = torch.device(getattr(model, "device", "cpu"))
@@ -107,20 +114,42 @@ def launch_counters():
     return step_cuda, gae_advantages_cuda, categorical_projection_cuda
 
 
+def _module_tensors(name, module):
+    return {f"{name}.{k}": t for k, t in [*module.named_parameters(), *module.named_buffers()]}
+
+
+def _optimizer_tensors(name, optimizer):
+    out = {}
+    for i, p in enumerate(optimizer.param_groups[0]["params"]):
+        out.update({f"{name}.{i}.{k}": t for k, t in optimizer.state[p].items()})
+    return out
+
+
 def model_tensors(model):
     """name -> every tensor ``model`` holds: its nets' parameters and
-    buffers (a net or an object with a ``module`` net), its optimizers'
-    state, its tensor attributes and dicts of tensors.  A captured
-    iteration reads and writes these tensors themselves, so an iteration
-    must update each in place and bind no attribute to a new one."""
+    buffers (a net or an object with a ``module`` net; a ``TrainState``'s
+    target and its optimizer's state too), its optimizers' state, a replay
+    buffer's storage, write head and fill, its tensor attributes and dicts
+    of tensors.  A captured iteration reads and writes these tensors
+    themselves, so an iteration must update each in place and bind no
+    attribute to a new one."""
+    from rlx_tpu_torch.ops.replay_buffer import ReplayBuffer
+
     out = {}
     for name, value in vars(model).items():
         module = value if isinstance(value, torch.nn.Module) else getattr(value, "module", None)
         if isinstance(module, torch.nn.Module):
-            out.update({f"{name}.{k}": t for k, t in [*module.named_parameters(), *module.named_buffers()]})
+            out.update(_module_tensors(name, module))
+            if isinstance(getattr(value, "target", None), torch.nn.Module):
+                out.update(_module_tensors(f"{name}.target", value.target))
+            if isinstance(getattr(value, "optimizer", None), torch.optim.Optimizer):
+                out.update(_optimizer_tensors(f"{name}.optimizer", value.optimizer))
         elif isinstance(value, torch.optim.Optimizer):
-            for i, p in enumerate(value.param_groups[0]["params"]):
-                out.update({f"{name}.{i}.{k}": t for k, t in value.state[p].items()})
+            out.update(_optimizer_tensors(name, value))
+        elif isinstance(value, ReplayBuffer):
+            storage = value.storage if isinstance(value.storage, dict) else {"storage": value.storage}
+            out.update({f"{name}.{k}": t for k, t in storage.items()})
+            out.update({f"{name}.pos": value.pos, f"{name}.size": value.size})
         elif isinstance(value, torch.Tensor):
             out[name] = value
         elif isinstance(value, dict) and value and all(isinstance(t, torch.Tensor) for t in value.values()):
@@ -155,7 +184,7 @@ class CapturedIteration:
     and replayed; called as it, ``(env_state, *carry) -> (env_state, *carry,
     metrics)``, where ``carry`` is the rest of the iteration's device carry,
     tensors in tuples and dicts: the recurrent policy's carry, PQN's update
-    step, nothing for the PPO family.
+    step, the off-policy learning-step count, nothing for the PPO family.
 
     - The first call runs the iteration eagerly on the capture stream: a
       real iteration, and the warm-up (the kernels built, B2's tables
@@ -172,7 +201,11 @@ class CapturedIteration:
     it.  Everything else an iteration changes is the same tensors eagerly
     and in the graph, updated in place: the nets' parameters and gradients,
     Adam's moments and step counts, the model's device step count, REPPO's
-    observation normalizer and old-policy snapshot.  The model's generator
+    observation normalizer and old-policy snapshot, the off-policy targets,
+    observation normalizer and metric sums, and the replay buffer's
+    storage, write head and fill.  The buffer, a run's largest tensor, is
+    held by the model and never in the carry, so a capture never clones
+    it.  The model's generator
     and the env state's are registered with the graph: each replay draws
     fresh noise, the noise the eager iteration draws from the same
     generator states.

@@ -68,6 +68,7 @@ class XQCVectorCritic(nn.Module):
 
 class XQC(SAC):
     parallel_seeds = True
+    capturable = False   # SAC's captured learning step is not yet this family's
 
     def _build_policy(self, a):
         return XQCPolicy(self.policy_obs_dim, self.action_dim, a.policy_hidden_dim, a.policy_nr_blocks)

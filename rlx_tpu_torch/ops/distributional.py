@@ -21,9 +21,10 @@ def _atom_positions(target_z, v_min, v_max, nr_atoms):
     """Fractional atom index of each clipped position: a true division by
     ``delta_z`` rounded once to the input's type, as the JAX package's
     weak-typed constant is.  ``delta_z`` is a tensor because PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal instead."""
-    delta_z = torch.tensor((v_max - v_min) / (nr_atoms - 1), dtype=target_z.dtype,
-                           device=target_z.device)
+    division by a Python scalar multiplies by its reciprocal instead; it is
+    filled on the device, not copied from the host (a graph can capture
+    it)."""
+    delta_z = torch.full((), (v_max - v_min) / (nr_atoms - 1), dtype=target_z.dtype, device=target_z.device)
     return (torch.clamp(target_z, v_min, v_max) - v_min) / delta_z
 
 

@@ -16,10 +16,19 @@ The same layout and semantics as the JAX package's ``ops/replay_buffer.py``:
 There is one device, so the JAX package's shard-local env sampling with one
 shard is plain uniform sampling and has no keyword here.  Unlike the JAX
 package's immutable buffer, ``add`` writes in place (the storage is the
-largest tensor of a run), and the write head and fill count are Python
-ints, so sampling needs no device sync.  Both samplers take a
-``torch.Generator`` and optional explicit indices, so a test can replay
-another implementation's draws.
+largest tensor of a run).  The write head ``pos`` and the fill count
+``size`` are 0-dim int64 tensors on the storage's device, updated in place,
+as the JAX buffer's int32 arrays, and ``add`` writes at the device index;
+the samplers draw their time indices below the device fill, so nothing is
+read back to the host and a CUDA graph can capture a learning step.  Both
+samplers take a ``torch.Generator`` and optional explicit indices, so a
+test can replay another implementation's draws.
+
+An index below a device ``high`` is ``floor(u * high)`` from a float64
+uniform ``u`` in [0, 1) (``draw_indices``; ``torch.randint`` takes no
+tensor ``high``): uniform to within float64 rounding, a 2**-53 share of a
+row, the same formula on the CPU and on the card.  Below a host int (the
+env index) it is ``torch.randint``'s.
 """
 
 import torch
@@ -33,8 +42,9 @@ class ReplayBuffer:
         # [capacity, nr_envs, ...] of the field's type
         self.storage = storage
         self.layout = layout     # ((name, offset, width, trailing_shape, dtype), ...) or None
-        self.pos = 0             # write head
-        self.size = 0            # filled rows
+        device = self.device
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)    # write head
+        self.size = torch.zeros((), dtype=torch.int64, device=device)   # filled rows
 
     @property
     def packed(self):
@@ -117,28 +127,46 @@ def _unpack_rows(layout, rows, batch_shape):
 
 
 def add(buffer, transition):
-    """Write one ``[nr_envs, ...]`` row per field at the write head, in place
-    (cast to each field's type)."""
+    """Write one ``[nr_envs, ...]`` row per field at the device write head, in
+    place (cast to each field's type); the head and the fill advance in
+    place."""
+    index = buffer.pos.reshape(1)
     if buffer.packed:
-        buffer.storage[:, buffer.pos] = _pack_row(buffer.layout, transition, buffer.nr_envs)
+        buffer.storage.index_copy_(1, index, _pack_row(buffer.layout, transition, buffer.nr_envs)[:, None])
     else:
         for name, field in buffer.storage.items():
-            field[buffer.pos] = transition[name]
-    buffer.pos = (buffer.pos + 1) % buffer.capacity
-    buffer.size = min(buffer.size + 1, buffer.capacity)
+            field.index_copy_(0, index, transition[name].to(field.dtype)[None])
+    buffer.pos.add_(1).remainder_(buffer.capacity)
+    buffer.size.add_(1).clamp_(max=buffer.capacity)
 
 
-def _randint(generator, high, batch_size, device):
-    return torch.randint(0, high, (batch_size,), generator=generator, device=device)
+def draw_indices(generator, high, batch_size, device):
+    """``batch_size`` int64 indices uniform in [0, ``high``).  Below a 0-dim
+    integer tensor (the device fill, read on the device): ``floor(u *
+    high)`` with ``u`` a float64 uniform in [0, 1), kept below ``high``.
+    Below a host int: ``torch.randint``."""
+    if not isinstance(high, torch.Tensor):
+        return torch.randint(0, high, (batch_size,), generator=generator, device=device)
+    u = torch.rand((batch_size,), generator=generator, device=device, dtype=torch.float64)
+    return torch.minimum((u * high).long(), high - 1)
+
+
+def start_rows(buffer, n_step):
+    """The rows a sample may start at, a 0-dim device tensor: the fill, or
+    with ``n_step > 1`` the rows with ``n_step`` rows at or after them (at
+    least 1)."""
+    if n_step == 1:
+        return buffer.size
+    return torch.clamp(buffer.size - n_step + 1, min=1)
 
 
 def sample(buffer, generator, batch_size, t_idx=None, e_idx=None):
     """Uniform sample of ``batch_size`` transitions -> dict of ``[batch, ...]``."""
     device = buffer.device
     if t_idx is None:
-        t_idx = _randint(generator, buffer.size, batch_size, device)
+        t_idx = draw_indices(generator, start_rows(buffer, 1), batch_size, device)
     if e_idx is None:
-        e_idx = _randint(generator, buffer.nr_envs, batch_size, device)
+        e_idx = draw_indices(generator, buffer.nr_envs, batch_size, device)
     if not buffer.packed:
         return {name: field[t_idx, e_idx] for name, field in buffer.storage.items()}
     rows = buffer.storage[e_idx, t_idx]                     # ONE [batch, D] gather
@@ -157,13 +185,13 @@ def sample_nstep(buffer, generator, batch_size, n_step, gamma, t0=None, e_idx=No
     device = buffer.device
     if t0 is None:
         # valid start rows: at least n_step rows before the write head when full
-        t0 = _randint(generator, max(buffer.size - n_step + 1, 1), batch_size, device)
+        t0 = draw_indices(generator, start_rows(buffer, n_step), batch_size, device)
     if e_idx is None:
-        e_idx = _randint(generator, buffer.nr_envs, batch_size, device)
+        e_idx = draw_indices(generator, buffer.nr_envs, batch_size, device)
 
     # When the buffer is full the circular write head means "row pos-1" is
     # the newest; re-base indices so consecutive t0+k never wraps over the head.
-    base = buffer.pos if buffer.size >= buffer.capacity else 0
+    base = torch.where(buffer.size >= buffer.capacity, buffer.pos, 0)
     steps = torch.arange(n_step, device=device)
     rows = (base + t0[:, None] + steps[None, :]) % buffer.capacity     # [batch, n]
     if buffer.packed:

@@ -17,7 +17,8 @@ over ``runner.coordinator_address`` when it is set (``host:port`` or a
 Collectives: **only ``all_reduce`` and ``broadcast``**.  Gloo supports no
 other collective on CUDA tensors, and the same code runs on gloo over CPU
 tensors (the CPU tests), on gloo with two ranks sharing one card (NCCL
-refuses two ranks on one device) and on NCCL over real cards.  An
+refuses two ranks on one device; a CUDA tensor's collective goes through
+a host copy, ``_all_reduce``) and on NCCL over real cards.  An
 all-gather is an all-reduce of a zero-padded buffer (``gather_rows``).
 
 Draws are global: JAX's keys are, so a dp run draws what a dp = 1 run
@@ -134,7 +135,7 @@ class Mesh:
         if size == 1 or not tensors:
             return tensors
         flat = torch.cat([t.reshape(-1).to(torch.promote_types(t.dtype, torch.float32)) for t in tensors])
-        dist.all_reduce(flat, group=handle)
+        _all_reduce(flat, handle)
         flat /= size
         offset = 0
         for t in tensors:
@@ -148,7 +149,7 @@ class Mesh:
         if size == 1:
             return x
         x = x.clone()
-        dist.all_reduce(x, group=handle)
+        _all_reduce(x, handle)
         return x
 
     def mean(self, x, group=DP_AXIS):
@@ -195,7 +196,7 @@ class Mesh:
         n = x.shape[0]
         buffer = torch.zeros((size * n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         buffer[r * n:(r + 1) * n] = x
-        dist.all_reduce(buffer, group=handle)
+        _all_reduce(buffer, handle)
         return buffer
 
     def broadcast_bytes(self, data):
@@ -232,6 +233,20 @@ class Mesh:
 SINGLE = Mesh()
 
 
+def _all_reduce(x, group):
+    """``dist.all_reduce`` of ``x`` over ``group``, in place.  Under gloo a
+    CUDA tensor goes through a host copy, taken after the work queued
+    before it and written back on the current stream, so the collective is
+    ordered with the stream's work by these copies, not by gloo's own CUDA
+    streams and events."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host = x.cpu()
+        dist.all_reduce(host, group=group)
+        x.copy_(host)
+    else:
+        dist.all_reduce(x, group=group)
+
+
 def _collective_device():
     """Where the default group's collectives take their tensors: this
     rank's card under NCCL, the CPU under gloo."""
@@ -246,13 +261,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         x = x.clone()
-        dist.all_reduce(x, group=group)
+        _all_reduce(x, group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
+        _all_reduce(grad, ctx.group)
         return grad, None
 
 

@@ -5,7 +5,10 @@
   and PPO with memory actions; PPO-LSTM, -GRU, -Mamba-2 and -transformer on
   the masked Pendulum, REPPO on the Ant and on Pendulum, PQN on CartPole;
   PPO and REPPO on the robot's plane, PPO-LSTM on its default heightfield
-  and on soccer), one learning iteration after a warm-up iteration runs
+  and on soccer; FastTD3 on the Ant, and FastTD3, FastSAC, SAC, TD3 and
+  DDPG on Pendulum, whose learning iteration is one learning step on the
+  model's prefilled replay buffer, with logging on), one learning
+  iteration after a warm-up iteration runs
   under ``torch_parity.NoHostRead``, a dispatch mode that raises on
   ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``bool()`` of a
   tensor) and on ``aten.lift_fresh`` (a tensor made from host data, which
@@ -13,12 +16,14 @@
   refusing to make a new generator (the physics engine's eager path, which
   these CPU iterations run, keeps its constants on the device); the env
   state's ``map_tensors`` / ``copy_`` and the carry's ``copy_carry_`` round trip
-  (the recurrent policy's carry, PQN's update step) that ends a captured
-  iteration;
+  (the recurrent policy's carry, PQN's update step, the off-policy
+  learning-step count) that ends a captured iteration;
 - (b) no rebinding: every tensor the model holds (the nets' parameters,
   Adam's state, REPPO's normalizer and old-policy snapshot, the device
-  counts and rates) is the same tensor, at the same address, after an
-  eager iteration as before it, for every registration that captures;
+  counts and rates; the off-policy targets, normalizer and metric sums, and
+  the replay buffer's storage, write head and fill) is the same tensor, at
+  the same address, after an eager iteration as before it, for every
+  registration that captures;
 - (c) ESPO's branchless stop against the JAX package's ESPO: parameters,
   Adam's moments and step counts, ``nr_active_epochs`` and every metric,
   with the stop firing in the second epoch (f32 on both sides, 1e-5, as
@@ -30,14 +35,19 @@
   on, and through two learning iterations; PQN's device epsilon against
   JAX's ``PQN.epsilon`` and its restart at every ``train()`` call;
 - (e) the selection rule (``capture_choice``) on stub models on
-  ``torch.device("cuda")``, which needs no card: capture for the eleven
+  ``torch.device("cuda")``, which needs no card: capture for the sixteen
   registrations on the Ant, CartPole and Pendulum (wrapped or not)
   and for the robot and soccer envs, wrapped or not; eager with its reason
   for a dp or tp mesh, parallel seeds or the CPU (on the Ant and on the
   robot), a host env, the pixel envs, an algorithm without a captured
-  iteration.
+  iteration (a SAC subclass that does not capture among them);
+- (f) the off-policy parts a captured learning step needs: the TD3
+  family's branchless policy delay against the eager branch it replaced,
+  and FastSAC's and SAC's device learning rate against the host schedule
+  (``test_torch_replay_buffer.py`` holds the device write head and fill,
+  ``test_torch_train_state.py`` the device Adam / AdamW step).
 
-The capture itself runs only on the card: ``chip_smoke.py`` phases 48-50.
+The capture itself runs only on the card: ``chip_smoke.py`` phases 48-51.
 """
 
 import types
@@ -99,6 +109,16 @@ REGISTRATIONS = {
                                  {**ROBOT, "algorithm.nr_steps": 2, "algorithm.policy_hidden_dim": 16,
                                   "algorithm.critic_hidden_dim": 16, **PLANE}),
 }
+# the off-policy families that capture: a learning iteration is one learning
+# step on the model's replay buffer (16 prefill rows, batch 16), logging on
+OFF_POLICY = {**NETS, "algorithm.logging_active": True, "environment.nr_envs": 4, "algorithm.batch_size": 16,
+              "algorithm.learning_starts": 16, "algorithm.buffer_size": 256, "algorithm.total_timesteps": 256}
+OFF_POLICY_REGISTRATIONS = {
+    "fasttd3 on the Ant": ("fasttd3", "locomotion.ant", {**OFF_POLICY, "algorithm.n_step": 3}),
+    **{f"{algorithm} on Pendulum": (algorithm, "classic.pendulum", OFF_POLICY)
+       for algorithm in ("fasttd3", "fastsac", "sac", "td3", "ddpg")},
+}
+REGISTRATIONS.update(OFF_POLICY_REGISTRATIONS)
 
 
 def _registration(name):
@@ -108,20 +128,35 @@ def _registration(name):
 
 def _initial_carry(model):
     """The rest of a ``train()`` call's device carry at its start: the
-    recurrent policy's zero carry, PQN's update step 0, or nothing."""
+    recurrent policy's zero carry, PQN's update step 0, an off-policy
+    family's learning-step count, or nothing.  An off-policy model first
+    gets its replay buffer and prefill (``_init_train_carry``), and its
+    count is a device tensor, as a captured step holds it (the eager loop
+    counts on the host), from 1: the warm-up is step 1 and the checked
+    iteration step 2, one where the TD3 family's delayed policy steps too."""
     if hasattr(model, "policy_carry"):
         return (model.policy.initialize_carry(model.nr_envs),)
+    if hasattr(model, "buffer"):
+        model._init_train_carry()
+        return (torch.ones((), dtype=torch.int64),)
     if hasattr(model, "epsilon"):
         return (torch.zeros((), dtype=torch.int64),)
     return ()
 
 
+def _optimizers(model):
+    """Every optimizer the model holds, a ``TrainState``'s too."""
+    for value in vars(model).values():
+        optimizer = value if isinstance(value, torch.optim.Optimizer) else getattr(value, "optimizer", None)
+        if isinstance(optimizer, torch.optim.Optimizer):
+            yield optimizer
+
+
 def _adam_steps(model):
     """Each optimizer's step count (of its first parameter with a state)."""
     out = []
-    for value in vars(model).values():
-        if isinstance(value, torch.optim.Optimizer):
-            out += [int(state["step"]) for state in value.state.values()][:1]
+    for optimizer in _optimizers(model):
+        out += [int(state["step"]) for state in optimizer.state.values()][:1]
     return out
 
 
@@ -150,6 +185,10 @@ def test_learning_iteration_reads_nothing_back(name):
         assert mine is not ref and torch.equal(mine, ref)
     if name == "pqn on CartPole":
         assert int(static_carry[0]) == 2
+    if name in OFF_POLICY_REGISTRATIONS:
+        assert int(static_carry[0]) == 3 and model.initial_step(3) == 3   # the CPU's eager loop counts on the host
+        assert len(steps) == len(model.state_names) - ("obs_normalizer" in model.state_names)
+        assert set(model.metric_sums) >= set(metrics) and all(torch.isfinite(v) for v in model.metric_sums.values())
 
 
 @pytest.mark.parametrize("name", list(REGISTRATIONS))
@@ -168,6 +207,17 @@ def test_learning_iteration_rebinds_no_model_state(name):
     assert not rebound, rebound
     if name == "reppo on the Ant":
         assert "obs_normalizer.mean" in before and any(k.startswith("old_policy.") for k in before)
+    if name in OFF_POLICY_REGISTRATIONS:
+        assert {"buffer.storage", "buffer.pos", "buffer.size"} <= set(before)
+        assert any(k.startswith("metric_sums.") for k in before)
+        for state_name in model.state_names:
+            state = getattr(model, state_name)
+            if state_name == "obs_normalizer":
+                assert {"obs_normalizer.mean", "obs_normalizer.var", "obs_normalizer.count"} <= set(before)
+                continue
+            assert f"{state_name}.optimizer.0.exp_avg" in before and f"{state_name}.optimizer.0.step" in before
+            if state.target is not None:
+                assert any(k.startswith(f"{state_name}.target.") for k in before)
 
 
 def test_state_copy_refuses_another_structure():
@@ -363,7 +413,8 @@ def _algorithm_class(name):
 
 
 CAPTURING = ["ppo", "espo", "ppo_dtrl", "ppo_history_window", "ppo_memory_actions",
-             "ppo_lstm", "ppo_gru", "ppo_mamba2", "ppo_transformer", "reppo", "pqn"]
+             "ppo_lstm", "ppo_gru", "ppo_mamba2", "ppo_transformer", "reppo", "pqn",
+             "fasttd3", "fastsac", "sac", "td3", "ddpg"]
 
 
 @pytest.mark.parametrize("algorithm", CAPTURING)
@@ -397,8 +448,11 @@ def test_capture_choice_runs_everything_else_eagerly():
         "a dp mesh": (_stub(ppo, ant, dp=2), "dp = 2"),
         "a tp mesh": (_stub(ppo, ant, tp=2), "tp = 2"),
         "parallel seeds": (_stub(ppo, ant, parallel=types.SimpleNamespace(nr_seeds=4)), "4 parallel seeds"),
-        "an algorithm without it": (_stub(_algorithm_class("sac"), ant), "SAC has no captured"),
-        "an off-policy family": (_stub(_algorithm_class("fasttd3"), ant), "FastTD3 has no captured"),
+        "an algorithm without it": (_stub(_algorithm_class("dqn"), ant), "DQN has no captured"),
+        "an off-policy family": (_stub(_algorithm_class("mpo"), ant), "MPO has no captured"),
+        # SAC captures, its subclasses that do not declare False
+        **{f"SAC's subclass {name}": (_stub(_algorithm_class(name), ant), f"{cls} has no captured")
+           for name, cls in (("flashsac", "FlashSAC"), ("redq", "REDQ"), ("simbav2", "SimbaV2"))},
     }
     # the robot and soccer envs capture, but not on the CPU, a mesh or with
     # parallel seeds
@@ -410,7 +464,7 @@ def test_capture_choice_runs_everything_else_eagerly():
         cases[f"a tp mesh on {name}"] = (_stub(ppo_lstm, robot, tp=2), "tp = 2")
         cases[f"parallel seeds on {name}"] = (_stub(ppo_lstm, robot, parallel=types.SimpleNamespace(nr_seeds=4)),
                                               "4 parallel seeds")
-        cases[f"SAC on {name}"] = (_stub(_algorithm_class("sac"), robot), "SAC has no captured")
+        cases[f"FlashSAC on {name}"] = (_stub(_algorithm_class("flashsac"), robot), "FlashSAC has no captured")
     for algorithm in CAPTURING:
         cls = _algorithm_class(algorithm)
         for name in ("HostEnv", "NativeEnvBatch", "PixelChase", "PixelGrid"):
@@ -419,3 +473,65 @@ def test_capture_choice_runs_everything_else_eagerly():
     for what, (model, reason) in cases.items():
         capture, why = capture_choice(model)
         assert not capture and reason in why, (what, why)
+
+
+@pytest.mark.parametrize("algorithm", ["fasttd3", "td3"])
+def test_branchless_policy_delay_is_the_eager_branch(algorithm):
+    """Four updates at delay 2 from the device learning-step count (a
+    captured step's): the policy's Adam count reaches 2, the policy, its
+    Adam state and both targets move only on the even steps, and every
+    tensor equals, bit for bit, the same updates from the host count,
+    which branch on the host as the eager loop does."""
+    overrides = {**OFF_POLICY, "algorithm.policy_delay": 2}
+    if algorithm == "fasttd3":
+        overrides = {**OFF_POLICY, "algorithm.n_step": 1, "algorithm.nr_critic_updates_per_policy_update": 2}
+    select, branch = (create_model(make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **overrides))
+                      for _ in range(2))
+    rng = np.random.default_rng(7)
+    moved_at = []
+    for step in range(4):
+        batch = {"observation": rng.normal(size=(16, 3)), "next_observation": rng.normal(size=(16, 3)),
+                 "action": rng.uniform(-1, 1, size=(16, 1)), "reward": rng.normal(size=16),
+                 "terminated": (rng.random(16) < 0.2).astype(np.float64)}
+        batch = {k: torch.tensor(v, dtype=torch.float32) for k, v in batch.items()}
+        noise = torch.tensor(rng.normal(size=(16, 1)), dtype=torch.float32)
+        before = {k: v.clone() for k, v in model_tensors(select).items()}
+        count = torch.full((), step, dtype=torch.int64)   # a captured step's count
+        with NoHostRead():
+            select.update(batch, count, smoothing_noise=noise)
+        branch.update(batch, step, smoothing_noise=noise)
+        after = model_tensors(select)
+        for k, v in model_tensors(branch).items():
+            assert torch.equal(after[k], v), (step, k)
+        delayed = [k for k in after if k.startswith(("policy.", "critic.target."))]
+        moved = {k for k in delayed if k not in before or not torch.equal(after[k], before[k])}
+        moved_at.append(bool(moved))
+        assert not moved or {k for k in delayed if k.startswith(("policy.target.", "critic.target."))} <= moved
+        critic = [k for k in after if k.startswith("critic.") and not k.startswith(("critic.target.", "critic.optimizer."))]
+        assert critic and all(k not in before or not torch.equal(after[k], before[k]) for k in critic), step
+    assert moved_at == [True, False, True, False]
+    assert select.policy.step_count() == 2 and select.critic.step_count() == 4
+
+
+@pytest.mark.parametrize("algorithm", ["sac", "fastsac"])
+def test_device_learning_rate_is_the_host_schedule(algorithm):
+    """SAC's and FastSAC's rate from Adam's device count equals
+    ``learning_rate_at`` of the host count exactly (the same float64
+    arithmetic), annealed and constant, and a learning iteration's
+    ``lr/learning_rate`` metric is its float32."""
+    overrides = {**OFF_POLICY, "algorithm.anneal_learning_rate": True, "algorithm.total_timesteps": 4 * 64}
+    model = create_model(make_config(f"{algorithm}.cuda", "classic.pendulum.cuda", **overrides))
+    assert model.learning_rate_tensor().dtype == torch.float64
+    assert float(model.learning_rate_tensor()) == model.learning_rate_at(0)
+    state, *carry = model.train_env.reset(0), *_initial_carry(model)
+    rates = []
+    for _ in range(3):
+        rates.append(model.learning_rate_at(model.policy.step_count()))
+        state, *carry, metrics = model.learning_iteration(state, *carry)
+        assert float(metrics["lr/learning_rate"]) == float(np.float32(rates[-1]))
+    assert rates[0] > rates[1] > rates[2]
+    for count in (0, 1, 17, 63):
+        model.policy.optimizer.state[next(model.policy.module.parameters())]["step"].fill_(count)
+        assert float(model.learning_rate_tensor()) == model.learning_rate_at(count), count
+    model.anneal_learning_rate = False
+    assert float(model.learning_rate_tensor()) == model.learning_rate_at(63) == model.learning_rate
